@@ -1,0 +1,80 @@
+"""A virtual ring of ``n_dev`` shards on one card (counterpart of
+``repro/dist/mesh.py``).
+
+The JAX package runs the MGG ring over a device mesh, and on one host it
+fakes the devices with ``--xla_force_host_platform_device_count``.  The port
+keeps all shards on one card: shard ``d`` is the row range
+``[d · rows, (d+1) · rows)`` of one tensor, and a ring rotation is an
+explicit copy of the stacked tiles ``(n_dev, tile_rows, D)`` into a second
+buffer, shard ``i``'s tile landing at shard ``i + 1`` (the reference's
+``perm = (i, i+1)``).
+
+On the card the copy runs on a side stream ordered by CUDA events, so the
+rotation that brings the next tile overlaps the gather-sum of the current
+one, as the reference's ``ppermute`` does.  On the CPU the same calls run in
+order.  NCCL across real cards is a later slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["VirtualRing", "resolve_device"]
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for the CPU.  Raises when CUDA is asked for (or defaulted to) and is
+    missing — the port never falls back to the CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class VirtualRing:
+    """``n_dev`` virtual shards on ``device``, rotated by explicit copies."""
+
+    def __init__(self, n_dev: int, device="cuda"):
+        if n_dev < 1:
+            raise ValueError("n_dev must be positive")
+        self.n_dev = int(n_dev)
+        self.device = resolve_device(device)
+        self._side = (torch.cuda.Stream(self.device)
+                      if self.device.type == "cuda" else None)
+
+    def rotate(self, src: torch.Tensor,
+               dst: torch.Tensor) -> Optional[torch.cuda.Event]:
+        """Enqueue ``dst[(i + 1) % n] = src[i]`` for the stacked tiles.
+
+        On the card the copy is issued on the side stream after everything
+        already queued on the current stream (which wrote ``src`` and last
+        read ``dst``); the returned event marks its end — pass it to
+        :meth:`wait` before reading ``dst``.
+        """
+        if self._side is None:
+            _roll_into(src, dst)
+            return None
+        self._side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._side):
+            _roll_into(src, dst)
+            done = torch.cuda.Event()
+            done.record(self._side)
+        return done
+
+    def wait(self, token: Optional[torch.cuda.Event]) -> None:
+        """Order the current stream after the rotation ``token``."""
+        if token is not None:
+            torch.cuda.current_stream(self.device).wait_event(token)
+
+
+def _roll_into(src: torch.Tensor, dst: torch.Tensor) -> None:
+    dst[1:].copy_(src[:-1])
+    dst[0].copy_(src[-1])

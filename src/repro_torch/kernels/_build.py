@@ -1,0 +1,87 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) with nvcc + ctypes.
+
+Each source compiles on first use into one shared library with a plain C
+interface, under ``build/kernels/`` at the root of the checkout (listed in
+``.gitignore``).  The file name carries a hash of the source and the flags,
+so an edited kernel is rebuilt and an unchanged one is loaded as it is.
+The library includes no PyTorch header, so a build takes seconds.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["library", "build_seconds", "BUILD_DIR"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+# seconds spent in nvcc per source name, for the smoke script's report
+build_seconds: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def _compile(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"{src.stem}-{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".{src.stem}-",
+                               suffix=".so")
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_seconds[src.name] = time.perf_counter() - t0
+    return out
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    # buf, nbrs, mask, out, P, ps, D, stream
+    "mgg_gather_sum_pipelined": [_P, _P, _P, _P, _L, _I, _I, _P],
+    # buf, nbrs, mask, out, P, ps, D, pb, stream
+    "mgg_gather_sum_blocked": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # out, partial, order, seg_rows, seg_start, n_seg, D, stream
+    "mgg_segment_add_ordered": [_P, _P, _P, _P, _P, _L, _I, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str = "gather_sum") -> ctypes.CDLL:
+    """Compile (once per source version) and load ``csrc/<name>.cu``."""
+    lib = ctypes.CDLL(str(_compile(CSRC / f"{name}.cu")))
+    for fn, argtypes in _SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib

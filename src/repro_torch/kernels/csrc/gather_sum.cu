@@ -1,0 +1,264 @@
+// MGG neighbor gather-sum kernels for Hopper (sm_90a), bound with ctypes.
+//
+// K1 gather_sum_pipelined  replaces repro/kernels/neighbor_agg.py
+//                          gather_sum_pipelined_call (_pipelined_kernel).
+// K2 gather_sum_blocked    replaces repro/kernels/neighbor_agg.py
+//                          gather_sum_blocked_call (_blocked_kernel).
+// K3 segment_add_ordered   has no Pallas counterpart: it replaces the
+//                          per-ring-step ``out.at[tgt].add(partial)`` of
+//                          repro/core/pipeline.py (_mgg_shard_body).
+//
+// K1/K2 compute out[p] = sum_j mask[p, j] * buf[nbrs[p, j]] in fp32, the
+// slots summed in order j = 0 .. ps-1 (masked slots are skipped: they add 0).
+//
+// What bounds them: bytes.  Each valid slot reads one D-wide row at a
+// data-dependent address (a gather), plus the partition's ids and mask, and
+// each partition writes one row: no arithmetic to speak of, so the bound is
+// (valid_slots * D * 4 + P * ps * 5 + P * D * 4) bytes over the card's
+// memory rate.  At the slice's width (D = 16) a row is 64 bytes, two 32-byte
+// sectors, so the gather is latency-bound long before it is rate-bound: the
+// designs keep many independent row loads in flight.
+//
+// K1's design: a group of `tpp` threads (a power of two, <= 32) owns one
+// partition, so at D = 16 one warp covers two partitions.  Each thread owns
+// up to kVPT columns of a column chunk.  While it adds slot j, the next
+// slot's row is already in flight into shared memory through cp.async
+// (double buffer) -- the counterpart of the row DMA that Pallas
+// double-buffers from the BlockSpec index map.  Each thread reads back only
+// the words it copied itself, so no block barrier is needed.
+//
+// K2's design: one block owns pb partitions (the paper's warps-per-block
+// knob), one warp per partition; the block stages its partitions' ids and
+// mask in shared memory once and each lane loops over the slots for its
+// columns.  P need not be a multiple of pb.
+//
+// K3's design: targets are sorted only up to their padding, and a row with
+// degree > ps owns several partitions, so a plain scatter-add needs atomics
+// and its bits change from run to run.  The host builds, once per plan, a
+// stable argsort of each target array plus segment offsets; here one thread
+// owns one (destination row, column) and adds that row's partials in
+// partition order.  One owner per output word: deterministic, no atomics.
+// It moves (P * D * 4 + P * 4 + S * 8 + 2 * S * D * 4) bytes for P partials
+// into S rows; its time is set by the longest segment (a hub row), whose
+// loads it batches so that they are in flight together.
+//
+// Every launch runs on the caller's stream, allocates nothing and returns
+// cudaGetLastError().
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // K1 / K3 block size
+constexpr int kVPT = 4;        // K1: columns per thread per column chunk
+constexpr int kSegBatch = 32;  // K3: partials loaded ahead of their adds
+
+__device__ __forceinline__ void cp_async_4(float* smem_dst,
+                                           const float* gmem_src) {
+  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem_src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__global__ void gather_sum_pipelined_kernel(const float* __restrict__ buf,
+                                            const int* __restrict__ nbrs,
+                                            const uint8_t* __restrict__ mask,
+                                            float* __restrict__ out,
+                                            long long P, int ps, int D,
+                                            int tpp) {
+  // stage[(b * kVPT + v) * blockDim.x + threadIdx.x]: buffer b, column v of
+  // this thread -- consecutive threads on consecutive words.
+  extern __shared__ float stage[];
+  const int lane = threadIdx.x & (tpp - 1);
+  const long long p =
+      static_cast<long long>(blockIdx.x) * (blockDim.x / tpp) +
+      threadIdx.x / tpp;
+  const bool active = p < P;
+  const int* nb = nbrs + (active ? p : 0) * ps;
+  const uint8_t* mk = mask + (active ? p : 0) * ps;
+  const int chunk = tpp * kVPT;
+  const int stride = blockDim.x;
+  float* mine = stage + threadIdx.x;
+
+  for (int c0 = 0; c0 < D; c0 += chunk) {
+    float acc[kVPT];
+#pragma unroll
+    for (int v = 0; v < kVPT; ++v) acc[v] = 0.0f;
+
+    // Issue slot j's row (this thread's columns) into buffer j & 1.
+    auto issue = [&](int j) {
+      if (!active || !mk[j]) return;
+      const float* row = buf + static_cast<size_t>(nb[j]) * D;
+      float* dst = mine + (j & 1) * kVPT * stride;
+#pragma unroll
+      for (int v = 0; v < kVPT; ++v) {
+        const int col = c0 + lane + v * tpp;
+        if (col < D) cp_async_4(dst + v * stride, row + col);
+      }
+    };
+
+    issue(0);
+    cp_async_commit();
+    for (int j = 0; j < ps; ++j) {
+      if (j + 1 < ps) issue(j + 1);
+      cp_async_commit();   // possibly empty: keeps the group count uniform
+      cp_async_wait_one(); // slot j has landed
+      if (active && mk[j]) {
+        const float* src = mine + (j & 1) * kVPT * stride;
+#pragma unroll
+        for (int v = 0; v < kVPT; ++v) {
+          if (c0 + lane + v * tpp < D) acc[v] += src[v * stride];
+        }
+      }
+      // The next issue overwrites this buffer: order the reads above
+      // before it.
+      __syncwarp();
+    }
+    cp_async_wait_all();
+    if (active) {
+#pragma unroll
+      for (int v = 0; v < kVPT; ++v) {
+        const int col = c0 + lane + v * tpp;
+        if (col < D) out[p * D + col] = acc[v];
+      }
+    }
+  }
+}
+
+__global__ void gather_sum_blocked_kernel(const float* __restrict__ buf,
+                                          const int* __restrict__ nbrs,
+                                          const uint8_t* __restrict__ mask,
+                                          float* __restrict__ out, long long P,
+                                          int ps, int D) {
+  extern __shared__ int ids[];  // [pb * ps] neighbor ids, then [pb * ps] mask
+  const int pb = blockDim.x / 32;
+  int* s_nbr = ids;
+  int* s_msk = ids + pb * ps;
+  const long long p0 = static_cast<long long>(blockIdx.x) * pb;
+  for (int i = threadIdx.x; i < pb * ps; i += blockDim.x) {
+    const bool ok = p0 + i / ps < P;
+    s_nbr[i] = ok ? nbrs[p0 * ps + i] : 0;
+    s_msk[i] = ok ? static_cast<int>(mask[p0 * ps + i]) : 0;
+  }
+  __syncthreads();
+  const int w = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long p = p0 + w;
+  if (p >= P) return;
+  const int* my_nbr = s_nbr + w * ps;
+  const int* my_msk = s_msk + w * ps;
+  for (int c = lane; c < D; c += 32) {
+    float acc = 0.0f;
+    for (int j = 0; j < ps; ++j) {
+      if (my_msk[j]) acc += buf[static_cast<size_t>(my_nbr[j]) * D + c];
+    }
+    out[p * D + c] = acc;
+  }
+}
+
+__global__ void segment_add_ordered_kernel(float* __restrict__ out,
+                                           const float* __restrict__ partial,
+                                           const int* __restrict__ order,
+                                           const int* __restrict__ seg_rows,
+                                           const int* __restrict__ seg_start,
+                                           long long n_seg, int D) {
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= n_seg * D) return;
+  const long long s = t / D;
+  const int c = static_cast<int>(t - s * D);
+  float* dst = out + static_cast<size_t>(seg_rows[s]) * D + c;
+  float acc = *dst;
+  const int end = seg_start[s + 1];
+  int k = seg_start[s];
+  // A hub row owns thousands of partitions in one step.  Loading kSegBatch
+  // partials before adding them keeps that many loads in flight instead of
+  // one, and the next batch's ids load while this batch's rows are in
+  // flight; the adds still run in partition order, so the bits do not change.
+  if (k + kSegBatch <= end) {
+    int ids[kSegBatch];
+#pragma unroll
+    for (int u = 0; u < kSegBatch; ++u) ids[u] = order[k + u];
+    for (; k + kSegBatch <= end; k += kSegBatch) {
+      float v[kSegBatch];
+#pragma unroll
+      for (int u = 0; u < kSegBatch; ++u) {
+        v[u] = partial[static_cast<size_t>(ids[u]) * D + c];
+      }
+      const int next = k + kSegBatch;
+#pragma unroll
+      for (int u = 0; u < kSegBatch; ++u) {
+        ids[u] = next + u < end ? order[next + u] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kSegBatch; ++u) acc += v[u];
+    }
+  }
+  for (; k < end; ++k) {
+    acc += partial[static_cast<size_t>(order[k]) * D + c];
+  }
+  *dst = acc;
+}
+
+int threads_per_partition(int D) {
+  int t = 1;
+  while (t < D && t < 32) t *= 2;
+  return t;
+}
+
+}  // namespace
+
+extern "C" {
+
+int mgg_gather_sum_pipelined(const float* buf, const int* nbrs,
+                             const uint8_t* mask, float* out, long long P,
+                             int ps, int D, void* stream) {
+  if (P == 0) return static_cast<int>(cudaGetLastError());
+  const int tpp = threads_per_partition(D);
+  const long long per_block = kThreads / tpp;
+  const unsigned grid = static_cast<unsigned>((P + per_block - 1) / per_block);
+  const size_t smem = 2 * kVPT * kThreads * sizeof(float);
+  gather_sum_pipelined_kernel<<<grid, kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      buf, nbrs, mask, out, P, ps, D, tpp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mgg_gather_sum_blocked(const float* buf, const int* nbrs,
+                           const uint8_t* mask, float* out, long long P,
+                           int ps, int D, int pb, void* stream) {
+  if (P == 0) return static_cast<int>(cudaGetLastError());
+  const unsigned grid = static_cast<unsigned>((P + pb - 1) / pb);
+  const size_t smem = 2 * static_cast<size_t>(pb) * ps * sizeof(int);
+  gather_sum_blocked_kernel<<<grid, pb * 32, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      buf, nbrs, mask, out, P, ps, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mgg_segment_add_ordered(float* out, const float* partial, const int* order,
+                            const int* seg_rows, const int* seg_start,
+                            long long n_seg, int D, void* stream) {
+  if (n_seg == 0) return static_cast<int>(cudaGetLastError());
+  const long long work = n_seg * D;
+  const unsigned grid = static_cast<unsigned>((work + kThreads - 1) / kThreads);
+  segment_add_ordered_kernel<<<grid, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      out, partial, order, seg_rows, seg_start, n_seg, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,143 @@
+"""Thin wrappers around the CUDA gather-sum kernels (``csrc/gather_sum.cu``).
+
+Counterpart of ``repro/kernels/neighbor_agg.py``:
+
+* :func:`gather_sum_pipelined` — K1, for ``gather_sum_pipelined_call``;
+* :func:`gather_sum_blocked` — K2, for ``gather_sum_blocked_call`` (the
+  paper's warps-per-block knob ``pb``);
+* :func:`segment_add_ordered` — K3, the deterministic per-step scatter-add
+  (``out.at[tgt].add`` in the reference), which has no Pallas kernel.
+
+Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
+contiguity, allocates the output, launches on PyTorch's current stream,
+raises if the launch failed, and adds one to its ``launches`` count.  The
+library is built on first use (kernels/_build.py), never at import.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+__all__ = ["gather_sum_pipelined", "gather_sum_blocked",
+           "segment_add_ordered", "blocked_fits", "reset_launch_counts",
+           "launch_counts", "BLOCKED_SMEM_BYTES"]
+
+# K2 stages its partitions' ids and mask in static shared memory; above
+# this the block would need the dynamic opt-in, and pb * 32 threads must
+# fit one block.
+BLOCKED_SMEM_BYTES = 48 * 1024
+MAX_THREADS = 1024
+
+
+def blocked_fits(pb: int, ps: int) -> bool:
+    """Whether K2 can run ``pb`` partitions of ``ps`` slots in one block."""
+    return (1 <= pb and pb * 32 <= MAX_THREADS
+            and 2 * pb * ps * 4 <= BLOCKED_SMEM_BYTES)
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {ndim} dims")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_gather(buf, nbrs, mask):
+    if buf.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on a {buf.device} tensor")
+    _check("buf", buf, torch.float32, 2, buf.device)
+    _check("nbrs", nbrs, torch.int32, 2, buf.device)
+    _check("mask", mask, torch.bool, 2, buf.device)
+    if mask.shape != nbrs.shape:
+        raise ValueError(f"mask {tuple(mask.shape)} != nbrs "
+                         f"{tuple(nbrs.shape)}")
+
+
+def gather_sum_pipelined(buf: torch.Tensor, nbrs: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """K1: ``out[p] = Σ_j mask[p, j] · buf[nbrs[p, j]]`` → (P, D) float32."""
+    _check_gather(buf, nbrs, mask)
+    p, ps = nbrs.shape
+    out = torch.empty((p, buf.shape[1]), dtype=torch.float32,
+                      device=buf.device)
+    rc = _build.library().mgg_gather_sum_pipelined(
+        buf.data_ptr(), nbrs.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        p, ps, buf.shape[1], _stream(buf.device))
+    _raise_on(rc, "gather_sum_pipelined")
+    gather_sum_pipelined.launches += 1
+    return out
+
+
+def gather_sum_blocked(buf: torch.Tensor, nbrs: torch.Tensor,
+                       mask: torch.Tensor, *, pb: int) -> torch.Tensor:
+    """K2: the same sum, one block owning ``pb`` partitions (one warp each)."""
+    _check_gather(buf, nbrs, mask)
+    p, ps = nbrs.shape
+    if not blocked_fits(pb, ps):
+        raise ValueError(f"pb={pb} with ps={ps} does not fit one block")
+    out = torch.empty((p, buf.shape[1]), dtype=torch.float32,
+                      device=buf.device)
+    rc = _build.library().mgg_gather_sum_blocked(
+        buf.data_ptr(), nbrs.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        p, ps, buf.shape[1], pb, _stream(buf.device))
+    _raise_on(rc, "gather_sum_blocked")
+    gather_sum_blocked.launches += 1
+    return out
+
+
+def segment_add_ordered(out: torch.Tensor, partial: torch.Tensor,
+                        order: torch.Tensor, seg_rows: torch.Tensor,
+                        seg_start: torch.Tensor) -> torch.Tensor:
+    """K3, in place: ``out[seg_rows[s]] += Σ partial[order[k]]`` over
+    segment ``s``, in partition order — one owner per output word."""
+    if out.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on a {out.device} tensor")
+    dev = out.device
+    _check("out", out, torch.float32, 2, dev)
+    _check("partial", partial, torch.float32, 2, dev)
+    for name, t in (("order", order), ("seg_rows", seg_rows),
+                    ("seg_start", seg_start)):
+        _check(name, t, torch.int32, 1, dev)
+    if partial.shape[1] != out.shape[1] or order.shape[0] != partial.shape[0]:
+        raise ValueError(f"partial {tuple(partial.shape)} / order "
+                         f"{tuple(order.shape)} do not match out "
+                         f"{tuple(out.shape)}")
+    if seg_start.shape[0] != seg_rows.shape[0] + 1:
+        raise ValueError("seg_start must have one more entry than seg_rows")
+    rc = _build.library().mgg_segment_add_ordered(
+        out.data_ptr(), partial.data_ptr(), order.data_ptr(),
+        seg_rows.data_ptr(), seg_start.data_ptr(), seg_rows.shape[0],
+        out.shape[1], _stream(dev))
+    _raise_on(rc, "segment_add_ordered")
+    segment_add_ordered.launches += 1
+    return out
+
+
+_WRAPPERS = (gather_sum_pipelined, gather_sum_blocked, segment_add_ordered)
+for _fn in _WRAPPERS:
+    _fn.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for fn in _WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}

@@ -1,0 +1,168 @@
+"""repro_torch: the copied framework-free modules give outputs equal to the
+reference's, the port imports no JAX, and its entry points refuse to fall
+back to the CPU on their own."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core as RC
+from repro.serve import HotNodeCache as RHotNodeCache
+from repro.serve import TrafficPhase as RTrafficPhase
+from repro.serve import WorkloadStats as RWorkloadStats
+from repro.serve import ZipfTraffic as RZipfTraffic
+
+import repro_torch.core as TC
+from repro_torch.dist import VirtualRing, resolve_device
+from repro_torch.serve import HotNodeCache as THotNodeCache
+from repro_torch.serve import TrafficPhase as TTrafficPhase
+from repro_torch.serve import WorkloadStats as TWorkloadStats
+from repro_torch.serve import ZipfTraffic as TZipfTraffic
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+def _assert_same(a, b, path="plan"):
+    """Recursive equality over dataclasses / arrays / tuples / scalars."""
+    if dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__, path
+        for f in dataclasses.fields(a):
+            _assert_same(getattr(a, f.name), getattr(b, f.name),
+                         f"{path}.{f.name}")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype, path
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same(x, y, f"{path}[{i}]")
+    else:
+        assert a == b, path
+
+
+def _graphs(gen):
+    if gen == "erdos_renyi":
+        return (RC.erdos_renyi(300, 5.0, seed=4),
+                TC.erdos_renyi(300, 5.0, seed=4))
+    return (RC.power_law(300, 6.0, locality=0.3, seed=4),
+            TC.power_law(300, 6.0, locality=0.3, seed=4))
+
+
+@pytest.mark.parametrize("gen", ["erdos_renyi", "power_law"])
+def test_graph_generators_equal(gen):
+    rg, tg = _graphs(gen)
+    _assert_same(rg, tg)
+    _assert_same(rg.with_self_loops(), tg.with_self_loops())
+    _assert_same(rg.transpose(), tg.transpose())
+    seeds = np.array([0, 17, 123])
+    np.testing.assert_array_equal(RC.khop_in_frontier(rg, seeds, 2),
+                                  TC.khop_in_frontier(tg, seeds, 2))
+    np.testing.assert_array_equal(RC.neighbors_of(rg, seeds),
+                                  TC.neighbors_of(tg, seeds))
+    rgd, rmeta = RC.paper_dataset("products", scale=0.02)
+    tgd, tmeta = TC.paper_dataset("products", scale=0.02)
+    _assert_same(rgd, tgd)
+    assert rmeta == tmeta
+
+
+@pytest.mark.parametrize("gen", ["erdos_renyi", "power_law"])
+@pytest.mark.parametrize("n_dev", [1, 2, 4, 8])
+def test_plans_equal(gen, n_dev):
+    rg, tg = _graphs(gen)
+    rg, tg = rg.with_self_loops(), tg.with_self_loops()
+    rpart, tpart = RC.build_partition(rg, n_dev), TC.build_partition(tg, n_dev)
+    _assert_same(rpart, tpart, "partition")
+    for ps in (1, 4, 8):
+        for dist in (1, 2):
+            _assert_same(RC.plan_from_partition(rpart, ps=ps, dist=dist),
+                         TC.plan_from_partition(tpart, ps=ps, dist=dist),
+                         f"plan(ps={ps}, dist={dist})")
+    x = np.random.default_rng(1).normal(size=(rg.num_nodes, 5)).astype(
+        np.float32)
+    rplan = RC.build_plan(rg, n_dev, ps=4, dist=2)
+    tplan = TC.build_plan(tg, n_dev, ps=4, dist=2)
+    np.testing.assert_array_equal(RC.pad_embeddings(rplan, x),
+                                  TC.pad_embeddings(tplan, x))
+    ids = np.array([0, 5, rg.num_nodes - 1])
+    np.testing.assert_array_equal(RC.pgas_rows(rplan, ids),
+                                  TC.pgas_rows(tplan, ids))
+
+
+def test_layer_plans_mixed_dist_lcm_padding_equal():
+    rg, tg = _graphs("power_law")
+    cfgs = [dict(ps=4, dist=2), dict(ps=8, dist=3, pb=2), dict(ps=4, dist=2)]
+    rl = RC.build_layer_plans(rg, 4, cfgs)
+    tl = TC.build_layer_plans(tg, 4, cfgs)
+    _assert_same(rl, tl, "layer_plans")
+    assert tl[0].plan is tl[2].plan          # shared (ps, dist) → one plan
+    assert tl[0].plan.rows_per_dev == tl[1].plan.rows_per_dev  # lcm layout
+
+
+def test_stats_traffic_hotcache_equal():
+    phases = lambda P: [P(requests=60, alpha=1.2, seeds_max=3,
+                          update_frac=0.1),
+                        P(requests=60, rate=800.0, rotate=True,
+                          update_frac=0.1)]
+    rev = list(RZipfTraffic(500, 6, phases(RTrafficPhase), seed=3))
+    tev = list(TZipfTraffic(500, 6, phases(TTrafficPhase), seed=3))
+    assert len(rev) == len(tev)
+    rs, ts = RWorkloadStats(window=16), TWorkloadStats(window=16)
+    rc, tc = RHotNodeCache(500, capacity=40), THotNodeCache(500, capacity=40)
+    rc.store("table", hot_nodes=range(0, 500, 3))
+    tc.store("table", hot_nodes=range(0, 500, 3))
+    for i, (a, b) in enumerate(zip(rev, tev)):
+        assert a.t == b.t and a.update_node == b.update_node
+        if a.is_update:
+            np.testing.assert_array_equal(a.update_value, b.update_value)
+            dirty = [a.update_node, (a.update_node + 1) % 500]
+            assert rc.invalidate(dirty) == tc.invalidate(dirty)
+            continue
+        np.testing.assert_array_equal(a.seeds, b.seeds)
+        rs.record(a.t, a.seeds, 10 + i)
+        ts.record(b.t, b.seeds, 10 + i)
+        assert rc.lookup(a.seeds) == tc.lookup(b.seeds)
+    assert dataclasses.astuple(rs.snapshot()) == \
+        dataclasses.astuple(ts.snapshot())
+    assert rs.top_nodes(7) == ts.top_nodes(7)
+    assert RWorkloadStats.drift(rs.snapshot(), rs.snapshot()) == \
+        TWorkloadStats.drift(ts.snapshot(), ts.snapshot())
+    assert (rc.hits, rc.misses, rc.invalidations) == \
+        (tc.hits, tc.misses, tc.invalidations)
+    np.testing.assert_array_equal(rc.valid, tc.valid)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.core, repro_torch.kernels\n"
+        "import repro_torch.serve, repro_torch.obs, repro_torch.dist\n"
+        "import repro_torch.launch.serve_gnn\n"
+        "import repro_torch.kernels._build, repro_torch.kernels.neighbor_agg\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=120)
+    assert r.returncode == 0 and "ok" in r.stdout, r.stderr
+
+
+def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VirtualRing(4)
+    from repro_torch.launch import serve_gnn
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_gnn.main(["--scale", "0.01", "--requests", "2"])
+    assert VirtualRing(4, device="cpu").device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="tuner slice"):
+        serve_gnn.main(["--device", "cpu", "--dynamic-tune"])
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        serve_gnn.main(["--device", "cpu", "--model", "gin"])

@@ -1,0 +1,225 @@
+"""repro_torch ring, GCN and serving against the JAX reference.
+
+The same inputs, made with numpy from fixed seeds, go through both
+packages.  In-process the reference runs on its one CPU device; the
+4-shard comparison reads one dump that this file writes when it runs as a
+script in a subprocess with four fake XLA devices:
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \
+        PYTHONPATH=src python tests/test_torch_serve.py OUT.npz 4
+
+Tolerances: the ring 1e-5 (fp32 sums in another order), GCN logits and
+served logits rtol 2e-4 (the reference's own fused-vs-unfused tolerance).
+Inside the port, served == offline holds bitwise.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+D, NCLS = 23, 5
+# (ps, dist, interleave, fused update)
+RING_CASES = [(4, 1, True, False), (8, 2, False, False), (8, 1, True, True),
+              (16, 2, True, True), (1, 3, False, True)]
+
+
+def _graph(C):
+    return C.power_law(360, avg_degree=7.0, locality=0.35, seed=11)
+
+
+def _features(n):
+    return np.random.default_rng(3).normal(size=(n, D)).astype(np.float32)
+
+
+def _update_w():
+    return np.random.default_rng(5).normal(size=(D, 9)).astype(np.float32)
+
+
+def _reference_outputs(n_dev):
+    """Reference ring outputs, GCN params and logits on ``n_dev`` devices."""
+    import jax
+    import jax.numpy as jnp
+    import repro.core as C
+    from repro.dist import flat_ring_mesh
+
+    g = _graph(C)
+    x = _features(g.num_nodes)
+    mesh = flat_ring_mesh(n_dev)
+    out = {}
+    # jit each call: an eager shard_map compiles op by op, many times slower
+    for i, (ps, dist, il, fused) in enumerate(RING_CASES):
+        plan = C.build_plan(g, n_dev, ps=ps, dist=dist)
+        ring = jax.jit(lambda xx, ww, plan=plan, il=il: C.mgg_aggregate(
+            xx, plan, mesh, interleave=il, update_w=ww))
+        w = jnp.asarray(_update_w()) if fused else None
+        out[f"ring{i}"] = np.asarray(
+            ring(jnp.asarray(C.pad_embeddings(plan, x)), w))
+    params = C.MODEL_ZOO["gcn"][0](jax.random.key(0), D, NCLS, hidden=16,
+                                   num_layers=2)
+    for i, layer in enumerate(params["layers"]):
+        out[f"w{i}"], out[f"b{i}"] = np.asarray(layer["w"]), \
+            np.asarray(layer["b"])
+    for fuse in (False, True):
+        eng = C.GNNEngine.build(g, mesh, ps=8, dist=1, fuse_update=fuse)
+        fwd = jax.jit(lambda p, xx, eng=eng:
+                      C.MODEL_ZOO["gcn"][1](p, eng, xx))
+        out[f"gcn_fused{int(fuse)}"] = np.asarray(
+            fwd(params, eng.shard(eng.pad(x))))
+    return out
+
+
+if __name__ == "__main__":
+    np.savez(sys.argv[1], **_reference_outputs(int(sys.argv[2])))
+    sys.exit(0)
+
+
+import jax  # noqa: E402  (after the script entry: it sets no device count)
+import torch  # noqa: E402
+
+import repro.core as RC  # noqa: E402
+from repro.dist import flat_ring_mesh  # noqa: E402
+from repro.serve import GNNServeEngine as RServe  # noqa: E402
+from repro.serve import TrafficPhase as RPhase  # noqa: E402
+from repro.serve import ZipfTraffic as RTraffic  # noqa: E402
+from repro.serve import run_trace as r_run_trace  # noqa: E402
+
+import repro_torch.core as TC  # noqa: E402
+from repro_torch.dist import VirtualRing  # noqa: E402
+from repro_torch.serve import GNNServeEngine as TServe  # noqa: E402
+from repro_torch.serve import TrafficPhase as TPhase  # noqa: E402
+from repro_torch.serve import ZipfTraffic as TTraffic  # noqa: E402
+from repro_torch.serve import run_trace as t_run_trace  # noqa: E402
+
+CPU = "cpu"
+
+
+@pytest.fixture(scope="module")
+def dump4(tmp_path_factory):
+    path = tmp_path_factory.mktemp("ref") / "ref4.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.path.join(os.path.dirname(__file__), "..",
+                                       "src"))
+    r = subprocess.run([sys.executable, __file__, str(path), "4"],
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    return dict(np.load(path))
+
+
+@pytest.fixture(scope="module")
+def ref1():
+    return _reference_outputs(1)
+
+
+def _port_params(ref):
+    return TC.params_from_numpy(
+        {"layers": [{"w": ref[f"w{i}"], "b": ref[f"b{i}"]}
+                    for i in range(2)]}, CPU)
+
+
+def _port_ring(i, n_dev):
+    ps, dist, il, fused = RING_CASES[i]
+    g = _graph(TC)
+    x = _features(g.num_nodes)
+    plan = TC.build_plan(g, n_dev, ps=ps, dist=dist)
+    w = torch.from_numpy(_update_w()) if fused else None
+    out = TC.mgg_aggregate(torch.from_numpy(TC.pad_embeddings(plan, x)),
+                           plan, VirtualRing(n_dev, CPU), interleave=il,
+                           update_w=w)
+    return g, x, plan, out.numpy()
+
+
+@pytest.mark.parametrize("case", range(len(RING_CASES)))
+def test_ring_matches_reference_one_device(ref1, case):
+    _, _, _, got = _port_ring(case, 1)
+    np.testing.assert_allclose(got, ref1[f"ring{case}"], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("case", range(len(RING_CASES)))
+def test_ring_matches_reference_four_shards(dump4, case):
+    g, x, plan, got = _port_ring(case, 4)
+    np.testing.assert_allclose(got, dump4[f"ring{case}"], rtol=1e-5,
+                               atol=1e-5)
+    want = TC.reference_aggregate(g.indptr, g.indices, x)
+    if RING_CASES[case][3]:
+        want = want @ _update_w()
+    np.testing.assert_allclose(TC.unpad_embeddings(plan, got), want,
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("n_dev", [1, 4])
+def test_gcn_logits_match_reference(ref1, dump4, n_dev, fuse):
+    ref = ref1 if n_dev == 1 else dump4
+    g = _graph(TC)
+    eng = TC.GNNEngine.build(g, VirtualRing(n_dev, CPU), ps=8, dist=1,
+                             fuse_update=fuse)
+    xp = eng.shard(eng.pad(_features(g.num_nodes)))
+    got = TC.gcn_apply(_port_params(ref), eng, xp).numpy()
+    np.testing.assert_allclose(got, ref[f"gcn_fused{int(fuse)}"], rtol=2e-4,
+                               atol=1e-5)
+
+
+def test_serving_matches_reference_engine():
+    """One trace (with feature updates and a hot-set rotation) through both
+    engines: the same cached/full decisions, allclose logits."""
+    rg, tg = _graph(RC), _graph(TC)
+    x = _features(rg.num_nodes)
+    params = RC.MODEL_ZOO["gcn"][0](jax.random.key(1), D, NCLS, hidden=16,
+                                    num_layers=2)
+    r_eng = RC.GNNEngine.build(rg, flat_ring_mesh(1), ps=8, dist=1)
+    t_eng = TC.GNNEngine.build(tg, VirtualRing(1, CPU), ps=8, dist=1)
+    r_srv = RServe(r_eng, params, "gcn", x, rg, slots=4)
+    t_srv = TServe(t_eng, TC.params_from_numpy(params, CPU), "gcn", x, tg,
+                   slots=4)
+
+    def phases(P):
+        return [P(requests=24, alpha=1.2, seeds_max=3, update_frac=0.1),
+                P(requests=24, alpha=1.2, seeds_max=3, rotate=True,
+                  update_frac=0.1)]
+
+    r_res = r_run_trace(r_srv, RTraffic(rg.num_nodes, D, phases(RPhase),
+                                        seed=5))
+    t_res = t_run_trace(t_srv, TTraffic(tg.num_nodes, D, phases(TPhase),
+                                        seed=5))
+    assert [r.cached for r in r_res] == [t.cached for t in t_res]
+    assert any(t.cached for t in t_res) and not all(t.cached for t in t_res)
+    for r, t in zip(r_res, t_res):
+        np.testing.assert_array_equal(r.seeds, t.seeds)
+        np.testing.assert_allclose(t.logits, r.logits, rtol=2e-4, atol=1e-5)
+    rr, tr = r_srv.report(), t_srv.report()
+    for key in ("served", "batches", "cache_hit_rate", "cache_stores",
+                "cache_invalidations", "dropped"):
+        assert rr[key] == tr[key], key
+
+
+@pytest.mark.parametrize("n_dev,fuse", [(1, False), (4, False), (4, True)])
+def test_served_logits_bitwise_match_offline(n_dev, fuse):
+    g = _graph(TC)
+    x = _features(g.num_nodes)
+    eng = TC.GNNEngine.build(g, VirtualRing(n_dev, CPU), ps=8, dist=1,
+                             fuse_update=fuse)
+    params = TC.gcn_init(torch.Generator().manual_seed(0), D, NCLS)
+    srv = TServe(eng, params, "gcn", x, g, slots=4)
+    results = t_run_trace(srv, TTraffic(g.num_nodes, D, [
+        TPhase(requests=20, alpha=1.2, seeds_max=3)], seed=7))
+    assert len(results) == 20 and any(r.cached for r in results)
+    with torch.inference_mode():
+        offline = TC.unpad_embeddings(eng.plan, TC.gcn_apply(
+            params, eng, eng.shard(eng.pad(srv.x))).numpy())
+    for r in results:
+        np.testing.assert_array_equal(r.logits, offline[r.seeds])
+
+
+def test_update_features_writes_one_row_in_place():
+    g = _graph(TC)
+    eng = TC.GNNEngine.build(g, VirtualRing(2, CPU), ps=8, dist=1)
+    params = TC.gcn_init(torch.Generator().manual_seed(0), D, NCLS)
+    srv = TServe(eng, params, "gcn", _features(g.num_nodes), g, slots=4)
+    table = srv.xp
+    srv.update_features(17, np.full(D, 2.5, np.float32))
+    assert srv.xp is table                       # no new table
+    np.testing.assert_array_equal(srv.xp.numpy(), eng.pad(srv.x))
