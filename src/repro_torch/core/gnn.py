@@ -15,16 +15,15 @@ GIN, GraphSAGE and GAT arrive with training in the next slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..dist.ring import VirtualRing
 from .graph import CSRGraph
-from .placement import (AggregationPlan, LayerPlan, SharedPartition,
-                        build_layer_plans, build_partition, pad_embeddings,
-                        pad_table)
+from .placement import (AggregationPlan, LayerPlan, build_layer_plans,
+                        pad_embeddings, pad_table)
 from .pipeline import RingArrays, mgg_aggregate, plan_device_arrays
 
 __all__ = ["GNNEngine", "gcn_init", "gcn_stage", "gcn_apply",
@@ -38,11 +37,13 @@ _LATER = "arrives with training (slice 2)"
 class GNNEngine:
     """Graph partitioning state + the pipelined aggregation op.
 
-    One :class:`~repro_torch.core.placement.LayerPlan` per GNN layer, all
-    from one shared partition and one PGAS layout; ``ring_arrays[i]`` is
-    layer ``i``'s plan bound to the card (built once, at :meth:`build`).
-    ``use_kernel=False`` runs the plain versions on any device — the
-    reference's oracle path, used to check the kernels end to end.
+    One :class:`~repro_torch.core.placement.LayerPlan` from one ``(ps,
+    dist, pb)`` config serves every GNN layer; ``ring_arrays[0]`` is that
+    plan bound to the card (built once, at :meth:`build`).  Per-layer
+    plans come with the tuner's slice.  ``use_kernel=False`` (set on a
+    built engine, e.g. with ``dataclasses.replace``) runs the plain
+    versions on any device — the reference's oracle path, used to check
+    the kernels end to end.
     """
 
     layer_plans: List[LayerPlan]
@@ -50,7 +51,6 @@ class GNNEngine:
     ring_arrays: List[RingArrays]
     deg: torch.Tensor                    # padded (N_pad,) float32, deg of A+I
     use_kernel: bool = True
-    partition: Optional[SharedPartition] = None
 
     @staticmethod
     def build(
@@ -61,16 +61,12 @@ class GNNEngine:
         dist: int = 1,
         pb: Optional[int] = None,
         interleave: bool = True,
-        use_kernel: bool = True,
         self_loops: bool = True,
         fuse_update: bool = False,
         topk: Optional[int] = None,
-        layer_configs: Optional[Sequence[Dict]] = None,
-        partition: Optional[SharedPartition] = None,
     ) -> "GNNEngine":
-        """Build an engine on ``ring``; ``layer_configs`` (one
-        ``{ps, dist, pb, ...}`` dict per layer) selects per-layer plans,
-        otherwise one ``(ps, dist, pb)`` config serves every layer."""
+        """Build an engine on ``ring`` whose one ``(ps, dist, pb)`` plan
+        serves every layer."""
         if topk:
             raise NotImplementedError(
                 "the top-k compressed ring arrives in a later slice")
@@ -79,28 +75,18 @@ class GNNEngine:
             # rounding: CUDA matmuls run in full fp32, not TF32
             torch.backends.cuda.matmul.allow_tf32 = False
         g = graph.with_self_loops() if self_loops else graph
-        if layer_configs is None:
-            layer_configs = [dict(ps=ps, dist=dist, pb=pb)]
-        part = partition if partition is not None \
-            else build_partition(g, ring.n_dev)
-        plans = build_layer_plans(g, ring.n_dev, layer_configs,
-                                  partition=part, interleave=interleave,
+        plans = build_layer_plans(g, ring.n_dev,
+                                  [dict(ps=ps, dist=dist, pb=pb)],
+                                  interleave=interleave,
                                   fuse_update=fuse_update)
-        bound = {}  # layers sharing (plan, interleave) share device arrays
-        arrays = []
-        for lp in plans:
-            key = (id(lp.plan), lp.interleave)
-            if key not in bound:
-                bound[key] = plan_device_arrays(
-                    lp.plan, interleave=lp.interleave, device=ring.device)
-            arrays.append(bound[key])
         plan0 = plans[0].plan
+        arrays = [plan_device_arrays(plan0, interleave=interleave,
+                                     device=ring.device)]
         deg = pad_table(plan0.bounds, plan0.rows_per_dev,
                         g.degrees.astype(np.float32)[:, None])[:, 0]
         return GNNEngine(
             layer_plans=plans, ring=ring, ring_arrays=arrays,
             deg=torch.from_numpy(np.maximum(deg, 1.0)).to(ring.device),
-            use_kernel=use_kernel, partition=part,
         )
 
     # -- layer plan access ---------------------------------------------------
