@@ -61,12 +61,11 @@ class GNNEngine:
         dist: int = 1,
         pb: Optional[int] = None,
         interleave: bool = True,
-        self_loops: bool = True,
         fuse_update: bool = False,
         topk: Optional[int] = None,
     ) -> "GNNEngine":
         """Build an engine on ``ring`` whose one ``(ps, dist, pb)`` plan
-        serves every layer."""
+        serves every layer; GCN's ``Â`` takes ``graph`` with self-loops."""
         if topk:
             raise NotImplementedError(
                 "the top-k compressed ring arrives in a later slice")
@@ -74,7 +73,7 @@ class GNNEngine:
             # the dense ·W updates must agree with the reference to fp32
             # rounding: CUDA matmuls run in full fp32, not TF32
             torch.backends.cuda.matmul.allow_tf32 = False
-        g = graph.with_self_loops() if self_loops else graph
+        g = graph.with_self_loops()
         plans = build_layer_plans(g, ring.n_dev,
                                   [dict(ps=ps, dist=dist, pb=pb)],
                                   interleave=interleave,

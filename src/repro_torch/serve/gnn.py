@@ -79,7 +79,6 @@ class GNNServeEngine:
         graph: CSRGraph,             # the raw topology the engine was built on
         *,
         slots: int = 8,
-        self_loops: bool = True,     # must match the engine's build
         stats: Optional[WorkloadStats] = None,
         use_cache: bool = True,
         cache_capacity: Optional[int] = None,
@@ -107,7 +106,7 @@ class GNNServeEngine:
         self.model = model
         self.x = np.array(x, dtype=np.float32)
         self.graph = graph
-        self.g_full = graph.with_self_loops() if self_loops else graph
+        self.g_full = graph.with_self_loops()   # as the engine aggregates
         self.rev = self.g_full.transpose()   # invalidation fan-out
         self.slots = int(slots)
         self.k_hops = len(params["layers"])
