@@ -1,16 +1,24 @@
-"""Full-graph GCN on the MGG ring (counterpart of ``repro/core/gnn.py``).
+"""Full-graph GNNs on the MGG ring (counterpart of ``repro/core/gnn.py``).
 
-GCN (Kipf & Welling), the paper's setting of 2 layers and 16 hidden dims:
-``Z = Â · relu(Â X W¹) W²`` with ``Â = D^{-1/2}(A+I)D^{-1/2}``.  The
-sparse ``Â·X`` runs through :func:`repro_torch.core.pipeline.mgg_aggregate`;
-the dense ``·W`` updates are plain matmuls, in full fp32 (an engine on the
-card turns TF32 off for CUDA matmuls), unless a layer's plan fuses them into the ring.
-Symmetric normalization is folded into per-node scalings so the kernel
-stays a pure masked gather-sum.
+* **GCN** (Kipf & Welling), the paper's setting of 2 layers and 16 hidden
+  dims: ``Z = Â · relu(Â X W¹) W²`` with ``Â = D^{-1/2}(A+I)D^{-1/2}``;
+* **GIN** (Xu et al.), 5 layers and 64 hidden dims:
+  ``h' = MLP((1+ε)h + Σ_{u∈N(v)} h_u)``;
+* **GraphSAGE**-mean, and **GAT** (v1) as two sum-aggregations a head.
 
-Parameters are a plain dict of tensors, ``{"layers": [{"w", "b"}, ...]}``;
-:func:`params_from_numpy` carries the reference's parameter pytree over.
-GIN, GraphSAGE and GAT arrive with training in the next slice.
+The sparse products run through
+:func:`repro_torch.core.pipeline.mgg_aggregate`, which autograd follows
+(its backward is the transposed ring); the dense ``·W`` updates are plain
+matmuls, in full fp32 (an engine on the card turns TF32 off for CUDA
+matmuls, forward and backward), unless a layer's plan fuses them into the
+ring.  Normalizations are folded into per-node scalings so the kernel
+stays a pure masked gather-sum.  :func:`sage_apply_blocks` is GraphSAGE
+over sampled blocks (:mod:`repro_torch.sample`), and
+:func:`masked_cross_entropy` the training loss.
+
+Parameters are plain dicts and lists of tensors, shaped as the
+reference's pytrees (``{"layers": [{"w", "b"}, ...]}`` for GCN);
+:func:`params_from_numpy` carries any of them over.
 """
 from __future__ import annotations
 
@@ -24,13 +32,15 @@ from ..dist.ring import VirtualRing
 from .graph import CSRGraph
 from .placement import (AggregationPlan, LayerPlan, build_layer_plans,
                         pad_embeddings, pad_table)
-from .pipeline import RingArrays, mgg_aggregate, plan_device_arrays
+from .pipeline import (RingArrays, block_neighbor_sum, mgg_aggregate,
+                       plan_device_arrays)
 
-__all__ = ["GNNEngine", "gcn_init", "gcn_stage", "gcn_apply",
+__all__ = ["GNNEngine", "gcn_init", "gcn_stage", "gcn_apply", "gin_init",
+           "gin_stage", "gin_apply", "sage_init", "sage_stage", "sage_apply",
+           "gat_init", "gat_stage", "gat_apply", "sage_apply_blocks",
+           "apply_blocks", "BLOCK_MODELS", "masked_cross_entropy",
            "params_from_numpy", "MODEL_ZOO", "MODEL_STAGES", "num_stages",
            "apply_stage", "apply_from_stage", "aggregation_widths"]
-
-_LATER = "arrives with training (slice 2)"
 
 
 @dataclasses.dataclass
@@ -70,8 +80,9 @@ class GNNEngine:
             raise NotImplementedError(
                 "the top-k compressed ring arrives in a later slice")
         if ring.device.type == "cuda":
-            # the dense ·W updates must agree with the reference to fp32
-            # rounding: CUDA matmuls run in full fp32, not TF32
+            # the dense ·W updates, forward and backward, must agree with
+            # the reference to fp32 rounding: CUDA matmuls run in full
+            # fp32, not TF32
             torch.backends.cuda.matmul.allow_tf32 = False
         g = graph.with_self_loops()
         plans = build_layer_plans(g, ring.n_dev,
@@ -155,6 +166,12 @@ class GNNEngine:
     def mean_aggregate(self, x: torch.Tensor, layer: int = 0) -> torch.Tensor:
         return self.aggregate(x, layer=layer) / self.deg[:, None].to(x.dtype)
 
+    def mean_aggregate_update(self, x: torch.Tensor, w: torch.Tensor,
+                              layer: int = 0) -> torch.Tensor:
+        """Fused ``(D^{-1} A x) @ W`` (same commutation as gcn_norm)."""
+        return self.aggregate_update(x, w, layer=layer) \
+            / self.deg[:, None].to(x.dtype)
+
 
 # ---------------------------------------------------------------------------
 # parameters
@@ -227,36 +244,235 @@ def gcn_apply(params: Dict, engine: GNNEngine,
     return h
 
 
+# ---------------------------------------------------------------------------
+# GIN
+# ---------------------------------------------------------------------------
+
+def gin_init(gen: torch.Generator, in_dim: int, num_classes: int,
+             hidden: int = 64, num_layers: int = 5, device="cpu") -> Dict:
+    """Paper setting: 5 layers, 64 hidden dims; a 2-layer MLP per layer
+    and a scalar ``eps`` (0 at init)."""
+    dims = [in_dim] + [hidden] * num_layers
+    layers = [dict(eps=torch.zeros((), device=device),
+                   mlp1=_dense_init(gen, dims[i], hidden, device),
+                   mlp2=_dense_init(gen, hidden, hidden, device))
+              for i in range(num_layers)]
+    return dict(layers=layers,
+                head=_dense_init(gen, hidden, num_classes, device))
+
+
+def gin_stage(params: Dict, engine: GNNEngine, h: torch.Tensor,
+              i: int) -> torch.Tensor:
+    """GIN stage ``i``: layers 0..L-1 are GIN layers, stage L is the head.
+
+    Fused: ``((A h) + ε h) W₁ = (A h) W₁ + ε (h W₁)`` — the aggregate's
+    ·W₁ runs inside the ring, the ε-scaled self term is a local matmul.
+    """
+    if i == len(params["layers"]):
+        return _dense(params["head"], h)
+    layer = params["layers"][i]
+    if engine.layer_plan(i).fuse_update:
+        z = engine.aggregate_update(h, layer["mlp1"]["w"], layer=i) \
+            + layer["eps"] * (h @ layer["mlp1"]["w"]) + layer["mlp1"]["b"]
+        z = torch.relu(z)
+    else:
+        # (1+ε)h + Σ_{u∈N(v)} h_u: the plan's self-loop gives the 1·h
+        z = engine.aggregate(h, layer=i) + layer["eps"] * h
+        z = torch.relu(_dense(layer["mlp1"], z))
+    return torch.relu(_dense(layer["mlp2"], z))
+
+
+def gin_apply(params: Dict, engine: GNNEngine,
+              x: torch.Tensor) -> torch.Tensor:
+    h = x
+    for i in range(len(params["layers"]) + 1):
+        h = gin_stage(params, engine, h, i)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# GraphSAGE-mean
+# ---------------------------------------------------------------------------
+
+def sage_init(gen: torch.Generator, in_dim: int, num_classes: int,
+              hidden: int = 32, num_layers: int = 2, device="cpu") -> Dict:
+    dims = [in_dim] + [hidden] * (num_layers - 1) + [num_classes]
+    return dict(layers=[
+        dict(self=_dense_init(gen, dims[i], dims[i + 1], device),
+             nbr=_dense_init(gen, dims[i], dims[i + 1], device))
+        for i in range(num_layers)])
+
+
+def sage_stage(params: Dict, engine: GNNEngine, h: torch.Tensor,
+               i: int) -> torch.Tensor:
+    layer = params["layers"][i]
+    if engine.layer_plan(i).fuse_update:
+        nbr = engine.mean_aggregate_update(h, layer["nbr"]["w"], layer=i) \
+            + layer["nbr"]["b"]
+    else:
+        nbr = _dense(layer["nbr"], engine.mean_aggregate(h, layer=i))
+    h = _dense(layer["self"], h) + nbr
+    if i < len(params["layers"]) - 1:
+        h = torch.relu(h)
+    return h
+
+
+def sage_apply(params: Dict, engine: GNNEngine,
+               x: torch.Tensor) -> torch.Tensor:
+    h = x
+    for i in range(len(params["layers"])):
+        h = sage_stage(params, engine, h, i)
+    return h
+
+
+def sage_apply_blocks(params: Dict, h: torch.Tensor, blocks,
+                      *, use_kernel: bool = True) -> torch.Tensor:
+    """GraphSAGE-mean forward over sampled mini-batch blocks.
+
+    ``h`` is the outermost block's source table — ``(num_src, D)`` rows
+    aligned with ``blocks[0]["nbr"]``'s local indices, zeros in the
+    ``-1``-padded slots (``TieredFeatures.gather_rows``).  ``blocks`` is
+    :func:`repro_torch.sample.block_tree`'s list, outermost hop first.
+    Destination rows lead each source table (dst-first), so the self term
+    is ``h[:num_dst]``.  Returns the ``(batch, num_classes)`` seed logits;
+    rows of padded seeds must stay masked in the loss.
+    """
+    layers = params["layers"]
+    if len(blocks) != len(layers):
+        raise ValueError(
+            f"{len(blocks)} blocks for {len(layers)} layers — sample with "
+            f"one fanout per layer")
+    for i, (layer, blk) in enumerate(zip(layers, blocks)):
+        nbr, mask = blk["nbr"], blk["mask"]
+        s = block_neighbor_sum(h, nbr, mask, grad_index=blk["grad"],
+                               use_kernel=use_kernel)
+        deg = mask.sum(dim=-1).clamp_min(1).to(h.dtype)[:, None]
+        h = _dense(layer["self"], h[:nbr.shape[0]]) \
+            + _dense(layer["nbr"], s / deg)
+        if i < len(layers) - 1:
+            h = torch.relu(h)
+    return h
+
+
+# the sampled path is GraphSAGE-style by construction (per-hop fanout
+# bound == per-layer neighbor sample)
+BLOCK_MODELS = {"sage": sage_apply_blocks}
+
+
+def apply_blocks(model: str, params: Dict, h: torch.Tensor, blocks,
+                 *, use_kernel: bool = True) -> torch.Tensor:
+    """The sampled-block forward of ``model`` (GraphSAGE only)."""
+    if model not in BLOCK_MODELS:
+        raise ValueError(
+            f"model {model!r} has no sampled-block path (have: "
+            f"{sorted(BLOCK_MODELS)})")
+    return BLOCK_MODELS[model](params, h, blocks, use_kernel=use_kernel)
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Mean CE over real (non-padding) nodes; padded rows carry mask 0."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = logp.gather(1, labels.long()[:, None])[:, 0]
+    m = mask.to(torch.float32)
+    return -(ll * m).sum() / m.sum().clamp_min(1.0)
+
+
+# ---------------------------------------------------------------------------
+# GAT
+# ---------------------------------------------------------------------------
+
+def gat_init(gen: torch.Generator, in_dim: int, num_classes: int,
+             hidden: int = 32, num_layers: int = 2, heads: int = 4,
+             device="cpu") -> Dict:
+    """GATv1 (Veličković et al.): its softmax over ``a·Wh_u`` is
+    source-decomposable, so each head is two sum-aggregations,
+    ``Σ e^{s_u}·Wh_u`` and ``Σ e^{s_u}``."""
+    dims = [in_dim] + [hidden * heads] * (num_layers - 1) + [num_classes]
+    layers = []
+    for i in range(num_layers):
+        nh = heads if i < num_layers - 1 else 1
+        w = _dense_init(gen, dims[i], dims[i + 1], device)
+        a_l = torch.randn((nh, dims[i + 1] // nh), generator=gen) * 0.1
+        layers.append(dict(w=w, a_l=a_l.to(device)))
+    return dict(layers=layers)
+
+
+def gat_stage(params: Dict, engine: GNNEngine, h: torch.Tensor,
+              i: int) -> torch.Tensor:
+    """GAT's ``W`` runs before aggregation (attention needs ``Wh`` per
+    source), so there is no update to fuse: ``fuse_update`` is a no-op and
+    fused == unfused bitwise."""
+    layer = params["layers"][i]
+    nh = layer["a_l"].shape[0]
+    z = _dense(layer["w"], h)                          # (N, H·hd)
+    npad, total = z.shape
+    hd = total // nh
+    zh = z.reshape(npad, nh, hd)
+    s = torch.einsum("nhd,hd->nh", zh, layer["a_l"])
+    e = torch.exp(torch.nn.functional.leaky_relu(s, 0.2))   # (N, H)
+    num = engine.aggregate((zh * e[..., None]).reshape(npad, total), layer=i)
+    den = engine.aggregate(torch.repeat_interleave(e, hd, dim=1), layer=i)
+    out = (num / den.clamp_min(1e-9)).to(h.dtype)
+    if i < len(params["layers"]) - 1:
+        out = torch.nn.functional.elu(out)
+    return out
+
+
+def gat_apply(params: Dict, engine: GNNEngine,
+              x: torch.Tensor) -> torch.Tensor:
+    h = x
+    for i in range(len(params["layers"])):
+        h = gat_stage(params, engine, h, i)
+    return h
+
+
 MODEL_ZOO = {
     "gcn": (gcn_init, gcn_apply, dict(hidden=16, num_layers=2)),
+    "gin": (gin_init, gin_apply, dict(hidden=64, num_layers=5)),
+    "sage": (sage_init, sage_apply, dict(hidden=32, num_layers=2)),
+    "gat": (gat_init, gat_apply, dict(hidden=16, num_layers=2, heads=4)),
 }
 
+# stage-wise access: the serving engine resumes from a cached layer-1
+# table, folding the same stage functions as the full forward
 MODEL_STAGES = {
     "gcn": gcn_stage,
+    "gin": gin_stage,
+    "sage": sage_stage,
+    "gat": gat_stage,
 }
 
 
 def _check_model(model: str) -> None:
     if model not in MODEL_STAGES:
-        if model in ("gin", "sage", "gat"):
-            raise NotImplementedError(f"model {model!r} {_LATER}")
         raise ValueError(f"unknown model {model!r}")
 
 
 def aggregation_widths(model: str, params: Dict,
                        fused: bool = False) -> List[int]:
-    """Feature width crossing the ring at each aggregation layer."""
+    """Feature width crossing the ring at each aggregation layer (the
+    tuner's per-layer ``D``); ``fused`` widths are the pre-update ones."""
     _check_model(model)
     widths = []
     for layer in params["layers"]:
-        d_in, d_out = layer["w"].shape
-        widths.append(int(d_in if fused else min(d_in, d_out)))
+        if model == "gcn":
+            d_in, d_out = layer["w"].shape
+            widths.append(int(d_in if fused else min(d_in, d_out)))
+        elif model == "gin":
+            widths.append(int(layer["mlp1"]["w"].shape[0]))
+        elif model == "sage":
+            widths.append(int(layer["nbr"]["w"].shape[0]))
+        else:
+            widths.append(int(layer["w"]["w"].shape[1]))
     return widths
 
 
 def num_stages(model: str, params: Dict) -> int:
+    """Stages of ``model``'s forward (GIN's head dense is a stage)."""
     _check_model(model)
-    return len(params["layers"])
+    n = len(params["layers"])
+    return n + 1 if model == "gin" else n
 
 
 def apply_stage(model: str, params: Dict, engine: GNNEngine,

@@ -19,6 +19,18 @@ segment offsets), so the hot path never sorts.  The reference pads every
 shard and step to one partition count for SPMD; the flattened arrays drop
 those all-masked partitions, which only ever added zero rows.
 
+Autograd sees the ring as one ``autograd.Function``: the forward writes
+its output in place and rotates with copies, which autograd cannot follow.
+Its backward is the reference's transposed ring: chunks and steps in
+reverse, each step's ordered scatter-sum (K4) adding into the gradient of
+the rotated tile, which then rotates one shard back; the local work
+scatters straight into ``dx``.  Each group's transposed index
+(:class:`~repro_torch.kernels.ops.GradIndex`, composed with the
+partitions' targets) is built with its forward arrays.  A fused ``·W``
+update differentiates as ``dx = Aᵀ (g Wᵀ)`` and ``dW = (A x)ᵀ g``, with
+``A x`` from one unfused ring.  :func:`block_neighbor_sum` runs a sampled
+block's masked sum on the same gather-sum and its K4 backward.
+
 The bulk, fetch, sparse (top-k) and streamed variants come in later slices.
 """
 from __future__ import annotations
@@ -31,10 +43,11 @@ import torch
 
 from ..dist.ring import VirtualRing
 from ..kernels import ops, ref
+from ..kernels.ops import GradIndex
 from .placement import AggregationPlan
 
 __all__ = ["WorkGroup", "RingArrays", "plan_device_arrays", "mgg_aggregate",
-           "reference_aggregate"]
+           "block_neighbor_sum", "reference_aggregate"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +56,9 @@ class WorkGroup:
 
     ``nbrs`` index rows of the flat buffer the group gathers from (the
     stacked ring tiles or the whole table); ``order``/``seg_rows``/
-    ``seg_start`` drive the ordered segment add into the flat output.
+    ``seg_start`` drive the ordered segment add into the flat output;
+    ``grad`` is the transposed index whose K4 scatter-sum carries the
+    output's gradient back to the rows gathered from.
     """
 
     nbrs: torch.Tensor       # (P, ps) int32
@@ -51,6 +66,7 @@ class WorkGroup:
     order: torch.Tensor      # (P,) int32: partitions sorted stably by target
     seg_rows: torch.Tensor   # (S,) int32: distinct target rows, ascending
     seg_start: torch.Tensor  # (S + 1,) int32: segment offsets into order
+    grad: GradIndex          # masked slots by neighbor row → target rows
 
     @property
     def num_partitions(self) -> int:
@@ -70,7 +86,8 @@ class WorkGroup:
 
         return WorkGroup(nbrs=t(nbrs), mask=t(mask, torch.bool),
                          order=t(order), seg_rows=t(seg_rows),
-                         seg_start=t(seg_start))
+                         seg_start=t(seg_start),
+                         grad=GradIndex.build(nbrs, mask, targets, device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,14 +139,20 @@ def _gather_sum(buf, grp: WorkGroup, use_kernel: bool,
                 pb: Optional[int]) -> torch.Tensor:
     """The paper's warp-level gather+reduce; ``use_kernel=False`` runs the
     plain version on any device (the reference's jnp oracle path)."""
-    if use_kernel:
-        return ops.neighbor_gather_sum(buf, grp.nbrs, grp.mask, pb=pb)
-    return ref.neighbor_gather_sum_ref(buf, grp.nbrs, grp.mask)
+    return ops.neighbor_gather_sum(buf, grp.nbrs, grp.mask, pb=pb,
+                                   use_kernel=use_kernel)
 
 
 def _segment_add(out, partial, grp: WorkGroup, use_kernel: bool) -> None:
     fn = ops.segment_add_ordered if use_kernel else ref.segment_add_ordered_ref
     fn(out, partial, grp.order, grp.seg_rows, grp.seg_start)
+
+
+def _scatter_sum(dbuf, g, grp: WorkGroup, use_kernel: bool) -> None:
+    if grp.grad.num_slots:
+        fn = ops.scatter_sum_ordered if use_kernel \
+            else ref.scatter_sum_ordered_ref
+        fn(dbuf, g, grp.grad)
 
 
 def mgg_aggregate(
@@ -150,7 +173,8 @@ def mgg_aggregate(
     kernel.  ``update_w`` (``(D, D_out)``) fuses the update: the output
     becomes ``(A x) @ W`` with one partial matmul per step, in full fp32.
     ``arrays`` is the plan's :func:`plan_device_arrays` (built here when
-    not given; engines build it once).
+    not given; engines build it once).  Differentiable in ``x`` and
+    ``update_w`` (the transposed ring, module docstring).
     """
     if ring.n_dev != plan.n_dev:
         raise ValueError(f"ring of {ring.n_dev} shards, plan for "
@@ -163,6 +187,38 @@ def mgg_aggregate(
                                     device=x.device)
     elif arrays.interleave != bool(interleave):
         raise ValueError("arrays were built for another interleave flag")
+    return _RingAggregate.apply(x, update_w, plan, ring, arrays, use_kernel,
+                                pb)
+
+
+class _RingAggregate(torch.autograd.Function):
+    """The ring as one differentiable op: forward :func:`_ring_forward`,
+    backward :func:`_ring_backward` (the transposed ring)."""
+
+    @staticmethod
+    def forward(ctx, x, w, plan, ring, arrays, use_kernel, pb):
+        ctx.save_for_backward(None if w is None else x, w)  # x: for dW
+        ctx.ring_args = (plan, ring, arrays, use_kernel, pb)
+        ctx.x_dtype = x.dtype
+        return _ring_forward(x, w, *ctx.ring_args)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        plan, ring, arrays, use_kernel, pb = ctx.ring_args
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            gx = g if w is None else (g @ w.to(torch.float32).t())
+            dx = _ring_backward(gx.contiguous(), plan, ring, arrays,
+                                use_kernel).to(ctx.x_dtype)
+        if w is not None and ctx.needs_input_grad[1]:
+            ax = _ring_forward(x, None, *ctx.ring_args)
+            dw = (ax.to(torch.float32).t() @ g).to(w.dtype)
+        return dx, dw, None, None, None, None, None
+
+
+def _ring_forward(x, update_w, plan, ring, arrays, use_kernel, pb):
     x = x.contiguous()
     n_dev, dist, tile_rows = plan.n_dev, plan.dist, plan.tile_rows
     rows, d_feat = x.shape
@@ -208,6 +264,63 @@ def mgg_aggregate(
                 ring.wait(token)
                 cur, nxt = nxt, cur
     return out.to(x.dtype)
+
+
+def _ring_backward(g, plan, ring, arrays, use_kernel) -> torch.Tensor:
+    """``dx = Aᵀ g`` over the transposed ring.
+
+    Step ``k`` of chunk ``c`` gathered from the chunk's tiles rotated
+    ``k + 1`` shards forward, so its tile gradient goes ``k + 1`` shards
+    back.  Walking the steps in reverse, each step's scatter-sum adds into
+    one accumulator, which then rotates one shard back: after step 0 it
+    holds ``Σ_k roll(d cur_k, -(k + 1))``, the chunk's gradient, with the
+    same ``n_dev - 1`` rotations as the forward.  A rotation is in flight
+    while the step's interleaved local slice scatters into ``dx``.
+    """
+    n_dev, dist, tile_rows = plan.n_dev, plan.dist, plan.tile_rows
+    rows, d = g.shape
+    dx = torch.zeros((rows, d), dtype=torch.float32, device=g.device)
+    if arrays.local is not None:
+        _scatter_sum(dx, g, arrays.local, use_kernel)
+    if n_dev == 1:
+        return dx
+
+    dtiles = dx.view(n_dev, dist, tile_rows, d)
+    acc = torch.empty((n_dev, tile_rows, d), dtype=torch.float32,
+                      device=g.device)
+    nxt = torch.empty_like(acc)
+    for c in reversed(range(dist)):
+        acc.zero_()
+        for k in reversed(range(n_dev - 1)):
+            step = k * dist + c
+            _scatter_sum(acc.view(-1, d), g, arrays.remote_steps[step],
+                         use_kernel)
+            token = ring.rotate_back(acc, nxt)
+            if arrays.local_steps:
+                _scatter_sum(dx, g, arrays.local_steps[step], use_kernel)
+            ring.wait(token)
+            acc, nxt = nxt, acc
+        dtiles[:, c] += acc
+    return dx
+
+
+def block_neighbor_sum(h_src: torch.Tensor, nbr: torch.Tensor,
+                       mask: torch.Tensor, *,
+                       grad_index: Optional[GradIndex] = None,
+                       use_kernel: bool = True) -> torch.Tensor:
+    """Masked neighbor sum over one sampled block → ``(num_dst, D)``.
+
+    ``h_src`` is the block's source table; ``nbr``/``mask`` are the
+    ``(num_dst, fanout)`` tables of :mod:`repro_torch.sample`, whose
+    padding slots point at local row ``num_src`` — a zero sentinel row
+    appended here — so the sampled path rides the ring's gather-sum (K1)
+    and its K4 backward (``grad_index``, from ``block_tree``).  No masked
+    slot points at the sentinel, so it gets no gradient.
+    """
+    sentinel = h_src.new_zeros((1, h_src.shape[1]))
+    buf = torch.cat([h_src, sentinel], dim=0)
+    return ops.neighbor_gather_sum(buf, nbr, mask, grad_index=grad_index,
+                                   use_kernel=use_kernel).to(h_src.dtype)
 
 
 def reference_aggregate(indptr: np.ndarray, indices: np.ndarray,

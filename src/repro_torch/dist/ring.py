@@ -12,7 +12,9 @@ buffer, shard ``i``'s tile landing at shard ``i + 1`` (the reference's
 On the card the copy runs on a side stream ordered by CUDA events, so the
 rotation that brings the next tile overlaps the gather-sum of the current
 one, as the reference's ``ppermute`` does.  On the CPU the same calls run in
-order.  NCCL across real cards is a later slice.
+order.  The backward ring rotates the other way (:meth:`rotate_back`, the
+transpose of ``perm = (i, i+1)``), ordered the same way.  NCCL across real
+cards is a later slice.
 """
 from __future__ import annotations
 
@@ -59,12 +61,22 @@ class VirtualRing:
         read ``dst``); the returned event marks its end — pass it to
         :meth:`wait` before reading ``dst``.
         """
+        return self._enqueue(_roll_into, src, dst)
+
+    def rotate_back(self, src: torch.Tensor,
+                    dst: torch.Tensor) -> Optional[torch.cuda.Event]:
+        """Enqueue ``dst[i] = src[(i + 1) % n]``, the transposed rotation
+        that carries a tile's gradient one shard back; ordered as
+        :meth:`rotate`."""
+        return self._enqueue(_roll_back_into, src, dst)
+
+    def _enqueue(self, copy, src, dst) -> Optional[torch.cuda.Event]:
         if self._side is None:
-            _roll_into(src, dst)
+            copy(src, dst)
             return None
         self._side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._side):
-            _roll_into(src, dst)
+            copy(src, dst)
             done = torch.cuda.Event()
             done.record(self._side)
         return done
@@ -78,3 +90,8 @@ class VirtualRing:
 def _roll_into(src: torch.Tensor, dst: torch.Tensor) -> None:
     dst[1:].copy_(src[:-1])
     dst[0].copy_(src[-1])
+
+
+def _roll_back_into(src: torch.Tensor, dst: torch.Tensor) -> None:
+    dst[:-1].copy_(src[1:])
+    dst[-1].copy_(src[0])

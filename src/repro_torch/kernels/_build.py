@@ -4,7 +4,8 @@ Each source compiles on first use into one shared library with a plain C
 interface, under ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``).  The file name carries a hash of the source and the flags,
 so an edited kernel is rebuilt and an unchanged one is loaded as it is.
-The library includes no PyTorch header, so a build takes seconds.
+The library includes no PyTorch header, so a build takes seconds;
+:func:`build_all` starts one nvcc per source, all at once.
 """
 from __future__ import annotations
 
@@ -16,9 +17,10 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["library", "build_seconds", "BUILD_DIR"]
+__all__ = ["library", "build_all", "build_seconds", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -73,6 +75,12 @@ _SIGNATURES = {
     "mgg_gather_sum_blocked": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
     # out, partial, order, seg_rows, seg_start, n_seg, D, stream
     "mgg_segment_add_ordered": [_P, _P, _P, _P, _P, _L, _I, _P],
+    # dbuf, g, src, seg_rows, seg_start, n_seg, chunk_start, row_chunks,
+    # chunk_sums, n_chunks, D, stream
+    "mgg_scatter_sum_ordered": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _L, _I,
+                                _P],
+    # src, idx, out, B, T, D, stream
+    "mgg_gather_rows": [_P, _P, _P, _L, _L, _I, _P],
 }
 
 
@@ -85,3 +93,14 @@ def library(name: str = "gather_sum") -> ctypes.CDLL:
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def build_all() -> list:
+    """Compile every ``csrc/*.cu`` at once (one nvcc each, in parallel) and
+    load them; returns the source names."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(lambda n: _compile(CSRC / f"{n}.cu"), names))
+    for n in names:
+        library(n)
+    return names

@@ -7,6 +7,10 @@
 // K3 segment_add_ordered   has no Pallas counterpart: it replaces the
 //                          per-ring-step ``out.at[tgt].add(partial)`` of
 //                          repro/core/pipeline.py (_mgg_shard_body).
+// K4 scatter_sum_ordered   has no Pallas counterpart either: it replaces
+//                          the gather-sum's backward, the masked scatter-add
+//                          ``zeros.at[nbrs].add(g * mask)`` of
+//                          repro/kernels/ops.py (_gather_sum_bwd).
 //
 // K1/K2 compute out[p] = sum_j mask[p, j] * buf[nbrs[p, j]] in fp32, the
 // slots summed in order j = 0 .. ps-1 (masked slots are skipped: they add 0).
@@ -41,6 +45,27 @@
 // It moves (P * D * 4 + P * 4 + S * 8 + 2 * S * D * 4) bytes for P partials
 // into S rows; its time is set by the longest segment (a hub row), whose
 // loads it batches so that they are in flight together.
+//
+// K4 computes dbuf[r] += sum of g[src(k)] over the masked slots k whose
+// neighbor id is r: the transpose of K1/K2.  A CUDA scatter-add of the
+// slots would need atomics (and its bits would change from run to run), so
+// the host builds, once per plan, the transposed index: the masked slots
+// sorted stably by neighbor row (segment offsets per distinct row) and, per
+// slot, the row of g it reads -- in the ring that is the slot's target row
+// tgt[p], composed on the host, so the backward never materialises the
+// per-partition gradient.  That is K3's problem with a gather index in
+// front, so K4 runs K3's kernel (generalised to read g[src[k]] where K3
+// reads partial[order[k]]; K3's bits are unchanged): one thread owns one
+// (row, column).  What bounds it: bytes, (G * D * 4 + K * 4 + S * 8 +
+// 2 * S * D * 4) for K masked slots reading G distinct rows of g into S
+// rows.  Its tail is the longest segment: a hub neighbor is named by
+// ~1e5 slots of one ring step, where K3's longest segment is ps times
+// shorter.  So when a segment is longer than the host's chunk (256 slots),
+// K4 runs two passes of the kernel: each chunk's slots summed in slot
+// order into a scratch row (pass 1, identity rows), then each row's chunk
+// sums added in chunk order (pass 2, identity order).  The association is
+// fixed by the index, so the bits are the same from run to run, and the
+// plain version takes the same two passes.
 //
 // Every launch runs on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
@@ -169,18 +194,24 @@ __global__ void gather_sum_blocked_kernel(const float* __restrict__ buf,
   }
 }
 
-__global__ void segment_add_ordered_kernel(float* __restrict__ out,
-                                           const float* __restrict__ partial,
-                                           const int* __restrict__ order,
-                                           const int* __restrict__ seg_rows,
-                                           const int* __restrict__ seg_start,
-                                           long long n_seg, int D) {
+// out[seg_rows[s]] += sum over k in segment s of partial[order[k]], added in
+// k order (K3 and K4).  Without kRows the row is s, without kOrder the
+// partial is k (K4's two passes); K3 takes both, compiled as before.
+template <bool kOrder, bool kRows>
+__global__ void ordered_segment_sum_kernel(float* __restrict__ out,
+                                          const float* __restrict__ partial,
+                                          const int* __restrict__ order,
+                                          const int* __restrict__ seg_rows,
+                                          const int* __restrict__ seg_start,
+                                          long long n_seg, int D) {
   const long long t =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= n_seg * D) return;
   const long long s = t / D;
   const int c = static_cast<int>(t - s * D);
-  float* dst = out + static_cast<size_t>(seg_rows[s]) * D + c;
+  long long row = s;
+  if constexpr (kRows) row = seg_rows[s];
+  float* dst = out + static_cast<size_t>(row) * D + c;
   float acc = *dst;
   const int end = seg_start[s + 1];
   int k = seg_start[s];
@@ -191,7 +222,13 @@ __global__ void segment_add_ordered_kernel(float* __restrict__ out,
   if (k + kSegBatch <= end) {
     int ids[kSegBatch];
 #pragma unroll
-    for (int u = 0; u < kSegBatch; ++u) ids[u] = order[k + u];
+    for (int u = 0; u < kSegBatch; ++u) {
+      if constexpr (kOrder) {
+        ids[u] = order[k + u];
+      } else {
+        ids[u] = k + u;
+      }
+    }
     for (; k + kSegBatch <= end; k += kSegBatch) {
       float v[kSegBatch];
 #pragma unroll
@@ -201,16 +238,33 @@ __global__ void segment_add_ordered_kernel(float* __restrict__ out,
       const int next = k + kSegBatch;
 #pragma unroll
       for (int u = 0; u < kSegBatch; ++u) {
-        ids[u] = next + u < end ? order[next + u] : 0;
+        if constexpr (kOrder) {
+          ids[u] = next + u < end ? order[next + u] : 0;
+        } else {
+          ids[u] = next + u;
+        }
       }
 #pragma unroll
       for (int u = 0; u < kSegBatch; ++u) acc += v[u];
     }
   }
   for (; k < end; ++k) {
-    acc += partial[static_cast<size_t>(order[k]) * D + c];
+    long long id = k;
+    if constexpr (kOrder) id = order[k];
+    acc += partial[static_cast<size_t>(id) * D + c];
   }
   *dst = acc;
+}
+
+template <bool kOrder, bool kRows>
+int launch_segments(float* out, const float* partial, const int* order,
+                    const int* seg_rows, const int* seg_start, long long n_seg,
+                    int D, cudaStream_t stream) {
+  const long long work = n_seg * D;
+  const unsigned grid = static_cast<unsigned>((work + kThreads - 1) / kThreads);
+  ordered_segment_sum_kernel<kOrder, kRows><<<grid, kThreads, 0, stream>>>(
+      out, partial, order, seg_rows, seg_start, n_seg, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int threads_per_partition(int D) {
@@ -252,13 +306,32 @@ int mgg_gather_sum_blocked(const float* buf, const int* nbrs,
 int mgg_segment_add_ordered(float* out, const float* partial, const int* order,
                             const int* seg_rows, const int* seg_start,
                             long long n_seg, int D, void* stream) {
-  if (n_seg == 0) return static_cast<int>(cudaGetLastError());
-  const long long work = n_seg * D;
-  const unsigned grid = static_cast<unsigned>((work + kThreads - 1) / kThreads);
-  segment_add_ordered_kernel<<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      out, partial, order, seg_rows, seg_start, n_seg, D);
-  return static_cast<int>(cudaGetLastError());
+  if (n_seg == 0 || D == 0) return static_cast<int>(cudaGetLastError());
+  return launch_segments<true, true>(out, partial, order, seg_rows, seg_start,
+                                    n_seg, D,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// chunk_start == nullptr: one pass over the segments.  Otherwise two:
+// chunk_sums (n_chunks, D), zeroed by the caller, receives each chunk's sum
+// (chunks delimited by chunk_start in src), then row seg_rows[s] receives
+// its chunks row_chunks[s] .. row_chunks[s + 1] - 1 in order.
+int mgg_scatter_sum_ordered(float* dbuf, const float* g, const int* src,
+                            const int* seg_rows, const int* seg_start,
+                            long long n_seg, const int* chunk_start,
+                            const int* row_chunks, float* chunk_sums,
+                            long long n_chunks, int D, void* stream) {
+  if (n_seg == 0 || D == 0) return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  if (chunk_start == nullptr) {
+    return launch_segments<true, true>(dbuf, g, src, seg_rows, seg_start,
+                                       n_seg, D, s);
+  }
+  const int rc = launch_segments<true, false>(chunk_sums, g, src, nullptr,
+                                              chunk_start, n_chunks, D, s);
+  if (rc != 0) return rc;
+  return launch_segments<false, true>(dbuf, chunk_sums, nullptr, seg_rows,
+                                      row_chunks, n_seg, D, s);
 }
 
 }  // extern "C"

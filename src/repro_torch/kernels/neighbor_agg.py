@@ -6,7 +6,10 @@ Counterpart of ``repro/kernels/neighbor_agg.py``:
 * :func:`gather_sum_blocked` — K2, for ``gather_sum_blocked_call`` (the
   paper's warps-per-block knob ``pb``);
 * :func:`segment_add_ordered` — K3, the deterministic per-step scatter-add
-  (``out.at[tgt].add`` in the reference), which has no Pallas kernel.
+  (``out.at[tgt].add`` in the reference), which has no Pallas kernel;
+* :func:`scatter_sum_ordered` — K4, the gather-sum's backward (the masked
+  scatter-add of ``repro/kernels/ops.py::_gather_sum_bwd``), deterministic
+  through a transposed index built on the host.
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates the output, launches on PyTorch's current stream,
@@ -20,8 +23,8 @@ import torch
 from . import _build
 
 __all__ = ["gather_sum_pipelined", "gather_sum_blocked",
-           "segment_add_ordered", "blocked_fits", "reset_launch_counts",
-           "launch_counts", "BLOCKED_SMEM_BYTES"]
+           "segment_add_ordered", "scatter_sum_ordered", "blocked_fits",
+           "reset_launch_counts", "launch_counts", "BLOCKED_SMEM_BYTES"]
 
 # K2 stages its partitions' ids and mask in static shared memory; above
 # this the block would need the dynamic opt-in, and pb * 32 threads must
@@ -101,35 +104,74 @@ def gather_sum_blocked(buf: torch.Tensor, nbrs: torch.Tensor,
     return out
 
 
+def _check_segments(out, vals, idx, seg_rows, seg_start, names):
+    """Checks shared by K3 and K4: ``out[seg_rows[s]] += Σ vals[idx[k]]``."""
+    if out.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on a {out.device} tensor")
+    dev = out.device
+    _check(names[0], out, torch.float32, 2, dev)
+    _check(names[1], vals, torch.float32, 2, dev)
+    for name, t in ((names[2], idx), ("seg_rows", seg_rows),
+                    ("seg_start", seg_start)):
+        _check(name, t, torch.int32, 1, dev)
+    if vals.shape[1] != out.shape[1]:
+        raise ValueError(f"{names[1]} {tuple(vals.shape)} does not match "
+                         f"{names[0]} {tuple(out.shape)}")
+    if seg_start.shape[0] != seg_rows.shape[0] + 1:
+        raise ValueError("seg_start must have one more entry than seg_rows")
+
+
 def segment_add_ordered(out: torch.Tensor, partial: torch.Tensor,
                         order: torch.Tensor, seg_rows: torch.Tensor,
                         seg_start: torch.Tensor) -> torch.Tensor:
     """K3, in place: ``out[seg_rows[s]] += Σ partial[order[k]]`` over
     segment ``s``, in partition order — one owner per output word."""
-    if out.device.type != "cuda":
-        raise ValueError(f"CUDA kernel called on a {out.device} tensor")
-    dev = out.device
-    _check("out", out, torch.float32, 2, dev)
-    _check("partial", partial, torch.float32, 2, dev)
-    for name, t in (("order", order), ("seg_rows", seg_rows),
-                    ("seg_start", seg_start)):
-        _check(name, t, torch.int32, 1, dev)
-    if partial.shape[1] != out.shape[1] or order.shape[0] != partial.shape[0]:
-        raise ValueError(f"partial {tuple(partial.shape)} / order "
-                         f"{tuple(order.shape)} do not match out "
-                         f"{tuple(out.shape)}")
-    if seg_start.shape[0] != seg_rows.shape[0] + 1:
-        raise ValueError("seg_start must have one more entry than seg_rows")
+    _check_segments(out, partial, order, seg_rows, seg_start,
+                    ("out", "partial", "order"))
+    if order.shape[0] != partial.shape[0]:
+        raise ValueError(f"order {tuple(order.shape)} does not match "
+                         f"partial {tuple(partial.shape)}")
     rc = _build.library().mgg_segment_add_ordered(
         out.data_ptr(), partial.data_ptr(), order.data_ptr(),
         seg_rows.data_ptr(), seg_start.data_ptr(), seg_rows.shape[0],
-        out.shape[1], _stream(dev))
+        out.shape[1], _stream(out.device))
     _raise_on(rc, "segment_add_ordered")
     segment_add_ordered.launches += 1
     return out
 
 
-_WRAPPERS = (gather_sum_pipelined, gather_sum_blocked, segment_add_ordered)
+def scatter_sum_ordered(dbuf: torch.Tensor, g: torch.Tensor,
+                        index) -> torch.Tensor:
+    """K4, in place: ``dbuf[rows[s]] += Σ g[src[k]]`` over the masked slots
+    of segment ``s`` of ``index`` (a ``GradIndex``) in its fixed order —
+    one owner per output word, no atomics; an index cut into chunks runs
+    the kernel's two passes through a zeroed scratch of chunk sums."""
+    _check_segments(dbuf, g, index.src, index.rows, index.start,
+                    ("dbuf", "g", "src"))
+    dev, d = dbuf.device, dbuf.shape[1]
+    chunked = index.chunk_start is not None
+    if chunked:
+        for name, t in (("chunk_start", index.chunk_start),
+                        ("row_chunks", index.row_chunks)):
+            _check(name, t, torch.int32, 1, dev)
+        if index.row_chunks.shape != index.start.shape:
+            raise ValueError("row_chunks must have one entry per segment "
+                             "and one more")
+    n_chunks = index.chunk_start.shape[0] - 1 if chunked else 0
+    sums = torch.zeros((n_chunks, d), dtype=torch.float32, device=dev)
+    ptr = lambda t: t.data_ptr() if chunked else None
+    rc = _build.library().mgg_scatter_sum_ordered(
+        dbuf.data_ptr(), g.data_ptr(), index.src.data_ptr(),
+        index.rows.data_ptr(), index.start.data_ptr(), index.rows.shape[0],
+        ptr(index.chunk_start), ptr(index.row_chunks), ptr(sums), n_chunks,
+        d, _stream(dev))
+    _raise_on(rc, "scatter_sum_ordered")
+    scatter_sum_ordered.launches += 1
+    return dbuf
+
+
+_WRAPPERS = (gather_sum_pipelined, gather_sum_blocked, segment_add_ordered,
+             scatter_sum_ordered)
 for _fn in _WRAPPERS:
     _fn.launches = 0
 

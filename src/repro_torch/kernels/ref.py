@@ -6,9 +6,11 @@ kernel against them on the card.  They repeat the kernels' arithmetic
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["neighbor_gather_sum_ref", "segment_add_ordered_ref"]
+__all__ = ["neighbor_gather_sum_ref", "segment_add_ordered_ref",
+           "scatter_sum_ordered_ref", "gather_rows_ref"]
 
 
 def neighbor_gather_sum_ref(buf: torch.Tensor, nbrs: torch.Tensor,
@@ -36,17 +38,55 @@ def segment_add_ordered_ref(out: torch.Tensor, partial: torch.Tensor,
     ``seg_start`` its segment offsets, so each destination row receives its
     partials in partition order: bitwise what a sequential loop
     ``for i: out[tgt[i]] += partial[i]`` gives.  The loop runs over the
-    rank inside a segment, vectorised across segments.
+    rank inside a segment, vectorised across segments; the segments are
+    taken longest first, so the live ones at rank ``k`` are a prefix whose
+    lengths are read from the device once.
     """
     if seg_rows.numel() == 0:
         return out
     start = seg_start[:-1].long()
     lens = seg_start[1:].long() - start
+    by_len = torch.argsort(lens, descending=True, stable=True)
+    lens_desc = lens[by_len].cpu().numpy()
+    # live[k] = segments longer than k
+    live = np.searchsorted(-lens_desc, -np.arange(int(lens_desc[0])),
+                           side="left")
+    start = start[by_len]
+    rows = seg_rows.long()[by_len]
     srt = partial.index_select(0, order.long())
-    rows = seg_rows.long()
     acc = out.index_select(0, rows)
-    for k in range(int(lens.max())):
-        live = torch.nonzero(lens > k).squeeze(1)
-        acc[live] += srt.index_select(0, start[live] + k)
+    for k, n in enumerate(live.tolist()):
+        acc[:n] += srt.index_select(0, start[:n] + k)
     out[rows] = acc
     return out
+
+
+def scatter_sum_ordered_ref(dbuf: torch.Tensor, g: torch.Tensor,
+                            index) -> torch.Tensor:
+    """In place: ``dbuf[rows[s]] += Σ_k g[src[k]]`` over the masked slots
+    ``k`` of segment ``s`` of ``index`` (a
+    :class:`~repro_torch.kernels.ops.GradIndex`) — the gather-sum's
+    backward (the reference's ``zeros.at[nbrs].add(g · mask)``) with the
+    order of its adds fixed: slot order, or, for an index cut into chunks,
+    each chunk in slot order and then each row's chunk sums in order."""
+    if index.chunk_start is None:
+        return segment_add_ordered_ref(dbuf, g, index.src, index.rows,
+                                       index.start)
+    n = index.chunk_start.shape[0] - 1
+    ids = torch.arange(n, dtype=torch.int32, device=dbuf.device)
+    sums = torch.zeros((n, dbuf.shape[1]), dtype=torch.float32,
+                       device=dbuf.device)
+    segment_add_ordered_ref(sums, g, index.src, ids, index.chunk_start)
+    return segment_add_ordered_ref(dbuf, sums, ids, index.rows,
+                                   index.row_chunks)
+
+
+def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[i] = src[idx[i]]`` → (B, D) float32, bitwise a copy of the
+    rows; an id outside ``[0, T)`` gives a zero row, as the kernel does."""
+    idx = idx.long()
+    ok = (idx >= 0) & (idx < src.shape[0])
+    out = src.index_select(0, torch.where(ok, idx, 0)) if src.shape[0] \
+        else src.new_zeros((idx.shape[0], src.shape[1]))
+    out[~ok] = 0.0
+    return out.float()

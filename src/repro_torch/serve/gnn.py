@@ -110,7 +110,7 @@ class GNNServeEngine:
         self.rev = self.g_full.transpose()   # invalidation fan-out
         self.slots = int(slots)
         self.k_hops = len(params["layers"])
-        num_stages(model, params)        # refuses models of later slices
+        num_stages(model, params)        # refuses an unknown model
         self.stats = stats or WorkloadStats(window=32)
         self.use_cache = bool(use_cache)
         self.cache = HotNodeCache(graph.num_nodes, capacity=cache_capacity)

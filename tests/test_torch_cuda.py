@@ -1,5 +1,7 @@
 """repro_torch on the card: the CUDA kernels against their plain versions,
-the ring on the card against the ring on the CPU, and served == offline.
+the ring (forward and backward) on the card against the ring on the CPU,
+sampled GraphSAGE's gradients on the card against the CPU's, and served ==
+offline.
 
 These tests need an NVIDIA card and nvcc (a CUDA kernel has no CPU mode);
 without them they skip.  On the card, run them with
@@ -14,7 +16,10 @@ import torch
 
 import repro_torch.core as TC
 from repro_torch.dist import VirtualRing
-from repro_torch.kernels import neighbor_agg, ops, ref
+from repro_torch.kernels import neighbor_agg, ops, ref, rows
+from repro_torch.sample import block_tree, sample_blocks
+from repro_torch.train import value_and_grad
+from repro_torch.train.tree import tree_leaves, tree_map
 from repro_torch.serve import GNNServeEngine, TrafficPhase, ZipfTraffic, \
     run_trace
 
@@ -103,3 +108,107 @@ def test_served_logits_bitwise_match_offline_on_card(cuda):
             params, eng, srv.xp).cpu().numpy())
     for r in results:
         np.testing.assert_array_equal(r.logits, offline[r.seeds])
+
+
+@pytest.mark.parametrize("p,ps,d", SHAPES)
+def test_scatter_sum_matches_plain_and_is_deterministic(cuda, p, ps, d):
+    """Includes a hub row named by more than GRAD_CHUNK slots at P=1001
+    (the two-pass path) and short segments elsewhere (one pass)."""
+    rng = np.random.default_rng(p + d)
+    nbrs = rng.integers(0, 400, (p, ps))
+    nbrs[: p // 2, 0] = 3                            # a hub row
+    mask = rng.random((p, ps)) < 0.7
+    tgt = rng.integers(0, 60, p)
+    idx = ops.GradIndex.build(nbrs, mask, tgt, cuda)
+    assert (idx.chunk_start is not None) == (p == 1001)
+    g = torch.from_numpy(rng.normal(size=(60, d)).astype(np.float32)).to(
+        cuda)
+    base = torch.from_numpy(rng.normal(size=(400, d)).astype(np.float32))
+    args = (g, idx)
+    want = ref.scatter_sum_ordered_ref(base.to(cuda), *args)
+    before = neighbor_agg.scatter_sum_ordered.launches
+    got = ops.scatter_sum_ordered(base.to(cuda), *args)
+    assert neighbor_agg.scatter_sum_ordered.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, ops.scatter_sum_ordered(base.to(cuda), *args))
+
+
+@pytest.mark.parametrize("b,t,d", [(1, 1, 1), (37, 10, 16), (5000, 3000, 100),
+                                   (999, 64, 130)])
+def test_gather_rows_bitwise_equals_plain(cuda, b, t, d):
+    rng = np.random.default_rng(b)
+    src = torch.from_numpy(rng.normal(size=(t, d)).astype(np.float32)).to(
+        cuda)
+    ids = rng.integers(0, t, b)
+    ids[::5] = -1                                    # zero rows
+    idx = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    before = rows.gather_rows.launches
+    got = ops.gather_rows(src, idx)
+    assert rows.gather_rows.launches == before + 1
+    assert torch.equal(got, ref.gather_rows_ref(src, idx))
+
+
+@pytest.mark.parametrize("model,fused,interleave,dist",
+                         [("gcn", False, True, 2), ("gcn", True, False, 1),
+                          ("gin", True, True, 2), ("gat", False, False, 1)])
+def test_ring_gradients_on_card_match_cpu(cuda, model, fused, interleave,
+                                          dist):
+    """Gradients through the ring on the card (K1, K3, K4 and the reverse
+    rotations on the side stream) equal the CPU's (rtol 1e-4), and two
+    runs on the card are bitwise equal."""
+    g = TC.power_law(2000, avg_degree=8.0, locality=0.3, seed=2)
+    x = np.random.default_rng(0).normal(size=(g.num_nodes, 24)).astype(
+        np.float32)
+    y = np.random.default_rng(1).integers(0, 5, g.num_nodes)
+    init, apply, _ = TC.MODEL_ZOO[model]
+    kw = dict(heads=2) if model == "gat" else {}
+    params = init(torch.Generator().manual_seed(0), 24, 5, hidden=8,
+                  num_layers=2, **kw)
+
+    def run(device):
+        eng = TC.GNNEngine.build(g, VirtualRing(4, device), ps=4, dist=dist,
+                                 interleave=interleave, fuse_update=fused)
+        xp = eng.shard(eng.pad(x))
+        yp = torch.from_numpy(TC.pad_table(eng.plan.bounds,
+                                           eng.plan.rows_per_dev,
+                                           y[:, None])[:, 0]).to(device)
+        p = tree_map(lambda t: t.to(device), params)
+        mask = torch.ones(xp.shape[0], device=device)
+        return value_and_grad(lambda q: TC.masked_cross_entropy(
+            apply(q, eng, xp), yp, mask), p)[1]
+
+    want = run("cpu")
+    got, again = run(cuda), run(cuda)
+    for a, b, c in zip(tree_leaves(got), tree_leaves(again),
+                       tree_leaves(want)):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-4,
+                                   atol=1e-4 * c.abs().max().item())
+
+
+def test_sampled_sage_gradients_on_card_match_cpu(cuda):
+    g = TC.power_law(3000, avg_degree=8.0, locality=0.3, seed=4)
+    x = np.random.default_rng(0).normal(size=(g.num_nodes, 20)).astype(
+        np.float32)
+    seeds = np.arange(0, 300, 3)
+    blocks = sample_blocks(g, seeds, [6, 4], batch=128,
+                           rng=np.random.default_rng(1))
+    ids = blocks[0].src_ids
+    h0 = np.where((ids >= 0)[:, None], x[np.maximum(ids, 0)], 0.0).astype(
+        np.float32)
+    params = TC.sage_init(torch.Generator().manual_seed(0), 20, 4, hidden=8)
+
+    def run(device):
+        p = tree_map(lambda t: t.to(device), params)
+        h = torch.from_numpy(h0).to(device)
+        bt = block_tree(blocks, device)
+        return value_and_grad(lambda q: TC.apply_blocks(
+            "sage", q, h, bt).square().mean(), p)[1]
+
+    want = run("cpu")
+    got, again = run(cuda), run(cuda)
+    for a, b, c in zip(tree_leaves(got), tree_leaves(again),
+                       tree_leaves(want)):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-4,
+                                   atol=1e-4 * c.abs().max().item())

@@ -1,18 +1,20 @@
 """repro_torch kernels: the plain versions against the reference's oracle
-and its Pallas kernels (interpret mode), the ordered segment add against a
-sequential loop, and the CPU/CUDA routing.  The CUDA kernels themselves
-are held against the plain versions on the card (tests/test_torch_cuda.py,
-chip_smoke.py)."""
+and its Pallas kernels (interpret mode) — the gather-sum's backward against
+the reference's custom VJP, the row gather against its Pallas kernel — the
+ordered segment add and scatter-sum against sequential loops, and the
+CPU/CUDA routing.  The CUDA kernels themselves are held against the plain
+versions on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 
 from repro_torch.core.pipeline import WorkGroup
-from repro_torch.kernels import neighbor_agg, ops
+from repro_torch.kernels import neighbor_agg, ops, ref, rows
 
 # (P, ps, D): widths of the slice (16), products' input (100), a width
 # that is no lane multiple (130), and degenerate ones
@@ -113,3 +115,116 @@ def test_blocked_fits_is_the_shared_memory_rule():
     assert not neighbor_agg.blocked_fits(33, 1)      # > 1024 threads
     assert not neighbor_agg.blocked_fits(0, 8)
     assert not neighbor_agg.blocked_fits(32, 200)    # ids > 48 KB
+
+
+@pytest.mark.parametrize("p,ps,d", SHAPES)
+def test_gather_sum_backward_matches_reference_vjp(p, ps, d):
+    """K4's plain version through the autograd Function equals the
+    reference's custom VJP (its masked scatter-add), Pallas interpret."""
+    buf, nbrs, mask = _inputs(p, ps, d, seed=7 * p + d)
+    g = np.random.default_rng(d).normal(size=(p, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda b: rops.neighbor_gather_sum(
+        b, jnp.asarray(nbrs), jnp.asarray(mask), interpret=True),
+        jnp.asarray(buf))
+    (want,) = vjp(jnp.asarray(g))
+    tb, tn, tm = _torch(buf, nbrs, mask)
+    tb.requires_grad_(True)
+    out = ops.neighbor_gather_sum(tb, tn, tm, grad_index=ops.GradIndex.build(
+        nbrs, mask))
+    (got,) = torch.autograd.grad(out, tb, torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_scatter_sum_bitwise_equals_sequential_loop():
+    """The backward adds each row's slots in slot order: bitwise the loop
+    ``for p, j: if mask: dbuf[nbrs[p, j]] += g[tgt[p]]``; masked slots
+    (and rows only they name) get nothing."""
+    buf, nbrs, mask = _inputs(60, 5, 7, t=30, seed=11)
+    tgt = np.random.default_rng(1).integers(0, 20, 60)
+    g = np.random.default_rng(2).normal(size=(20, 7)).astype(np.float32)
+    want = np.zeros((30, 7), np.float32)
+    for p in range(60):
+        for j in range(5):
+            if mask[p, j]:
+                want[nbrs[p, j]] += g[tgt[p]]
+    idx = ops.GradIndex.build(nbrs, mask, tgt)
+    assert idx.num_slots == int(mask.sum())
+    assert idx.chunk_start is None            # no segment is cut
+    got = torch.zeros(30, 7)
+    ops.scatter_sum_ordered(got, torch.from_numpy(g), idx)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_scatter_sum_cuts_hub_segments_into_fixed_chunks():
+    """A neighbor named by more than GRAD_CHUNK slots is summed chunk by
+    chunk (each in slot order), then the chunk sums in order: bitwise that
+    loop, and within fp32 rounding of the plain sum."""
+    n_slots, chunk = 3 * ops.GRAD_CHUNK + 17, ops.GRAD_CHUNK
+    rng = np.random.default_rng(3)
+    nbrs = np.where(rng.random((n_slots, 1)) < 0.9, 4,
+                    rng.integers(0, 9, (n_slots, 1)))
+    mask = np.ones_like(nbrs, bool)
+    g = (rng.normal(size=(n_slots, 5)) * 1e3).astype(np.float32)
+    idx = ops.GradIndex.build(nbrs, mask)
+    assert idx.num_chunks > idx.rows.shape[0]
+    dbuf0 = rng.normal(size=(9, 5)).astype(np.float32)
+    want = dbuf0.copy()
+    for r in range(9):
+        slots = np.flatnonzero(nbrs[:, 0] == r)
+        for lo in range(0, slots.size, chunk):
+            part = np.zeros(5, np.float32)
+            for k in slots[lo:lo + chunk]:
+                part += g[k]
+            want[r] += part
+    got = torch.from_numpy(dbuf0.copy())
+    ops.scatter_sum_ordered(got, torch.from_numpy(g), idx)
+    np.testing.assert_array_equal(got.numpy(), want)
+    plain = dbuf0.astype(np.float64)
+    np.add.at(plain, nbrs[:, 0], g)
+    np.testing.assert_allclose(got.numpy(), plain, rtol=1e-4, atol=1e-1)
+
+
+@pytest.mark.parametrize("b,t,d", [(9, 20, 1), (40, 17, 16), (5, 8, 100),
+                                   (12, 30, 130)])
+def test_plain_gather_rows_matches_pallas_interpret(b, t, d):
+    rng = np.random.default_rng(b + d)
+    src = rng.normal(size=(t, d)).astype(np.float32)
+    idx = rng.integers(0, t, b).astype(np.int32)     # repeats included
+    want = np.asarray(rops.gather_rows(jnp.asarray(src), jnp.asarray(idx),
+                                       interpret=True))
+    got = ops.gather_rows(torch.from_numpy(src), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), src[idx])
+
+
+def test_gather_rows_out_of_range_ids_give_zero_rows():
+    src = torch.arange(12, dtype=torch.float32).view(4, 3)
+    idx = torch.tensor([3, -1, 4, 0], dtype=torch.int32)
+    got = ref.gather_rows_ref(src, idx)
+    np.testing.assert_array_equal(got.numpy(), [[9, 10, 11], [0, 0, 0],
+                                                [0, 0, 0], [0, 1, 2]])
+
+
+def test_new_kernels_refuse_cpu_tensors_and_count_nothing_there():
+    rows.reset_launch_counts()
+    neighbor_agg.reset_launch_counts()
+    src = torch.zeros(4, 3)
+    idx = torch.zeros(2, dtype=torch.int32)
+    ops.gather_rows(src, idx)
+    assert rows.launch_counts() == {"gather_rows": 0}
+    with pytest.raises(ValueError, match="CUDA kernel called on a cpu"):
+        rows.gather_rows(src, idx)
+    with pytest.raises(ValueError, match="CUDA kernel called on a cpu"):
+        neighbor_agg.scatter_sum_ordered(torch.zeros(3, 8),
+                                         torch.zeros(4, 8),
+                                         ops.GradIndex.build(
+                                             np.arange(4)[:, None] % 3,
+                                             np.ones((4, 1), bool)))
+    with pytest.raises(ValueError, match="no row gather for device"):
+        ops.gather_rows(src.to("meta"), idx.to("meta"))
+    with pytest.raises(ValueError, match="needs its grad_index"):
+        ops.neighbor_gather_sum(src.requires_grad_(True),
+                                torch.zeros(2, 1, dtype=torch.int32),
+                                torch.ones(2, 1, dtype=torch.bool))
+    assert neighbor_agg.scatter_sum_ordered.launches == 0

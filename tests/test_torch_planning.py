@@ -136,16 +136,23 @@ def test_stats_traffic_hotcache_equal():
 
 
 def test_port_imports_no_jax():
+    """Every module of repro_torch (found by walking the package, not a
+    hand-kept list) imports, and none of them pulls in jax or repro."""
     code = (
-        "import sys\n"
-        "import repro_torch, repro_torch.core, repro_torch.kernels\n"
-        "import repro_torch.serve, repro_torch.obs, repro_torch.dist\n"
-        "import repro_torch.launch.serve_gnn\n"
-        "import repro_torch.kernels._build, repro_torch.kernels.neighbor_agg\n"
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "need = {'repro_torch.train.optimizer', 'repro_torch.sample.blocks',\n"
+        "        'repro_torch.store.tiered', 'repro_torch.launch.train_gnn',\n"
+        "        'repro_torch.kernels.rows'}\n"
+        "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "print('ok')\n")
+        "print('ok', len(mods))\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, timeout=120)
@@ -164,5 +171,13 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
     assert VirtualRing(4, device="cpu").device.type == "cpu"
     with pytest.raises(NotImplementedError, match="tuner slice"):
         serve_gnn.main(["--device", "cpu", "--dynamic-tune"])
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        serve_gnn.main(["--device", "cpu", "--model", "gin"])
+    from repro_torch.launch import train_gnn
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_gnn.main(["--scale", "0.01", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_gnn.main(["--scale", "0.01", "--steps", "1", "--model", "sage",
+                        "--sample-fanout", "2"])
+    for flag in (["--dynamic-tune"], ["--per-layer-tune"], ["--tune-fuse"],
+                 ["--tune-cache", "t.json"]):
+        with pytest.raises(NotImplementedError, match="tuner slice"):
+            train_gnn.main(["--device", "cpu", *flag])

@@ -214,6 +214,33 @@ def test_served_logits_bitwise_match_offline(n_dev, fuse):
         np.testing.assert_array_equal(r.logits, offline[r.seeds])
 
 
+@pytest.mark.parametrize("model", ["gin", "sage", "gat"])
+def test_served_logits_bitwise_match_offline_each_model(model):
+    """The other three models serve through the same stages: served ==
+    offline bitwise (full and cached passes), and the launcher takes
+    ``--model``."""
+    g = _graph(TC)
+    x = _features(g.num_nodes)
+    eng = TC.GNNEngine.build(g, VirtualRing(4, CPU), ps=8, dist=1)
+    init, apply, _ = TC.MODEL_ZOO[model]
+    kw = dict(heads=2) if model == "gat" else {}
+    params = init(torch.Generator().manual_seed(0), D, NCLS, hidden=8,
+                  num_layers=2, **kw)
+    srv = TServe(eng, params, model, x, g, slots=4)
+    results = t_run_trace(srv, TTraffic(g.num_nodes, D, [
+        TPhase(requests=16, alpha=1.2, seeds_max=3)], seed=7))
+    assert len(results) == 16 and any(r.cached for r in results)
+    with torch.inference_mode():
+        offline = TC.unpad_embeddings(eng.plan, apply(
+            params, eng, eng.shard(eng.pad(srv.x))).numpy())
+    for r in results:
+        np.testing.assert_array_equal(r.logits, offline[r.seeds])
+    from repro_torch.launch import serve_gnn
+    rep = serve_gnn.main(["--device", "cpu", "--model", model, "--scale",
+                          "0.02", "--requests", "6", "--devices", "2"])
+    assert rep["served"] == 12
+
+
 def test_update_features_writes_one_row_in_place():
     g = _graph(TC)
     eng = TC.GNNEngine.build(g, VirtualRing(2, CPU), ps=8, dist=1)
