@@ -373,7 +373,11 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          mask: torch.Tensor) -> torch.Tensor:
     """Mean CE over real (non-padding) nodes; padded rows carry mask 0."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = logp.gather(1, labels.long()[:, None])[:, 0]
+    # the label's log-probability by a select and a row sum, not a gather:
+    # a gather's backward is a scatter-add (atomics on the card), this
+    # one's is elementwise
+    cls = torch.arange(logp.shape[-1], device=logp.device)
+    ll = torch.where(cls == labels.long()[:, None], logp, 0.0).sum(dim=-1)
     m = mask.to(torch.float32)
     return -(ll * m).sum() / m.sum().clamp_min(1.0)
 
@@ -412,7 +416,10 @@ def gat_stage(params: Dict, engine: GNNEngine, h: torch.Tensor,
     s = torch.einsum("nhd,hd->nh", zh, layer["a_l"])
     e = torch.exp(torch.nn.functional.leaky_relu(s, 0.2))   # (N, H)
     num = engine.aggregate((zh * e[..., None]).reshape(npad, total), layer=i)
-    den = engine.aggregate(torch.repeat_interleave(e, hd, dim=1), layer=i)
+    # each head's weight repeated over its hd columns (an expand, whose
+    # backward is a sum: no index_add_ on the gradient path)
+    den = engine.aggregate(e[..., None].expand(npad, nh, hd).reshape(
+        npad, total), layer=i)
     out = (num / den.clamp_min(1e-9)).to(h.dtype)
     if i < len(params["layers"]) - 1:
         out = torch.nn.functional.elu(out)
