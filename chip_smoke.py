@@ -8,7 +8,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
    and CUDA versions, and the build of the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
 2. every kernel against its plain PyTorch version on the card over a
-   sweep of shapes (rtol/atol 1e-5), and two launches bitwise equal;
+   sweep of shapes (rtol/atol 1e-5; K5 and K6 bitwise), and two launches
+   bitwise equal;
 3. serving at full width: GCN serving of the products stand-in at its
    real size (2.45 M nodes, D = 100, 64 classes, hidden 16, 2 layers)
    over 8 virtual shards, through ``GNNServeEngine``/``run_trace``, with
@@ -32,15 +33,28 @@ Phases, each of which passes or ends the run with a non-zero exit:
 7. GIN, SAGE and GAT: one training step each on a reduced products
    stand-in (``REDUCED_SCALE``: 122,880 nodes, the models' own widths),
    gradients held against the plain-version path (rtol 1e-4) and, for
-   GIN and SAGE, the fused step against the unfused one (rtol 2e-4);
+   GIN and SAGE, the fused step against the unfused one (rtol 2e-4), and
+   one step of GIN and SAGE with their hidden layers on the top-k ring
+   (k a quarter of the width), held against the plain-version path;
 8. sampled GraphSAGE at full size (hidden 32 × 2, fanout 10, batch 1024,
    a hot cache of N // 8 rows over the pinned host table): 10 steps with
    the launch counts read around them; ``gather_rows`` bitwise equal to
    ``x[ids]`` at capacities 0, N // 8 and N; K5 timed at the step's
    shapes;
-9. the training launcher at a small scale, both branches.
+9. the training launcher at a small scale, both branches;
+10. the top-k compressed ring at full size: the reference's fig9e
+   configuration (GCN 3 × 96, 4 classes, ``ps=8, dist=2``, layer 0
+   dense) on the products stand-in with ``graph_features`` data at
+   D = 96; k = 96 held bitwise equal to the dense ring; 10 AdamW steps at
+   k = 24 (lr 2e-2, 2 warmup steps) with the launch counts read around
+   them, step 0's gradients held against the plain-version path (rtol
+   1e-4) and bitwise equal across two runs; a Zipf trace served at
+   k = 24, served == offline bitwise (full and cached passes); K6 timed
+   at layer 1's aggregation, ``torch.topk`` per compress, the rotation
+   copies of one aggregation at k = 96, 48, 24 and dense, and the step
+   time at k = 24 and dense.
 
-The line before the last is a JSON object of the kernels K1–K5; the last
+The line before the last is a JSON object of the kernels K1–K6; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -66,6 +80,8 @@ SOURCE = {name: "src/repro_torch/kernels/csrc/gather_sum.cu" for name in (
     "gather_sum_pipelined", "gather_sum_blocked", "segment_add_ordered",
     "scatter_sum_ordered")}
 SOURCE["gather_rows"] = "src/repro_torch/kernels/csrc/rows.cu"
+SOURCE["sparse_gather_sum"] = \
+    "src/repro_torch/kernels/csrc/sparse_gather_sum.cu"
 REPLACES = {
     "gather_sum_pipelined": "src/repro/kernels/neighbor_agg.py:77",
     "gather_sum_blocked": "src/repro/kernels/neighbor_agg.py:209",
@@ -74,6 +90,7 @@ REPLACES = {
     # no Pallas kernel: the gather-sum's custom-VJP backward
     "scatter_sum_ordered": "src/repro/kernels/ops.py:76",
     "gather_rows": "src/repro/kernels/rows.py:31",
+    "sparse_gather_sum": "src/repro/kernels/neighbor_agg.py:142",
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
@@ -83,9 +100,16 @@ PATH_KERNELS = {
                  "scatter_sum_ordered"),
     "sampled": ("gather_sum_pipelined", "scatter_sum_ordered",
                 "gather_rows"),
+    # the top-k ring: 10 training steps, then a served trace
+    "sparse": ("gather_sum_pipelined", "segment_add_ordered",
+               "scatter_sum_ordered", "sparse_gather_sum"),
+    "sparse_serving": ("gather_sum_pipelined", "segment_add_ordered",
+                       "sparse_gather_sum"),
 }
 PRODUCTS_SCALE = 199.3   # 12288 · 199.3 ≈ 2.449 M nodes (ogbn-products)
 REDUCED_SCALE = 10.0     # 122,880 nodes: GIN, SAGE and GAT, one step each
+# fig9e (benchmarks/fig9_ablations.py:134-229): GCN 3 x D, D = 96
+SPARSE_D, SPARSE_CLASSES, SPARSE_KS = 96, 4, (96, 48, 24)
 TRAIN_STEPS = 10
 TOL_PLAIN = "rtol 1e-4, atol 1e-4 * max|leaf|"
 TOL_FUSED = "rtol 2e-4, atol 2e-4 * max|leaf|"
@@ -234,8 +258,35 @@ def main():
                 got, ops.gather_rows(src, idx)),
                 f"gather_rows D={d} B={b} not bitwise its plain version")
             n_cases += 1
+    for d in (1, 13, 96, 130, 600):      # K6: every register-batch path
+        for k in sorted({1, max(1, d // 4), d}):
+            for id_dtype in (torch.int16, torch.int32):
+                for p, ps in ((1, 1), (37, 8), (1000, 8)):
+                    t = 3000
+                    x = torch.from_numpy(gen.normal(size=(t, d)).astype(
+                        np.float32)).to(dev)
+                    vals, idx = C.topk_activation(x, k)
+                    idx = idx.to(id_dtype)
+                    nb = gen.integers(0, t, (p, ps))
+                    nb[: p // 3] = 11                   # a hub row
+                    mk = gen.random((p, ps)) < 0.8
+                    mk[1::5] = False                    # all-masked
+                    nbrs = torch.from_numpy(nb.astype(np.int32)).to(dev)
+                    mask = torch.from_numpy(mk).to(dev)
+                    want = ref.sparse_gather_sum_ref(vals, idx, nbrs, mask,
+                                                     d)
+                    got = ops.sparse_neighbor_gather_sum(
+                        vals, idx, nbrs, mask, d_feat=d)
+                    again = ops.sparse_neighbor_gather_sum(
+                        vals, idx, nbrs, mask, d_feat=d)
+                    check(torch.equal(got.view(torch.int32),
+                                      want.view(torch.int32))
+                          and torch.equal(got, again),
+                          f"sparse gather-sum D={d} k={k} {id_dtype} P={p}"
+                          " not bitwise its plain version")
+                    n_cases += 1
     say("kernels_vs_plain", cases=n_cases, max_abs_err=worst,
-        tolerance="rtol 1e-5 atol 1e-5 (K5: bitwise)",
+        tolerance="rtol 1e-5 atol 1e-5 (K5, K6: bitwise)",
         bitwise_relaunch=True)
 
     # -- 3. the main path at full width ------------------------------------
@@ -359,9 +410,10 @@ def main():
     # -- 6.-9. training ----------------------------------------------------
     kernels.append(train_full_graph(torch, C, K, g, ring, dev, ncls, rate,
                                     launches))
-    train_other_models(torch, C, dev, ncls)
+    train_other_models(torch, C, K, dev, ncls)
     kernels.append(train_sampled(torch, C, K, g, dev, ncls, rate, launches))
     train_launcher(dev)
+    kernels.append(sparse_ring(torch, C, K, g, ring, dev, rate, launches))
 
     for k in kernels:
         by_path = {p: launches[p][k["name"]] for p in launches
@@ -369,7 +421,7 @@ def main():
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         k["launches_per_step"] = {p: by_path[p] / TRAIN_STEPS
-                                  for p in ("training", "sampled")
+                                  for p in ("training", "sampled", "sparse")
                                   if p in by_path}
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -566,6 +618,12 @@ def _fused(eng):
         dataclasses.replace(lp, fuse_update=True) for lp in eng.layer_plans])
 
 
+def _with_topk(eng, k):
+    """The engine with its hidden layers on the top-k ring (same plan)."""
+    return dataclasses.replace(eng, layer_plans=[
+        dataclasses.replace(lp, topk=k) for lp in eng.layer_plans])
+
+
 def _tables(torch, C, eng, x, y, train_mask, dev):
     pad1 = lambda a: C.pad_table(eng.plan.bounds, eng.plan.rows_per_dev,
                                  a[:, None])[:, 0]
@@ -652,7 +710,7 @@ def train_full_graph(torch, C, K, g, ring, dev, ncls, rate, launches):
     return time_scatter(torch, K, arrays, eng.plan, rate, dev)
 
 
-def train_other_models(torch, C, dev, ncls):
+def train_other_models(torch, C, K, dev, ncls):
     """Phase 7: one step of GIN, SAGE and GAT on a reduced stand-in."""
     from repro_torch.dist import VirtualRing
     from repro_torch.train import (AdamWConfig, adamw_init, adamw_update,
@@ -687,10 +745,23 @@ def train_other_models(torch, C, dev, ncls):
         p2, _, m = adamw_update(g_k, adamw_init(params), params, ocfg)
         check(np.isfinite(float(loss)) and np.isfinite(float(m["grad_norm"])),
               f"{model}: loss or gradient not finite")
+        topk = {}
+        if model != "gat":       # GAT stays on the dense ring under topk
+            k = kw["hidden"] // 4
+            eng_k = _with_topk(eng, k)
+            before = K.launch_counts()["sparse_gather_sum"]
+            loss_k, g_kk = grads(eng_k)
+            check(K.launch_counts()["sparse_gather_sum"] > before,
+                  f"{model}: the top-k step launched no sparse gather-sum")
+            _, g_kp = grads(dataclasses.replace(eng_k, use_kernel=False))
+            topk = dict(topk=k, topk_loss=float(loss_k),
+                        topk_plain_max_abs_err=_grads_held(
+                            torch, g_kk, g_kp, 1e-4,
+                            f"{model} topk={k}: kernels vs plain"))
         say("train_model", model=model, nodes=g.num_nodes, **kw,
             loss=float(loss), grad_norm=float(m["grad_norm"]),
             plain_max_abs_err=err, fused_max_abs_err=err_f,
-            tolerance_plain=TOL_PLAIN, tolerance_fused=TOL_FUSED)
+            tolerance_plain=TOL_PLAIN, tolerance_fused=TOL_FUSED, **topk)
 
 
 def train_sampled(torch, C, K, g, dev, ncls, rate, launches):
@@ -795,6 +866,274 @@ def train_launcher(dev):
         full_test_acc=full["test_acc"], sampled_losses=sampled["losses"],
         sampled_test_acc=sampled["test_acc"],
         sampled_hit_rate=sampled["store"]["hit_rate"])
+
+
+def sparse_ring(torch, C, K, g, ring, dev, rate, launches):
+    """Phase 10: the top-k compressed ring at full size (fig9e)."""
+    from repro_torch.serve import (GNNServeEngine, TrafficPhase,
+                                   WorkloadStats, ZipfTraffic, run_trace)
+    from repro_torch.train import (AdamWConfig, adamw_init, adamw_update,
+                                   graph_features, value_and_grad)
+
+    t0 = time.perf_counter()
+    d, ncls, k = SPARSE_D, SPARSE_CLASSES, SPARSE_KS[-1]
+    x, y, train_mask = graph_features(g.num_nodes, d, ncls, seed=1)
+    dense = C.GNNEngine.build(g, ring, ps=8, dist=2)
+    engines = {kk: _with_topk(dense, kk) for kk in SPARSE_KS}
+    eng, plan = engines[k], dense.plan
+    xp, yp, mp = _tables(torch, C, dense, x, y, train_mask, dev)
+    params = C.gcn_init(torch.Generator().manual_seed(0), d, ncls, hidden=d,
+                        num_layers=3, device=dev)
+    arrays = dense.ring_arrays[0]
+    groups = arrays.remote_steps + arrays.local_steps
+    dense_wire = C.collective_bytes(plan, d)
+    say("sparse_built", nodes=g.num_nodes, padded_rows=plan.padded_nodes,
+        d_in=d, classes=ncls, hidden=d, layers=3, shards=ring.n_dev,
+        config=dense.config, topk=list(SPARSE_KS), groups=len(groups),
+        partitions=sum(grp.num_partitions for grp in groups),
+        masked_slots=sum(grp.grad.num_slots for grp in groups),
+        dense_wire_bytes=dense_wire,
+        wire_ratio={kk: C.sparse_collective_bytes(plan, d, kk) / dense_wire
+                    for kk in SPARSE_KS},
+        build_s=round(time.perf_counter() - t0, 3))
+
+    with torch.inference_mode():    # k == D: the dense ring's bits
+        check(torch.equal(C.gcn_apply(params, engines[d], xp),
+                          C.gcn_apply(params, dense, xp)),
+              f"top-k at k = D = {d}: logits differ from the dense ring")
+
+    def loss_fn(e):
+        return lambda p: C.masked_cross_entropy(C.gcn_apply(p, e, xp), yp, mp)
+
+    # held outside the main path's window: the same step twice and the
+    # plain path at full size
+    loss_a, g_a = value_and_grad(loss_fn(eng), params)
+    loss_b, g_b = value_and_grad(loss_fn(eng), params)
+    check(torch.equal(loss_a, loss_b) and _bitwise(torch, g_a, g_b),
+          "top-k: two runs of step 0 differ")
+    t0 = time.perf_counter()
+    loss_p, g_p = value_and_grad(
+        loss_fn(dataclasses.replace(eng, use_kernel=False)), params)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err_plain = _grads_held(torch, g_a, g_p, 1e-4,
+                            "top-k: kernels vs plain path")
+    say("sparse_step0_checked", topk=k, loss=float(loss_a),
+        bitwise_twice=True, plain_loss=float(loss_p),
+        plain_max_abs_err=err_plain, tolerance_plain=TOL_PLAIN,
+        plain_step_s=round(plain_s, 3), k_equals_d_bitwise_dense=True)
+
+    # the reference's fig9e optimiser: AdamW, lr 2e-2, 2 warmup steps
+    ocfg = AdamWConfig(lr=2e-2, warmup_steps=2, total_steps=2 * TRAIN_STEPS,
+                       weight_decay=0.0)
+
+    def train(e, window):
+        p, opt, losses, wall = params, adamw_init(params), [], []
+        if window:
+            K.reset_launch_counts()
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, grads = value_and_grad(loss_fn(e), p)
+            p, opt, _ = adamw_update(grads, opt, p, ocfg)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            if i == 0 and window:
+                check(_bitwise(torch, grads, g_a), "top-k: step 0 != its "
+                      "held run")
+        return p, opt, losses, wall
+
+    p_k, opt_k, losses_k, wall_k = train(eng, True)
+    launches["sparse"] = counts = K.launch_counts()
+    check(all(counts[n] > 0 for n in PATH_KERNELS["sparse"]),
+          f"a kernel of the top-k training path never launched: {counts}")
+    _, _, losses_d, wall_d = train(dense, False)
+    check(all(np.isfinite(losses_k + losses_d)),
+          f"top-k or dense loss not finite: {losses_k} {losses_d}")
+
+    def one_step(e):
+        def run():
+            loss, grads = value_and_grad(loss_fn(e), p_k)
+            adamw_update(grads, opt_k, p_k, ocfg)
+        return run
+
+    step_ms = {str(k): _time(torch, one_step(eng), reps=5, warmup=1),
+               "dense": _time(torch, one_step(dense), reps=5, warmup=1)}
+    breakdown = profile_pass(torch, one_step(eng), reps=2)
+    dense_breakdown = profile_pass(torch, one_step(dense), reps=2)
+    with torch.inference_mode():    # the two serving passes, each engine
+        passes_ms = {}
+        for name, e in ((str(k), eng), ("dense", dense)):
+            h1 = C.apply_stage("gcn", p_k, e, xp, 0)
+            passes_ms[name] = dict(
+                full=_time(torch, lambda: C.gcn_apply(p_k, e, xp), reps=5),
+                cached=_time(torch, lambda: C.apply_from_stage(
+                    "gcn", p_k, e, h1, 1), reps=5))
+        del h1
+    say("sparse_steps", steps=TRAIN_STEPS, topk=k, losses=losses_k,
+        dense_losses=losses_d, step_wall_ms=wall_k, dense_step_wall_ms=wall_d,
+        launches=counts,
+        launches_per_step={n: v / TRAIN_STEPS for n, v in counts.items()},
+        step_ms=step_ms, pass_ms=passes_ms, **breakdown,
+        dense_profiled_wall_ms=dense_breakdown["profiled_wall_ms"],
+        dense_device_ms_sum=dense_breakdown["device_ms_sum"],
+        dense_device_ms_by_kernel=dense_breakdown["device_ms_by_kernel"])
+
+    # serving at k on the trained weights: a Zipf trace, then served ==
+    # offline through a full and a cached pass, each run's launches read
+    srv = GNNServeEngine(eng, p_k, "gcn", x, g, slots=8,
+                         stats=WorkloadStats(window=32))
+    phases = [TrafficPhase(requests=100, alpha=1.1, rate=200.0, seeds_max=4,
+                           update_frac=0.02),
+              TrafficPhase(requests=100, alpha=1.1, rate=200.0, rotate=True,
+                           seeds_max=4, update_frac=0.02)]
+    events = list(ZipfTraffic(g.num_nodes, d, phases, seed=1))
+    n_requests = sum(not ev.is_update for ev in events)
+    K.reset_launch_counts()
+    results = run_trace(srv, events)
+    torch.cuda.synchronize()
+    launches["sparse_serving"] = counts = K.launch_counts()
+    check(all(counts[n] > 0 for n in PATH_KERNELS["sparse_serving"]),
+          f"a kernel of the top-k serving path never launched: {counts}")
+    check(len(results) == n_requests and all(
+        np.isfinite(r.logits).all() and r.logits.shape == (r.seeds.size, ncls)
+        for r in results), "top-k serving: bad or missing responses")
+    lat = np.array([r.latency for r in results])
+    seeds = np.unique(np.concatenate([r.seeds for r in results[:3]]))[:8]
+    srv.cache.invalidate()
+    per_pass = {}
+    for kind in ("full", "cached"):
+        srv.submit(seeds)
+        K.reset_launch_counts()
+        (res,) = srv.step()
+        per_pass[kind] = K.launch_counts()
+        check(res.cached == (kind == "cached"), f"no {kind} pass taken")
+        check(per_pass[kind]["sparse_gather_sum"] > 0,
+              f"the {kind} served pass launched no sparse gather-sum")
+        with torch.inference_mode():
+            offline = C.gcn_apply(p_k, eng, srv.xp)
+        rows = torch.from_numpy(C.pgas_rows(plan, seeds).astype(np.int64))
+        check(np.array_equal(res.logits, offline[rows.to(dev)].cpu().numpy()),
+              f"top-k: the {kind} served pass != offline")
+    say("sparse_served", topk=k, requests=len(results),
+        p50_ms=float(np.percentile(lat, 50) * 1e3),
+        p99_ms=float(np.percentile(lat, 99) * 1e3),
+        cache_hit_rate=srv.report()["cache_hit_rate"], launches=counts,
+        launches_per_served_pass=per_pass,
+        served_equals_offline="bitwise (full, cached)")
+
+    # K6 at layer 1's aggregation, the wire's rotations, torch.topk
+    with torch.inference_mode():
+        h1 = C.apply_stage("gcn", p_k, eng, srv.xp, 0)
+        z = ((h1 @ p_k["layers"][1]["w"])
+             * torch.rsqrt(eng.deg)[:, None]).contiguous()
+        del srv, h1, offline
+        k6 = time_sparse_gather_sum(torch, C, K, z, k, arrays, plan, rate)
+        k6["launches_per_served_pass"] = {
+            kind: c["sparse_gather_sum"] for kind, c in per_pass.items()}
+        topk_ms = _time(torch, lambda: torch.topk(z, k, dim=1))
+        rot_ms = {str(kk): time_rotations(torch, ring, plan, d, kk, dev)
+                  for kk in SPARSE_KS}
+        rot_ms["dense"] = time_rotations(torch, ring, plan, d, None, dev)
+    say("sparse_wire", topk_ms=topk_ms, topk_shape=list(z.shape),
+        rotation_ms_per_aggregation=rot_ms,
+        rotations_per_aggregation=plan.dist * (plan.n_dev - 1),
+        wire_bytes={str(kk): C.sparse_collective_bytes(plan, d, kk)
+                    for kk in SPARSE_KS}, dense_wire_bytes=dense_wire)
+    return k6
+
+
+def time_rotations(torch, ring, plan, d, k, dev):
+    """The rotation copies of one aggregation alone: ``dist`` chunks of
+    ``n_dev - 1`` rotations each, of the dense tiles (``k=None``) or of
+    the ``(values, int16 ids)`` pair."""
+    n_dev, dist, tile_rows = plan.n_dev, plan.dist, plan.tile_rows
+    shape = (n_dev, dist, tile_rows)
+    if k is None:
+        src = torch.zeros((*shape, d), device=dev)
+        pick = lambda c: src[:, c]
+        bufs = [torch.empty((n_dev, tile_rows, d), device=dev)
+                for _ in range(2)]
+    else:
+        vals = torch.zeros((*shape, k), device=dev)
+        ids = torch.zeros((*shape, k), dtype=torch.int16, device=dev)
+        pick = lambda c: (vals[:, c], ids[:, c])
+        bufs = [(torch.empty((n_dev, tile_rows, k), device=dev),
+                 torch.empty((n_dev, tile_rows, k), dtype=torch.int16,
+                             device=dev)) for _ in range(2)]
+
+    def run():
+        for c in range(dist):
+            cur, nxt = bufs
+            ring.wait(ring.rotate(pick(c), cur))
+            for _ in range(n_dev - 2):
+                ring.wait(ring.rotate(cur, nxt))
+                cur, nxt = nxt, cur
+
+    return _time(torch, run)
+
+
+def time_sparse_gather_sum(torch, C, K, z, k, arrays, plan, rate):
+    """Time one aggregation's worth of K6 at layer 1 of the fig9e model:
+    every group of the plan on its compressed input (each remote step on
+    its chunk's tile rotated as the ring rotates it), held bitwise to the
+    plain version group by group."""
+    import torch.nn.functional as F
+
+    ref = K.ref
+    n_dev, dist, tile_rows = plan.n_dev, plan.dist, plan.tile_rows
+    d = z.shape[1]
+    vals, idx = C.topk_activation(z, k)
+    idx = idx.to(C.wire_index_dtype(d))
+    vt, it = (t.view(n_dev, dist, tile_rows, k) for t in (vals, idx))
+    groups = [(vals, idx, grp) for grp in arrays.local_steps]
+    for s, grp in enumerate(arrays.remote_steps):
+        kk, c = divmod(s, dist)
+        groups.append((*(torch.roll(t[:, c], kk + 1, 0).reshape(-1, k)
+                         for t in (vt, it)), grp))
+    if arrays.local is not None:
+        groups.append((vals, idx, arrays.local))
+    groups = [gr for gr in groups if gr[2].num_partitions]
+    for v, i, grp in groups:
+        got = K.neighbor_agg.sparse_gather_sum(v, i, grp.nbrs, grp.mask, d)
+        want = ref.sparse_gather_sum_ref(v, i, grp.nbrs, grp.mask, d)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              "sparse_gather_sum at the fig9e shapes != its plain version")
+    nb_long = [grp.nbrs.long() for _, _, grp in groups]
+    weights = [grp.mask.float() for _, _, grp in groups]
+
+    def k6():
+        for v, i, grp in groups:
+            K.neighbor_agg.sparse_gather_sum(v, i, grp.nbrs, grp.mask, d)
+
+    def plain():
+        for v, i, grp in groups:
+            ref.sparse_gather_sum_ref(v, i, grp.nbrs, grp.mask, d)
+
+    def composite():      # two calls: decompress, then embedding_bag
+        for (v, i, _), nb, w in zip(groups, nb_long, weights):
+            F.embedding_bag(nb, C.topk_decompress(v, i, d), mode="sum",
+                            per_sample_weights=w)
+
+    t_plain = _time(torch, plain, reps=2, warmup=1)
+    t_k6 = _time(torch, k6)
+    t_comp = _time(torch, composite)
+    valid = sum(int(grp.mask.sum()) for _, _, grp in groups)
+    n_p = sum(grp.num_partitions for _, _, grp in groups)
+    ps = groups[0][2].nbrs.shape[1]
+    id_bytes = idx.element_size()
+    # each masked slot reads its compressed row, each slot its id and mask,
+    # each partition writes one D-wide row
+    nbytes = valid * k * (4 + id_bytes) + n_p * ps * (4 + 1) + n_p * d * 4
+    return dict(name="sparse_gather_sum", route="cuda",
+                source=SOURCE["sparse_gather_sum"],
+                replaces=REPLACES["sparse_gather_sum"], max_abs_err=0.0,
+                ms=t_k6, plain_ms=t_plain, bound_ms=nbytes / rate * 1e3,
+                bound_by="bytes", library_ms=None, library="none",
+                composite_ms=t_comp,
+                composite="topk_decompress + embedding_bag (two calls)",
+                bytes=nbytes, groups=len(groups), partitions=n_p,
+                valid_slots=valid, width=d, k=k, id_dtype=str(idx.dtype))
 
 
 def time_scatter(torch, K, arrays, plan, rate, dev):

@@ -33,7 +33,7 @@ from .graph import CSRGraph
 from .placement import (AggregationPlan, LayerPlan, build_layer_plans,
                         pad_embeddings, pad_table)
 from .pipeline import (RingArrays, block_neighbor_sum, mgg_aggregate,
-                       plan_device_arrays)
+                       mgg_aggregate_sparse, plan_device_arrays)
 
 __all__ = ["GNNEngine", "gcn_init", "gcn_stage", "gcn_apply", "gin_init",
            "gin_stage", "gin_apply", "sage_init", "sage_stage", "sage_apply",
@@ -50,10 +50,11 @@ class GNNEngine:
     One :class:`~repro_torch.core.placement.LayerPlan` from one ``(ps,
     dist, pb)`` config serves every GNN layer; ``ring_arrays[0]`` is that
     plan bound to the card (built once, at :meth:`build`).  Per-layer
-    plans come with the tuner's slice.  ``use_kernel=False`` (set on a
-    built engine, e.g. with ``dataclasses.replace``) runs the plain
-    versions on any device — the reference's oracle path, used to check
-    the kernels end to end.
+    plans come with the tuner's slice.  ``topk`` sends the hidden layers'
+    aggregations over the top-k compressed ring (:meth:`stage_topk`).
+    ``use_kernel=False`` (set on a built engine, e.g. with
+    ``dataclasses.replace``) runs the plain versions on any device — the
+    reference's oracle path, used to check the kernels end to end.
     """
 
     layer_plans: List[LayerPlan]
@@ -75,10 +76,9 @@ class GNNEngine:
         topk: Optional[int] = None,
     ) -> "GNNEngine":
         """Build an engine on ``ring`` whose one ``(ps, dist, pb)`` plan
-        serves every layer; GCN's ``Â`` takes ``graph`` with self-loops."""
-        if topk:
-            raise NotImplementedError(
-                "the top-k compressed ring arrives in a later slice")
+        serves every layer; GCN's ``Â`` takes ``graph`` with self-loops.
+        ``topk`` compresses the hidden layers' ring payloads to their
+        ``k`` largest entries a row."""
         if ring.device.type == "cuda":
             # the dense ·W updates, forward and backward, must agree with
             # the reference to fp32 rounding: CUDA matmuls run in full
@@ -88,7 +88,7 @@ class GNNEngine:
         plans = build_layer_plans(g, ring.n_dev,
                                   [dict(ps=ps, dist=dist, pb=pb)],
                                   interleave=interleave,
-                                  fuse_update=fuse_update)
+                                  fuse_update=fuse_update, topk=topk)
         plan0 = plans[0].plan
         arrays = [plan_device_arrays(plan0, interleave=interleave,
                                      device=ring.device)]
@@ -128,48 +128,66 @@ class GNNEngine:
         row ranges of this one tensor."""
         return torch.as_tensor(x).to(self.device)
 
+    def stage_topk(self, layer: int) -> Optional[int]:
+        """Top-k compression of aggregation stage ``layer``: hidden layers
+        only — the input layer's features always ride the dense ring."""
+        return self.layer_plan(layer).topk if layer >= 1 else None
+
     # -- aggregation ---------------------------------------------------------
 
     def aggregate(self, x: torch.Tensor, layer: int = 0,
-                  update_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  update_w: Optional[torch.Tensor] = None,
+                  topk: Optional[int] = None) -> torch.Tensor:
         lp = self.layer_plan(layer)
+        arrays = self.ring_arrays[min(layer, len(self.ring_arrays) - 1)]
+        if topk:
+            return mgg_aggregate_sparse(
+                x, lp.plan, self.ring, k=int(topk),
+                interleave=lp.interleave, use_kernel=self.use_kernel,
+                update_w=update_w, arrays=arrays)
         return mgg_aggregate(
             x, lp.plan, self.ring,
             interleave=lp.interleave,
             use_kernel=self.use_kernel,
             pb=lp.pb,
             update_w=update_w,
-            arrays=self.ring_arrays[min(layer, len(self.ring_arrays) - 1)],
+            arrays=arrays,
         )
 
     def aggregate_update(self, x: torch.Tensor, w: torch.Tensor,
-                         layer: int = 0) -> torch.Tensor:
+                         layer: int = 0,
+                         topk: Optional[int] = None) -> torch.Tensor:
         """Fused ``(A x) @ W``: the update matmul runs inside the ring."""
-        return self.aggregate(x, layer=layer, update_w=w)
+        return self.aggregate(x, layer=layer, update_w=w, topk=topk)
 
     def _dinv(self, x: torch.Tensor) -> torch.Tensor:
         return torch.rsqrt(self.deg)[:, None].to(x.dtype)
 
-    def gcn_norm_aggregate(self, x: torch.Tensor,
-                           layer: int = 0) -> torch.Tensor:
+    def gcn_norm_aggregate(self, x: torch.Tensor, layer: int = 0,
+                           topk: Optional[int] = None) -> torch.Tensor:
         """Â x with Â = D^{-1/2}(A+I)D^{-1/2} (self-loops already in plan)."""
         dinv = self._dinv(x)
-        return self.aggregate(x * dinv, layer=layer) * dinv
+        return self.aggregate(x * dinv, layer=layer, topk=topk) * dinv
 
     def gcn_norm_aggregate_update(self, x: torch.Tensor, w: torch.Tensor,
-                                  layer: int = 0) -> torch.Tensor:
+                                  layer: int = 0,
+                                  topk: Optional[int] = None) -> torch.Tensor:
         """Fused ``(Â x) @ W``: the left diagonal scaling commutes with the
         right matmul, so ``D^{-1/2}((A (D^{-1/2} x)) W)`` is exact."""
         dinv = self._dinv(x)
-        return self.aggregate_update(x * dinv, w, layer=layer) * dinv
+        return self.aggregate_update(x * dinv, w, layer=layer,
+                                     topk=topk) * dinv
 
-    def mean_aggregate(self, x: torch.Tensor, layer: int = 0) -> torch.Tensor:
-        return self.aggregate(x, layer=layer) / self.deg[:, None].to(x.dtype)
+    def mean_aggregate(self, x: torch.Tensor, layer: int = 0,
+                       topk: Optional[int] = None) -> torch.Tensor:
+        return self.aggregate(x, layer=layer, topk=topk) \
+            / self.deg[:, None].to(x.dtype)
 
     def mean_aggregate_update(self, x: torch.Tensor, w: torch.Tensor,
-                              layer: int = 0) -> torch.Tensor:
+                              layer: int = 0,
+                              topk: Optional[int] = None) -> torch.Tensor:
         """Fused ``(D^{-1} A x) @ W`` (same commutation as gcn_norm)."""
-        return self.aggregate_update(x, w, layer=layer) \
+        return self.aggregate_update(x, w, layer=layer, topk=topk) \
             / self.deg[:, None].to(x.dtype)
 
 
@@ -223,13 +241,15 @@ def gcn_stage(params: Dict, engine: GNNEngine, h: torch.Tensor,
     n = len(params["layers"])
     layer = params["layers"][i]
     d_in, d_out = layer["w"].shape
+    tk = engine.stage_topk(i)  # hidden layers may ride the sparse ring
     if engine.layer_plan(i).fuse_update:
-        h = engine.gcn_norm_aggregate_update(h, layer["w"], layer=i) \
-            + layer["b"]
+        h = engine.gcn_norm_aggregate_update(h, layer["w"], layer=i,
+                                             topk=tk) + layer["b"]
     elif d_in >= d_out:
-        h = engine.gcn_norm_aggregate(h @ layer["w"], layer=i) + layer["b"]
+        h = engine.gcn_norm_aggregate(h @ layer["w"], layer=i, topk=tk) \
+            + layer["b"]
     else:
-        h = _dense(layer, engine.gcn_norm_aggregate(h, layer=i))
+        h = _dense(layer, engine.gcn_norm_aggregate(h, layer=i, topk=tk))
     if i < n - 1:
         h = torch.relu(h)
     return h
@@ -271,13 +291,14 @@ def gin_stage(params: Dict, engine: GNNEngine, h: torch.Tensor,
     if i == len(params["layers"]):
         return _dense(params["head"], h)
     layer = params["layers"][i]
+    tk = engine.stage_topk(i)  # sparse ring for hidden layers; self term dense
     if engine.layer_plan(i).fuse_update:
-        z = engine.aggregate_update(h, layer["mlp1"]["w"], layer=i) \
+        z = engine.aggregate_update(h, layer["mlp1"]["w"], layer=i, topk=tk) \
             + layer["eps"] * (h @ layer["mlp1"]["w"]) + layer["mlp1"]["b"]
         z = torch.relu(z)
     else:
         # (1+ε)h + Σ_{u∈N(v)} h_u: the plan's self-loop gives the 1·h
-        z = engine.aggregate(h, layer=i) + layer["eps"] * h
+        z = engine.aggregate(h, layer=i, topk=tk) + layer["eps"] * h
         z = torch.relu(_dense(layer["mlp1"], z))
     return torch.relu(_dense(layer["mlp2"], z))
 
@@ -306,11 +327,13 @@ def sage_init(gen: torch.Generator, in_dim: int, num_classes: int,
 def sage_stage(params: Dict, engine: GNNEngine, h: torch.Tensor,
                i: int) -> torch.Tensor:
     layer = params["layers"][i]
+    tk = engine.stage_topk(i)  # sparse ring for hidden layers; self path dense
     if engine.layer_plan(i).fuse_update:
-        nbr = engine.mean_aggregate_update(h, layer["nbr"]["w"], layer=i) \
-            + layer["nbr"]["b"]
+        nbr = engine.mean_aggregate_update(h, layer["nbr"]["w"], layer=i,
+                                           topk=tk) + layer["nbr"]["b"]
     else:
-        nbr = _dense(layer["nbr"], engine.mean_aggregate(h, layer=i))
+        nbr = _dense(layer["nbr"], engine.mean_aggregate(h, layer=i,
+                                                         topk=tk))
     h = _dense(layer["self"], h) + nbr
     if i < len(params["layers"]) - 1:
         h = torch.relu(h)
@@ -406,7 +429,8 @@ def gat_stage(params: Dict, engine: GNNEngine, h: torch.Tensor,
               i: int) -> torch.Tensor:
     """GAT's ``W`` runs before aggregation (attention needs ``Wh`` per
     source), so there is no update to fuse: ``fuse_update`` is a no-op and
-    fused == unfused bitwise."""
+    fused == unfused bitwise.  GAT stays on the dense ring under ``topk``,
+    as in the reference."""
     layer = params["layers"][i]
     nh = layer["a_l"].shape[0]
     z = _dense(layer["w"], h)                          # (N, H·hd)

@@ -31,7 +31,16 @@ update differentiates as ``dx = Aᵀ (g Wᵀ)`` and ``dW = (A x)ᵀ g``, with
 ``A x`` from one unfused ring.  :func:`block_neighbor_sum` runs a sampled
 block's masked sum on the same gather-sum and its K4 backward.
 
-The bulk, fetch, sparse (top-k) and streamed variants come in later slices.
+:func:`mgg_aggregate_sparse` is the top-k compressed ring (the reference's
+MaxK-GNN direction): each row is compressed once to its ``k`` largest
+entries, the ring rotates the ``(values, ids)`` pair — ``k · (4 + 2)``
+bytes a row with int16 ids instead of ``D · 4`` — and each step's K6
+gather-sum reads the compressed rows directly.  Its backward is the same
+transposed ring over ``k``-wide value gradients (a ppermute of the values
+transposes to a ppermute of their cotangent), and ``dx`` is the scatter of
+the value gradients at the ids.
+
+The bulk, fetch and streamed variants come in later slices.
 """
 from __future__ import annotations
 
@@ -47,7 +56,51 @@ from ..kernels.ops import GradIndex
 from .placement import AggregationPlan
 
 __all__ = ["WorkGroup", "RingArrays", "plan_device_arrays", "mgg_aggregate",
-           "block_neighbor_sum", "reference_aggregate"]
+           "mgg_aggregate_sparse", "block_neighbor_sum", "reference_aggregate",
+           "topk_activation", "wire_index_dtype", "topk_decompress",
+           "collective_bytes", "sparse_collective_bytes"]
+
+topk_decompress = ref.topk_decompress
+
+
+def topk_activation(x: torch.Tensor,
+                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keep the ``k`` largest entries per row: ``x → (values, col_idx)``,
+    both ``(N, k)``, ``values[n, s] = x[n, col_idx[n, s]]``, ids int32 in
+    descending order of value as ``lax.top_k`` gives them.  The ids of a
+    row are distinct, so :func:`topk_decompress` is an exact inverse at
+    ``k == D``.  Among tied values ``torch.topk`` may pick other columns
+    than ``lax.top_k``: the decompressed rows agree whenever the only ties
+    at the ``k`` boundary are zeros."""
+    values, idx = torch.topk(x, k, dim=1, sorted=True)
+    return values, idx.to(torch.int32)
+
+
+def wire_index_dtype(d_feat: int) -> torch.dtype:
+    """Narrowest integer dtype that addresses a column of width ``d_feat``:
+    int16 up to 32767 columns, so a ``(value, id)`` pair is 6 bytes."""
+    return torch.int16 if d_feat <= np.iinfo(np.int16).max else torch.int32
+
+
+def collective_bytes(plan: AggregationPlan, d_feat: int,
+                     itemsize: int = 4) -> int:
+    """Ring bytes per shard per aggregation: (n-1) full shard rotations."""
+    if plan.n_dev <= 1:
+        return 0
+    return (plan.n_dev - 1) * plan.rows_per_dev * d_feat * itemsize
+
+
+def sparse_collective_bytes(plan: AggregationPlan, d_feat: int, k: int,
+                            itemsize: int = 4) -> int:
+    """Ring bytes of the compressed payload: (n-1) rotations of the
+    ``(values, col_idx)`` pair — ``k`` values plus ``k`` ids in the wire
+    index dtype per row."""
+    if plan.n_dev <= 1:
+        return 0
+    idx_itemsize = torch.empty((), dtype=wire_index_dtype(d_feat)).itemsize
+    k = min(int(k), int(d_feat))
+    return (plan.n_dev - 1) * plan.rows_per_dev * k * (itemsize
+                                                       + idx_itemsize)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,8 +273,19 @@ class _RingAggregate(torch.autograd.Function):
 
 def _ring_forward(x, update_w, plan, ring, arrays, use_kernel, pb):
     x = x.contiguous()
+    gather = lambda bufs, grp: _gather_sum(bufs[0], grp, use_kernel, pb)
+    return _ring_walk((x,), gather, x.shape[1], update_w, plan, ring, arrays,
+                      use_kernel).to(x.dtype)
+
+
+def _ring_walk(tables, gather, d_feat, update_w, plan, ring, arrays,
+               use_kernel) -> torch.Tensor:
+    """The forward schedule over the row tables ``tables`` — ``(x,)``, or
+    the compressed ``(values, ids)`` pair, which rotate together — with
+    ``gather(bufs, grp)`` the group's gather-sum → ``(rows, d_out)``
+    float32."""
     n_dev, dist, tile_rows = plan.n_dev, plan.dist, plan.tile_rows
-    rows, d_feat = x.shape
+    rows = tables[0].shape[0]
     update: Callable[[torch.Tensor], torch.Tensor]
     if update_w is not None:
         w = update_w.to(torch.float32)
@@ -230,40 +294,41 @@ def _ring_forward(x, update_w, plan, ring, arrays, use_kernel, pb):
     else:
         d_out = d_feat
         update = lambda partial: partial
-    out = torch.zeros((rows, d_out), dtype=torch.float32, device=x.device)
+    out = torch.zeros((rows, d_out), dtype=torch.float32,
+                      device=tables[0].device)
 
-    def work(buf: torch.Tensor, grp: WorkGroup) -> None:
+    def work(bufs, grp: WorkGroup) -> None:
         if grp.num_partitions:
-            _segment_add(out, update(_gather_sum(buf, grp, use_kernel, pb)),
-                         grp, use_kernel)
+            _segment_add(out, update(gather(bufs, grp)), grp, use_kernel)
 
     if arrays.local is not None:
         # paper Fig. 9(b) baseline (or a single shard): local work up front
-        work(x, arrays.local)
+        work(tables, arrays.local)
     if n_dev == 1:
-        return out.to(x.dtype)
+        return out
 
-    tiles = x.view(n_dev, dist, tile_rows, d_feat)
-    cur = torch.empty((n_dev, tile_rows, d_feat), dtype=x.dtype,
-                      device=x.device)
-    nxt = torch.empty_like(cur)
+    tiles = tuple(t.view(n_dev, dist, tile_rows, t.shape[1]) for t in tables)
+    cur = tuple(t.new_empty((n_dev, tile_rows, t.shape[1])) for t in tables)
+    nxt = tuple(torch.empty_like(t) for t in cur)
     # One double-buffered ring per tile chunk (chunk-major: every chunk
     # makes exactly n_dev - 1 rotations).
     for c in range(dist):
-        ring.wait(ring.rotate(tiles[:, c], cur))  # rotation 1 (prologue)
+        # rotation 1 (prologue)
+        ring.wait(ring.rotate(tuple(t[:, c] for t in tiles), cur))
         for k in range(n_dev - 1):
             step = k * dist + c
             # rotation k+2 is in flight while this step aggregates `cur`;
             # the last step (epilogue) has nothing left to rotate
             last = k == n_dev - 2
             token = None if last else ring.rotate(cur, nxt)
-            work(cur.view(-1, d_feat), arrays.remote_steps[step])
+            work(tuple(t.view(-1, t.shape[2]) for t in cur),
+                 arrays.remote_steps[step])
             if arrays.local_steps:
-                work(x, arrays.local_steps[step])
+                work(tables, arrays.local_steps[step])
             if not last:
                 ring.wait(token)
                 cur, nxt = nxt, cur
-    return out.to(x.dtype)
+    return out
 
 
 def _ring_backward(g, plan, ring, arrays, use_kernel) -> torch.Tensor:
@@ -302,6 +367,143 @@ def _ring_backward(g, plan, ring, arrays, use_kernel) -> torch.Tensor:
             acc, nxt = nxt, acc
         dtiles[:, c] += acc
     return dx
+
+
+def mgg_aggregate_sparse(
+    x: torch.Tensor,
+    plan: AggregationPlan,
+    ring: VirtualRing,
+    *,
+    k: int,
+    interleave: bool = True,
+    use_kernel: bool = True,
+    update_w: Optional[torch.Tensor] = None,
+    arrays: Optional[RingArrays] = None,
+) -> torch.Tensor:
+    """Top-k compressed variant of :func:`mgg_aggregate`.
+
+    ``x`` is compressed row-wise once (:func:`topk_activation`, ``k``
+    clamped to ``D``; ids in :func:`wire_index_dtype`); the ring then
+    rotates the ``(values, ids)`` pair, and every step runs the sparse
+    gather-sum (K6) on the arriving tile before the same ordered segment
+    add.  The schedule (chunk-major rings, interleaved local slices, fused
+    ``·W``) is the dense one's, so at ``k == D`` the output is bitwise
+    equal to :func:`mgg_aggregate`, and at ``k < D`` bitwise equal to it
+    on ``topk_decompress(topk_activation(x, k))``.  There is no blocked
+    (``pb``) variant.  Differentiable in ``x`` and ``update_w``: the
+    backward ring carries ``k``-wide value gradients.
+    """
+    if ring.n_dev != plan.n_dev:
+        raise ValueError(f"ring of {ring.n_dev} shards, plan for "
+                         f"{plan.n_dev}")
+    if x.shape[0] != plan.padded_nodes:
+        raise ValueError(f"x has {x.shape[0]} rows, plan pads to "
+                         f"{plan.padded_nodes}")
+    if int(k) < 1:
+        raise ValueError(f"k must be positive, got {k}")
+    if arrays is None:
+        arrays = plan_device_arrays(plan, interleave=interleave,
+                                    device=x.device)
+    elif arrays.interleave != bool(interleave):
+        raise ValueError("arrays were built for another interleave flag")
+    k = min(int(k), int(x.shape[1]))
+    return _SparseRingAggregate.apply(x, update_w, k, plan, ring, arrays,
+                                      use_kernel)
+
+
+class _SparseRingAggregate(torch.autograd.Function):
+    """The compressed ring as one differentiable op: compress, then
+    :func:`_sparse_ring_forward`; backward :func:`_sparse_ring_backward`
+    (the transposed ring over value gradients), then the scatter at the
+    ids (the ids get no gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, w, k, plan, ring, arrays, use_kernel):
+        d_feat = x.shape[1]
+        values, idx = topk_activation(x.contiguous(), k)
+        idx = idx.to(wire_index_dtype(d_feat))
+        ctx.save_for_backward(None if w is None else values, idx, w)
+        ctx.ring_args = (plan, ring, arrays, use_kernel)
+        ctx.x_dtype, ctx.d_feat = x.dtype, d_feat
+        return _sparse_ring_forward(values, idx, d_feat, w,
+                                    *ctx.ring_args).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        values, idx, w = ctx.saved_tensors
+        d_feat = ctx.d_feat
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            gx = g if w is None else (g @ w.to(torch.float32).t())
+            dv = _sparse_ring_backward(gx.contiguous(), idx, *ctx.ring_args)
+            dx = torch.zeros((idx.shape[0], d_feat), dtype=torch.float32,
+                             device=g.device)
+            dx = dx.scatter_(1, idx.long(), dv).to(ctx.x_dtype)
+        if w is not None and ctx.needs_input_grad[1]:
+            ax = _sparse_ring_forward(values, idx, d_feat, None,
+                                      *ctx.ring_args)
+            dw = (ax.t() @ g).to(w.dtype)
+        return dx, dw, None, None, None, None, None
+
+
+def _sparse_ring_forward(values, idx, d_feat, update_w, plan, ring, arrays,
+                         use_kernel) -> torch.Tensor:
+    """The ring walk over the compressed pair, K6 each step → float32."""
+    gather = lambda bufs, grp: ops.sparse_neighbor_gather_sum(
+        *bufs, grp.nbrs, grp.mask, d_feat=d_feat, use_kernel=use_kernel)
+    return _ring_walk((values, idx), gather, d_feat, update_w, plan, ring,
+                      arrays, use_kernel)
+
+
+def _sparse_ring_backward(g, idx, plan, ring, arrays,
+                          use_kernel) -> torch.Tensor:
+    """``d values`` (``(rows, k)`` float32) of the compressed ring.
+
+    The transposed ring of :func:`_ring_backward` with ``k``-wide
+    accumulators: step ``kk`` of chunk ``c`` scatter-sums ``g`` into the
+    step tile's dense gradient (K4), gathers it at the step's id tile
+    (the chunk's ids rotated ``kk + 1`` shards forward) and adds that into
+    the accumulator, which then rotates one shard back — together with
+    the id tile, so the next step finds its ids in place.  The local work
+    scatters into one dense table, gathered at ``idx`` at the end.
+    """
+    n_dev, dist, tile_rows = plan.n_dev, plan.dist, plan.tile_rows
+    rows, d = g.shape
+    k = idx.shape[1]
+    dense = torch.zeros((rows, d), dtype=torch.float32, device=g.device)
+    if arrays.local is not None:
+        _scatter_sum(dense, g, arrays.local, use_kernel)
+    if n_dev == 1:
+        return torch.gather(dense, 1, idx.long())
+
+    dv = torch.empty((rows, k), dtype=torch.float32, device=g.device)
+    dv_tiles = dv.view(n_dev, dist, tile_rows, k)
+    i_tiles = idx.view(n_dev, dist, tile_rows, k)
+    d_tile = torch.empty((n_dev * tile_rows, d), dtype=torch.float32,
+                         device=g.device)
+    acc = (dv.new_empty((n_dev, tile_rows, k)),
+           idx.new_empty((n_dev, tile_rows, k)))
+    nxt = (torch.empty_like(acc[0]), torch.empty_like(acc[1]))
+    for c in reversed(range(dist)):
+        acc[0].zero_()
+        # the ids of step n_dev - 2: the chunk's, rotated n_dev - 1 forward
+        ring.wait(ring.rotate_back(i_tiles[:, c], acc[1]))
+        for kk in reversed(range(n_dev - 1)):
+            step = kk * dist + c
+            d_tile.zero_()
+            _scatter_sum(d_tile, g, arrays.remote_steps[step], use_kernel)
+            acc[0].view(-1, k).add_(torch.gather(
+                d_tile, 1, acc[1].view(-1, k).long()))
+            # after step 0 only the accumulator has somewhere to go
+            token = ring.rotate_back(acc, nxt) if kk \
+                else ring.rotate_back(acc[0], nxt[0])
+            if arrays.local_steps:
+                _scatter_sum(dense, g, arrays.local_steps[step], use_kernel)
+            ring.wait(token)
+            acc, nxt = nxt, acc
+        dv_tiles[:, c] = acc[0]
+    return dv.add_(torch.gather(dense, 1, idx.long()))
 
 
 def block_neighbor_sum(h_src: torch.Tensor, nbr: torch.Tensor,

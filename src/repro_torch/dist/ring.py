@@ -52,31 +52,35 @@ class VirtualRing:
         self._side = (torch.cuda.Stream(self.device)
                       if self.device.type == "cuda" else None)
 
-    def rotate(self, src: torch.Tensor,
-               dst: torch.Tensor) -> Optional[torch.cuda.Event]:
+    def rotate(self, src, dst) -> Optional[torch.cuda.Event]:
         """Enqueue ``dst[(i + 1) % n] = src[i]`` for the stacked tiles.
 
-        On the card the copy is issued on the side stream after everything
-        already queued on the current stream (which wrote ``src`` and last
-        read ``dst``); the returned event marks its end — pass it to
-        :meth:`wait` before reading ``dst``.
+        ``src`` and ``dst`` are tensors, or tuples of tensors that rotate
+        together under one event (the top-k ring's ``(values, ids)``
+        pair).  On the card the copy is issued on the side stream after
+        everything already queued on the current stream (which wrote
+        ``src`` and last read ``dst``); the returned event marks its end —
+        pass it to :meth:`wait` before reading ``dst``.
         """
         return self._enqueue(_roll_into, src, dst)
 
-    def rotate_back(self, src: torch.Tensor,
-                    dst: torch.Tensor) -> Optional[torch.cuda.Event]:
+    def rotate_back(self, src, dst) -> Optional[torch.cuda.Event]:
         """Enqueue ``dst[i] = src[(i + 1) % n]``, the transposed rotation
         that carries a tile's gradient one shard back; ordered as
         :meth:`rotate`."""
         return self._enqueue(_roll_back_into, src, dst)
 
     def _enqueue(self, copy, src, dst) -> Optional[torch.cuda.Event]:
+        pairs = tuple(zip(src, dst)) if isinstance(src, tuple) \
+            else ((src, dst),)
         if self._side is None:
-            copy(src, dst)
+            for s, d in pairs:
+                copy(s, d)
             return None
         self._side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._side):
-            copy(src, dst)
+            for s, d in pairs:
+                copy(s, d)
             done = torch.cuda.Event()
             done.record(self._side)
         return done

@@ -81,6 +81,8 @@ _SIGNATURES = {
                                 _P],
     # src, idx, out, B, T, D, stream
     "mgg_gather_rows": [_P, _P, _P, _L, _L, _I, _P],
+    # values, idx, nbrs, mask, out, P, ps, k, D, id_bytes, stream
+    "mgg_sparse_gather_sum": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,4 +1,5 @@
-"""Thin wrappers around the CUDA gather-sum kernels (``csrc/gather_sum.cu``).
+"""Thin wrappers around the CUDA gather-sum kernels (``csrc/gather_sum.cu``,
+``csrc/sparse_gather_sum.cu``).
 
 Counterpart of ``repro/kernels/neighbor_agg.py``:
 
@@ -9,7 +10,9 @@ Counterpart of ``repro/kernels/neighbor_agg.py``:
   (``out.at[tgt].add`` in the reference), which has no Pallas kernel;
 * :func:`scatter_sum_ordered` — K4, the gather-sum's backward (the masked
   scatter-add of ``repro/kernels/ops.py::_gather_sum_bwd``), deterministic
-  through a transposed index built on the host.
+  through a transposed index built on the host;
+* :func:`sparse_gather_sum` — K6, for ``sparse_gather_sum_call``: the
+  gather-sum over top-k compressed rows (``csrc/sparse_gather_sum.cu``).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates the output, launches on PyTorch's current stream,
@@ -23,8 +26,9 @@ import torch
 from . import _build
 
 __all__ = ["gather_sum_pipelined", "gather_sum_blocked",
-           "segment_add_ordered", "scatter_sum_ordered", "blocked_fits",
-           "reset_launch_counts", "launch_counts", "BLOCKED_SMEM_BYTES"]
+           "segment_add_ordered", "scatter_sum_ordered", "sparse_gather_sum",
+           "blocked_fits", "reset_launch_counts", "launch_counts",
+           "BLOCKED_SMEM_BYTES"]
 
 # K2 stages its partitions' ids and mask in static shared memory; above
 # this the block would need the dynamic opt-in, and pb * 32 threads must
@@ -170,8 +174,48 @@ def scatter_sum_ordered(dbuf: torch.Tensor, g: torch.Tensor,
     return dbuf
 
 
+# K6 keeps each D-wide fp32 accumulator in one block's shared memory
+SPARSE_MAX_WIDTH = 227 * 1024 // 4
+ID_BYTES = {torch.int16: 2, torch.int32: 4}
+
+
+def sparse_gather_sum(values: torch.Tensor, idx: torch.Tensor,
+                      nbrs: torch.Tensor, mask: torch.Tensor,
+                      d_feat: int) -> torch.Tensor:
+    """K6: ``out[p] = Σ_j mask[p, j] · decompress(values, idx)[nbrs[p, j]]``
+    → (P, d_feat) float32, reading the ``(T, k)`` compressed pairs with
+    their int16 (or int32) ids as they are."""
+    if values.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on a {values.device} tensor")
+    dev = values.device
+    _check("values", values, torch.float32, 2, dev)
+    if idx.dtype not in ID_BYTES:
+        raise TypeError(f"idx has dtype {idx.dtype}, expected int16 or int32")
+    _check("idx", idx, idx.dtype, 2, dev)
+    _check("nbrs", nbrs, torch.int32, 2, dev)
+    _check("mask", mask, torch.bool, 2, dev)
+    if idx.shape != values.shape:
+        raise ValueError(f"idx {tuple(idx.shape)} != values "
+                         f"{tuple(values.shape)}")
+    if mask.shape != nbrs.shape:
+        raise ValueError(f"mask {tuple(mask.shape)} != nbrs "
+                         f"{tuple(nbrs.shape)}")
+    k = values.shape[1]
+    if not 1 <= k <= d_feat <= SPARSE_MAX_WIDTH:
+        raise ValueError(f"need 1 <= k <= d_feat <= {SPARSE_MAX_WIDTH}, got "
+                         f"k={k}, d_feat={d_feat}")
+    p, ps = nbrs.shape
+    out = torch.empty((p, d_feat), dtype=torch.float32, device=dev)
+    rc = _build.library("sparse_gather_sum").mgg_sparse_gather_sum(
+        values.data_ptr(), idx.data_ptr(), nbrs.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), p, ps, k, d_feat, ID_BYTES[idx.dtype], _stream(dev))
+    _raise_on(rc, "sparse_gather_sum")
+    sparse_gather_sum.launches += 1
+    return out
+
+
 _WRAPPERS = (gather_sum_pipelined, gather_sum_blocked, segment_add_ordered,
-             scatter_sum_ordered)
+             scatter_sum_ordered, sparse_gather_sum)
 for _fn in _WRAPPERS:
     _fn.launches = 0
 

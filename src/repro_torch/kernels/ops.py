@@ -12,6 +12,9 @@ The reference's ``jax.custom_vjp`` around the gather-sum
 ``autograd.Function``: K1/K2 forward, K4 backward.  Its backward is the
 masked scatter-add ``dbuf[nbrs[p, j]] += g[p]``; to add without atomics,
 it reads a :class:`GradIndex` built on the host once per plan or block.
+The sparse gather-sum over top-k compressed rows (K6 forward) has the
+same backward followed by a column gather at the ids
+(:class:`_SparseGatherSum`, the reference's ``ops.py:112-120``).
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import torch
 from . import neighbor_agg, ref, rows
 
 __all__ = ["GradIndex", "GRAD_CHUNK", "neighbor_gather_sum",
-           "segment_add_ordered", "scatter_sum_ordered", "gather_rows"]
+           "sparse_neighbor_gather_sum", "segment_add_ordered",
+           "scatter_sum_ordered", "gather_rows"]
 
 # Longest run of slots one thread adds in a row: a longer segment (a hub
 # neighbor) is cut into chunks of this many slots, summed in two passes.
@@ -165,6 +169,58 @@ def neighbor_gather_sum(buf: torch.Tensor, nbrs: torch.Tensor,
                              "needs its grad_index")
         return _gather_sum_fwd(buf, nbrs, mask, pb, use_kernel)
     return _GatherSum.apply(buf, nbrs, mask, grad_index, pb, use_kernel)
+
+
+class _SparseGatherSum(torch.autograd.Function):
+    """``out[p] = Σ_j mask[p, j] · decompress(values, idx)[nbrs[p, j]]``;
+    backward: K4 into the dense ``(T, D)`` gradient, then each row's ``k``
+    live columns gathered at ``idx``.  The ids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, values, idx, nbrs, mask, d_feat, index, use_kernel):
+        ctx.save_for_backward(idx)
+        ctx.index, ctx.use_kernel = index, use_kernel
+        return _sparse_gather_sum_fwd(values, idx, nbrs, mask, d_feat,
+                                      use_kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        dbuf = torch.zeros((idx.shape[0], g.shape[1]), dtype=torch.float32,
+                           device=g.device)
+        scatter = scatter_sum_ordered if ctx.use_kernel \
+            else ref.scatter_sum_ordered_ref
+        scatter(dbuf, g.contiguous(), ctx.index)
+        dval = torch.gather(dbuf, 1, idx.long())
+        return dval, None, None, None, None, None, None
+
+
+def _sparse_gather_sum_fwd(values, idx, nbrs, mask, d_feat, use_kernel):
+    if not use_kernel or _route(values) == "cpu":
+        return ref.sparse_gather_sum_ref(values, idx, nbrs, mask, d_feat)
+    return neighbor_agg.sparse_gather_sum(values, idx, nbrs, mask, d_feat)
+
+
+def sparse_neighbor_gather_sum(values: torch.Tensor, idx: torch.Tensor,
+                               nbrs: torch.Tensor, mask: torch.Tensor, *,
+                               d_feat: int,
+                               grad_index: Optional[GradIndex] = None,
+                               use_kernel: bool = True) -> torch.Tensor:
+    """``out[p] = Σ_j mask[p, j] · decompress(values, idx)[nbrs[p, j]]`` →
+    (P, d_feat) float32, over ``(T, k)`` top-k compressed rows whose ids
+    travel as int16 (or int32).  K6 on the card; the plain version
+    decompresses and runs the dense gather-sum.  ``values`` that need a
+    gradient need ``grad_index`` (the backward runs K4, then a column
+    gather).  There is no blocked (``pb``) variant, as in the reference.
+    """
+    if grad_index is None:
+        if values.requires_grad and torch.is_grad_enabled():
+            raise ValueError("a sparse gather-sum whose values need a "
+                             "gradient needs its grad_index")
+        return _sparse_gather_sum_fwd(values, idx, nbrs, mask, d_feat,
+                                      use_kernel)
+    return _SparseGatherSum.apply(values, idx, nbrs, mask, d_feat,
+                                  grad_index, use_kernel)
 
 
 def segment_add_ordered(out: torch.Tensor, partial: torch.Tensor,

@@ -10,7 +10,8 @@ import numpy as np
 import torch
 
 __all__ = ["neighbor_gather_sum_ref", "segment_add_ordered_ref",
-           "scatter_sum_ordered_ref", "gather_rows_ref"]
+           "scatter_sum_ordered_ref", "gather_rows_ref", "topk_decompress",
+           "sparse_gather_sum_ref"]
 
 
 def neighbor_gather_sum_ref(buf: torch.Tensor, nbrs: torch.Tensor,
@@ -26,6 +27,30 @@ def neighbor_gather_sum_ref(buf: torch.Tensor, nbrs: torch.Tensor,
         row = buf.index_select(0, nbrs[:, j].long()).float()
         out = out + row * mask[:, j, None].float()
     return out
+
+
+def topk_decompress(values: torch.Tensor, idx: torch.Tensor,
+                    d_feat: int) -> torch.Tensor:
+    """Inverse of top-k compression: ``(N, k) → (N, d_feat)`` dense,
+    ``out[n, idx[n, s]] = values[n, s]`` and zeros elsewhere.
+
+    A row's ids are distinct (a top-k guarantee), so each word is written
+    at most once: deterministic, and an exact identity at ``k == d_feat``.
+    The ids may travel as int16; torch's index ops take int64, so they are
+    widened here.
+    """
+    out = values.new_zeros((values.shape[0], d_feat))
+    return out.scatter_(1, idx.long(), values)
+
+
+def sparse_gather_sum_ref(values: torch.Tensor, idx: torch.Tensor,
+                          nbrs: torch.Tensor, mask: torch.Tensor,
+                          d_feat: int) -> torch.Tensor:
+    """``out[p] = Σ_j mask[p, j] · decompress(values, idx)[nbrs[p, j]]`` →
+    (P, d_feat) float32: decompress the buffer, then the dense gather-sum
+    (the reference's jnp path, ``repro/core/pipeline.py:152-169``)."""
+    return neighbor_gather_sum_ref(topk_decompress(values, idx, d_feat),
+                                   nbrs, mask)
 
 
 def segment_add_ordered_ref(out: torch.Tensor, partial: torch.Tensor,

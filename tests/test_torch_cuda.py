@@ -1,7 +1,7 @@
 """repro_torch on the card: the CUDA kernels against their plain versions,
-the ring (forward and backward) on the card against the ring on the CPU,
-sampled GraphSAGE's gradients on the card against the CPU's, and served ==
-offline.
+the ring (forward and backward, dense and top-k compressed) on the card
+against the ring on the CPU, sampled GraphSAGE's gradients on the card
+against the CPU's, and served == offline.
 
 These tests need an NVIDIA card and nvcc (a CUDA kernel has no CPU mode);
 without them they skip.  On the card, run them with
@@ -212,3 +212,133 @@ def test_sampled_sage_gradients_on_card_match_cpu(cuda):
         assert torch.equal(a, b)
         torch.testing.assert_close(a.cpu(), c, rtol=1e-4,
                                    atol=1e-4 * c.abs().max().item())
+
+
+def _sparse_case(rng, t, d, k, p, ps, id_dtype, device):
+    """Top-k pairs of ``t`` random rows; partitions with a hub row (a third
+    of them name row 5 in every slot) and all-masked partitions."""
+    x = torch.from_numpy(rng.normal(size=(t, d)).astype(np.float32)).to(
+        device)
+    values, idx = TC.topk_activation(x, k)
+    nbrs = rng.integers(0, t, (p, ps))
+    nbrs[: p // 3] = 5
+    mask = rng.random((p, ps)) < 0.7
+    mask[1::7] = False
+    return (values, idx.to(id_dtype),
+            torch.from_numpy(nbrs.astype(np.int32)).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("d", [1, 13, 96, 130, 256, 600])
+@pytest.mark.parametrize("kind", ["one", "quarter", "all"])
+def test_sparse_gather_sum_bitwise_equals_plain(cuda, id_dtype, d, kind):
+    """K6 against decompress-then-gather-sum, bitwise (compared as int32
+    words), at k = 1, D/4 and D: every register-batch path of the kernel
+    (k <= 32, 64, 128 and wider), widths that are no multiple of 32."""
+    k = {"one": 1, "quarter": max(1, d // 4), "all": d}[kind]
+    rng = np.random.default_rng(d * 7 + k)
+    values, idx, nbrs, mask = _sparse_case(rng, 400, d, k, 1001, 8,
+                                           id_dtype, cuda)
+    want = ref.sparse_gather_sum_ref(values, idx, nbrs, mask, d)
+    before = neighbor_agg.sparse_gather_sum.launches
+    got = ops.sparse_neighbor_gather_sum(values, idx, nbrs, mask, d_feat=d)
+    assert neighbor_agg.sparse_gather_sum.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got, ops.sparse_neighbor_gather_sum(
+        values, idx, nbrs, mask, d_feat=d))
+    assert not got[1::7].any()                  # all-masked partitions
+
+
+@pytest.mark.parametrize("id_dtype,d", [(torch.int16, 20000),
+                                        (torch.int32, 40000)])
+def test_sparse_gather_sum_wide_rows_use_dynamic_shared_memory(cuda,
+                                                               id_dtype, d):
+    """An accumulator over 48 KB (one partition a block, the opt-in)."""
+    rng = np.random.default_rng(d)
+    values, idx, nbrs, mask = _sparse_case(rng, 20, d, d // 4, 37, 4,
+                                           id_dtype, cuda)
+    want = ref.sparse_gather_sum_ref(values, idx, nbrs, mask, d)
+    got = ops.sparse_neighbor_gather_sum(values, idx, nbrs, mask, d_feat=d)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("ps,dist,interleave,fused",
+                         [(4, 1, True, False), (8, 2, False, True)])
+def test_sparse_ring_on_card_matches_cpu_and_dense_at_full_k(
+        cuda, ps, dist, interleave, fused):
+    g = TC.power_law(360, avg_degree=7.0, locality=0.35, seed=11)
+    x = np.random.default_rng(3).normal(size=(g.num_nodes, 23)).astype(
+        np.float32)
+    w = torch.from_numpy(np.random.default_rng(5).normal(size=(23, 9))
+                         .astype(np.float32)) if fused else None
+    plan = TC.build_plan(g, 4, ps=ps, dist=dist)
+    xp = torch.from_numpy(TC.pad_embeddings(plan, x))
+    kw = dict(interleave=interleave)
+    want = TC.mgg_aggregate_sparse(xp, plan, VirtualRing(4, "cpu"), k=6,
+                                   update_w=w, **kw)
+    ring, xc = VirtualRing(4, cuda), xp.to(cuda)
+    wc = None if w is None else w.to(cuda)
+    got = TC.mgg_aggregate_sparse(xc, plan, ring, k=6, update_w=wc, **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(
+        TC.mgg_aggregate_sparse(xc, plan, ring, k=23, update_w=wc, **kw),
+        TC.mgg_aggregate(xc, plan, ring, update_w=wc, **kw))
+
+
+@pytest.mark.parametrize("model,fused", [("gcn", False), ("gin", True),
+                                         ("sage", False)])
+def test_sparse_ring_gradients_on_card_match_cpu(cuda, model, fused):
+    """Top-k hidden layers: gradients on the card (K6 forward, K4 and the
+    k-wide reverse rotations backward) equal the CPU's (rtol 1e-4), and
+    two runs on the card are bitwise equal."""
+    g = TC.power_law(2000, avg_degree=8.0, locality=0.3, seed=2)
+    x = np.random.default_rng(0).normal(size=(g.num_nodes, 24)).astype(
+        np.float32)
+    y = np.random.default_rng(1).integers(0, 5, g.num_nodes)
+    init, apply, _ = TC.MODEL_ZOO[model]
+    params = init(torch.Generator().manual_seed(0), 24, 5, hidden=16,
+                  num_layers=3)
+
+    def run(device):
+        eng = TC.GNNEngine.build(g, VirtualRing(4, device), ps=4, dist=2,
+                                 fuse_update=fused, topk=4)
+        xp = eng.shard(eng.pad(x))
+        yp = torch.from_numpy(TC.pad_table(eng.plan.bounds,
+                                           eng.plan.rows_per_dev,
+                                           y[:, None])[:, 0]).to(device)
+        p = tree_map(lambda t: t.to(device), params)
+        mask = torch.ones(xp.shape[0], device=device)
+        return value_and_grad(lambda q: TC.masked_cross_entropy(
+            apply(q, eng, xp), yp, mask), p)[1]
+
+    want = run("cpu")
+    before = neighbor_agg.sparse_gather_sum.launches
+    got = run(cuda)
+    assert neighbor_agg.sparse_gather_sum.launches > before
+    again = run(cuda)
+    for a, b, c in zip(tree_leaves(got), tree_leaves(again),
+                       tree_leaves(want)):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-4,
+                                   atol=1e-4 * c.abs().max().item())
+
+
+def test_sparse_served_logits_bitwise_match_offline_on_card(cuda):
+    g = TC.power_law(2000, avg_degree=8.0, locality=0.3, seed=2)
+    x = np.random.default_rng(0).normal(size=(g.num_nodes, 32)).astype(
+        np.float32)
+    eng = TC.GNNEngine.build(g, VirtualRing(4, cuda), ps=8, dist=1, topk=4)
+    params = TC.gcn_init(torch.Generator().manual_seed(0), 32, 7, hidden=16,
+                         num_layers=3, device=cuda)
+    srv = GNNServeEngine(eng, params, "gcn", x, g, slots=4)
+    before = neighbor_agg.sparse_gather_sum.launches
+    results = run_trace(srv, ZipfTraffic(g.num_nodes, 32, [
+        TrafficPhase(requests=30, alpha=1.2, seeds_max=3)], seed=7))
+    assert neighbor_agg.sparse_gather_sum.launches > before
+    assert any(r.cached for r in results)
+    with torch.inference_mode():
+        offline = TC.unpad_embeddings(eng.plan, TC.gcn_apply(
+            params, eng, srv.xp).cpu().numpy())
+    for r in results:
+        np.testing.assert_array_equal(r.logits, offline[r.seeds])

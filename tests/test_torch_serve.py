@@ -10,7 +10,9 @@ script in a subprocess with four fake XLA devices:
 
 Tolerances: the ring 1e-5 (fp32 sums in another order), GCN logits and
 served logits rtol 2e-4 (the reference's own fused-vs-unfused tolerance).
-Inside the port, served == offline holds bitwise.
+Inside the port, served == offline holds bitwise.  The top-k compressed
+ring runs on random normal features (no ties at the ``k`` boundary, where
+``lax.top_k`` and ``torch.topk`` may pick other columns).
 """
 import os
 import subprocess
@@ -23,6 +25,9 @@ D, NCLS = 23, 5
 # (ps, dist, interleave, fused update)
 RING_CASES = [(4, 1, True, False), (8, 2, False, False), (8, 1, True, True),
               (16, 2, True, True), (1, 3, False, True)]
+# top-k compressed ring: (ps, dist, interleave, fused update, k)
+SPARSE_RING_CASES = [(4, 1, True, False, 6), (8, 2, False, True, 23),
+                     (16, 2, True, True, 1)]
 
 
 def _graph(C):
@@ -55,6 +60,14 @@ def _reference_outputs(n_dev):
             xx, plan, mesh, interleave=il, update_w=ww))
         w = jnp.asarray(_update_w()) if fused else None
         out[f"ring{i}"] = np.asarray(
+            ring(jnp.asarray(C.pad_embeddings(plan, x)), w))
+    for i, (ps, dist, il, fused, k) in enumerate(SPARSE_RING_CASES):
+        plan = C.build_plan(g, n_dev, ps=ps, dist=dist)
+        ring = jax.jit(lambda xx, ww, plan=plan, il=il, k=k:
+                       C.mgg_aggregate_sparse(xx, plan, mesh, k=k,
+                                              interleave=il, update_w=ww))
+        w = jnp.asarray(_update_w()) if fused else None
+        out[f"sparse{i}"] = np.asarray(
             ring(jnp.asarray(C.pad_embeddings(plan, x)), w))
     params = C.MODEL_ZOO["gcn"][0](jax.random.key(0), D, NCLS, hidden=16,
                                    num_layers=2)
@@ -148,6 +161,20 @@ def test_ring_matches_reference_four_shards(dump4, case):
         want = want @ _update_w()
     np.testing.assert_allclose(TC.unpad_embeddings(plan, got), want,
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_dev", [1, 4])
+@pytest.mark.parametrize("case", range(len(SPARSE_RING_CASES)))
+def test_sparse_ring_matches_reference(ref1, dump4, case, n_dev):
+    ps, dist, il, fused, k = SPARSE_RING_CASES[case]
+    g = _graph(TC)
+    plan = TC.build_plan(g, n_dev, ps=ps, dist=dist)
+    w = torch.from_numpy(_update_w()) if fused else None
+    got = TC.mgg_aggregate_sparse(
+        torch.from_numpy(TC.pad_embeddings(plan, _features(g.num_nodes))),
+        plan, VirtualRing(n_dev, CPU), k=k, interleave=il, update_w=w)
+    want = (ref1 if n_dev == 1 else dump4)[f"sparse{case}"]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("fuse", [False, True])

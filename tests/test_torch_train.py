@@ -4,7 +4,11 @@ The same inputs (``graph_features`` from a seed, the reference's weights
 carried over) go through both packages: logits and every parameter
 gradient of GCN, GIN, SAGE and GAT, fused and unfused, on 1 and 4
 shards, interleave on and off, ``dist`` 1 and 2; the loss over five AdamW
-steps of the full-graph loop; AdamW itself; checkpoints read across.  The
+steps of the full-graph loop; AdamW itself; checkpoints read across; and
+GCN, GIN and SAGE with ``topk`` (the hidden layer rides the top-k
+compressed ring), whose inputs have no nonzero tie at the ``k`` boundary
+(GCN's transform-first ``h W``, ReLU outputs whose ties are zeros: those
+decompress alike and get no gradient past the ReLU).  The
 reference runs jitted with ``use_kernel=False``, as its own CPU tests do;
 every reference number comes from one dump that this file writes when it
 runs as a script in a subprocess with four fake XLA devices:
@@ -36,13 +40,19 @@ CASES = [(m, 1, f, True, 1) for m in MODEL_KW for f in (False, True)] + [
     ("gin", 4, False, False, 2), ("gin", 4, True, True, 1),
     ("sage", 4, False, True, 2), ("sage", 4, True, False, 1),
     ("gat", 4, False, True, 1), ("gat", 4, True, False, 1)]
+# (model, shards, fused, interleave, dist, topk): layer 1 aggregates at
+# width 5 (GCN, transform-first) or 8 (GIN, SAGE), so k = 3 bites
+SPARSE_CASES = [("gcn", 4, False, True, 1, 3), ("gin", 4, True, False, 2, 3),
+                ("sage", 4, False, True, 2, 3)]
 PS = 4            # several partitions per row: the segments are exercised
 TRAJ_STEPS = 5    # the full-graph loop: GCN, ps 16, dist 2, 4 shards
 
 
 def _case_id(case):
-    m, n, f, il, dist = case
-    return f"{m}-{n}shard-{'fused' if f else 'unfused'}-il{int(il)}-d{dist}"
+    m, n, f, il, dist = case[:5]
+    topk = f"-topk{case[5]}" if len(case) > 5 else ""
+    return (f"{m}-{n}shard-{'fused' if f else 'unfused'}-il{int(il)}"
+            f"-d{dist}{topk}")
 
 
 def _graph(C):
@@ -83,10 +93,11 @@ def _reference_dump():
         return (eng.shard(eng.pad(x)), jnp.asarray(pad1(y)),
                 jnp.asarray(pad1(train_mask.astype(np.float32))))
 
-    for case in CASES:
-        m, n_dev, fused, il, dist = case
+    for case in CASES + SPARSE_CASES:
+        m, n_dev, fused, il, dist = case[:5]
         eng = C.GNNEngine.build(g, flat_ring_mesh(n_dev), ps=PS, dist=dist,
-                                interleave=il, fuse_update=fused)
+                                interleave=il, fuse_update=fused,
+                                topk=case[5] if len(case) > 5 else None)
         apply = C.MODEL_ZOO[m][1]
         xp, yp, mp = tables(eng)
 
@@ -180,9 +191,10 @@ def _port_tables(eng):
 
 
 def _port_grads(case, params):
-    m, n_dev, fused, il, dist = case
+    m, n_dev, fused, il, dist = case[:5]
     eng = TC.GNNEngine.build(_graph(TC), VirtualRing(n_dev, CPU), ps=PS,
-                             dist=dist, interleave=il, fuse_update=fused)
+                             dist=dist, interleave=il, fuse_update=fused,
+                             topk=case[5] if len(case) > 5 else None)
     apply = TC.MODEL_ZOO[m][1]
     xp, yp, mp = _port_tables(eng)
     logits = []
@@ -195,7 +207,7 @@ def _port_grads(case, params):
     return logits[0].detach(), grads
 
 
-@pytest.mark.parametrize("case", CASES, ids=_case_id)
+@pytest.mark.parametrize("case", CASES + SPARSE_CASES, ids=_case_id)
 def test_logits_and_gradients_match_reference(ref, case, request):
     """Every parameter gets a gradient through the ring, equal to the
     reference's (rtol 2e-4, atol 1e-6 for entries near zero).  The
