@@ -505,7 +505,10 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
         n_p = sum(g.num_partitions for _, g in groups)
         ps = groups[0][1].nbrs.shape[1]
         n_seg = sum(int(g.seg_rows.numel()) for _, g in groups)
-        gather_bytes = valid * d * 4 + n_p * ps * (4 + 1) + n_p * d * 4
+        # each group's distinct gathered rows read once, every slot its id
+        # and mask, every partition writes one row
+        distinct = sum(int(g.grad.rows.numel()) for _, g in groups)
+        gather_bytes = distinct * d * 4 + n_p * ps * (4 + 1) + n_p * d * 4
         seg_bytes = n_p * d * 4 + n_p * 4 + n_seg * 4 * 2 + n_seg * d * 4 * 2
 
         def k1():
@@ -573,7 +576,7 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
                     plain_ms=plain_ms, bound_ms=nbytes / rate * 1e3,
                     bound_by="bytes", library_ms=lib_ms, library=lib,
                     bytes=nbytes, groups=len(groups), partitions=n_p,
-                    valid_slots=valid, width=d)
+                    valid_slots=valid, distinct_rows=distinct, width=d)
 
     return [row("gather_sum_pipelined", t_k1, t_plain_g, t_lib_g,
                 "embedding_bag", gather_bytes, err_k1),
@@ -1094,11 +1097,13 @@ def time_sparse_gather_sum(torch, C, K, z, k, arrays, plan, rate):
     if arrays.local is not None:
         groups.append((vals, idx, arrays.local))
     groups = [gr for gr in groups if gr[2].num_partitions]
+    err = 0.0
     for v, i, grp in groups:
         got = K.neighbor_agg.sparse_gather_sum(v, i, grp.nbrs, grp.mask, d)
         want = ref.sparse_gather_sum_ref(v, i, grp.nbrs, grp.mask, d)
         check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
               "sparse_gather_sum at the fig9e shapes != its plain version")
+        err = max(err, (got - want).abs().max().item())
     nb_long = [grp.nbrs.long() for _, _, grp in groups]
     weights = [grp.mask.float() for _, _, grp in groups]
 
@@ -1122,18 +1127,21 @@ def time_sparse_gather_sum(torch, C, K, z, k, arrays, plan, rate):
     n_p = sum(grp.num_partitions for _, _, grp in groups)
     ps = groups[0][2].nbrs.shape[1]
     id_bytes = idx.element_size()
-    # each masked slot reads its compressed row, each slot its id and mask,
-    # each partition writes one D-wide row
-    nbytes = valid * k * (4 + id_bytes) + n_p * ps * (4 + 1) + n_p * d * 4
+    # each group's distinct gathered rows (its GradIndex segments) read
+    # once, k values and k ids each; every slot its id and mask; every
+    # partition writes one D-wide row
+    distinct = sum(int(grp.grad.rows.numel()) for _, _, grp in groups)
+    nbytes = distinct * k * (4 + id_bytes) + n_p * ps * (4 + 1) + n_p * d * 4
     return dict(name="sparse_gather_sum", route="cuda",
                 source=SOURCE["sparse_gather_sum"],
-                replaces=REPLACES["sparse_gather_sum"], max_abs_err=0.0,
+                replaces=REPLACES["sparse_gather_sum"], max_abs_err=err,
                 ms=t_k6, plain_ms=t_plain, bound_ms=nbytes / rate * 1e3,
                 bound_by="bytes", library_ms=None, library="none",
                 composite_ms=t_comp,
                 composite="topk_decompress + embedding_bag (two calls)",
                 bytes=nbytes, groups=len(groups), partitions=n_p,
-                valid_slots=valid, width=d, k=k, id_dtype=str(idx.dtype))
+                valid_slots=valid, distinct_rows=distinct, width=d, k=k,
+                id_dtype=str(idx.dtype))
 
 
 def time_scatter(torch, K, arrays, plan, rate, dev):
@@ -1207,10 +1215,12 @@ def time_gather_rows(torch, K, tiers, ids, rate, dev):
     calls = [(cold_up, torch.from_numpy(cold_sel).to(dev)),
              (tiers.cache.table, torch.from_numpy(hot_sel).to(dev))]
     longs = [idx.long() for _, idx in calls]
+    err = 0.0
     for src, idx in calls:
-        check(torch.equal(K.rows.gather_rows(src, idx),
-                          ref.gather_rows_ref(src, idx)),
+        got, want = K.rows.gather_rows(src, idx), ref.gather_rows_ref(src, idx)
+        check(torch.equal(got, want),
               "gather_rows at the sampled shapes != its plain version")
+        err = max(err, (got - want).abs().max().item())
 
     def k5():
         for src, idx in calls:
@@ -1233,7 +1243,7 @@ def time_gather_rows(torch, K, tiers, ids, rate, dev):
     nbytes = sum(int(torch.unique(idx).numel()) * d * 4 + idx.numel() * 4
                  + idx.numel() * d * 4 for _, idx in calls)
     return dict(name="gather_rows", route="cuda", source=SOURCE["gather_rows"],
-                replaces=REPLACES["gather_rows"], max_abs_err=0.0,
+                replaces=REPLACES["gather_rows"], max_abs_err=err,
                 ms=t_k5, plain_ms=t_plain, bound_ms=nbytes / rate * 1e3,
                 bound_by="bytes", library_ms=t_lib, library="index_select",
                 bytes=nbytes, rows=int(ids.size), hot_rows=int(hot.sum()),

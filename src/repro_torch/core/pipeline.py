@@ -461,10 +461,11 @@ def _sparse_ring_backward(g, idx, plan, ring, arrays,
     """``d values`` (``(rows, k)`` float32) of the compressed ring.
 
     The transposed ring of :func:`_ring_backward` with ``k``-wide
-    accumulators: step ``kk`` of chunk ``c`` scatter-sums ``g`` into the
-    step tile's dense gradient (K4), gathers it at the step's id tile
-    (the chunk's ids rotated ``kk + 1`` shards forward) and adds that into
-    the accumulator, which then rotates one shard back — together with
+    accumulators: step ``kk`` of chunk ``c`` runs the sparse gather-sum's
+    backward (:func:`ops.sparse_gather_sum_grad`: K4 into the step tile's
+    dense gradient, gathered at the step's id tile, which is the chunk's
+    ids rotated ``kk + 1`` shards forward) and adds that into the
+    accumulator, which then rotates one shard back — together with
     the id tile, so the next step finds its ids in place.  The local work
     scatters into one dense table, gathered at ``idx`` at the end.
     """
@@ -491,10 +492,9 @@ def _sparse_ring_backward(g, idx, plan, ring, arrays,
         ring.wait(ring.rotate_back(i_tiles[:, c], acc[1]))
         for kk in reversed(range(n_dev - 1)):
             step = kk * dist + c
-            d_tile.zero_()
-            _scatter_sum(d_tile, g, arrays.remote_steps[step], use_kernel)
-            acc[0].view(-1, k).add_(torch.gather(
-                d_tile, 1, acc[1].view(-1, k).long()))
+            acc[0].view(-1, k).add_(ops.sparse_gather_sum_grad(
+                g, acc[1].view(-1, k), arrays.remote_steps[step].grad,
+                out=d_tile, use_kernel=use_kernel))
             # after step 0 only the accumulator has somewhere to go
             token = ring.rotate_back(acc, nxt) if kk \
                 else ring.rotate_back(acc[0], nxt[0])

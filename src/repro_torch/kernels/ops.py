@@ -14,7 +14,8 @@ masked scatter-add ``dbuf[nbrs[p, j]] += g[p]``; to add without atomics,
 it reads a :class:`GradIndex` built on the host once per plan or block.
 The sparse gather-sum over top-k compressed rows (K6 forward) has the
 same backward followed by a column gather at the ids
-(:class:`_SparseGatherSum`, the reference's ``ops.py:112-120``).
+(:func:`sparse_gather_sum_grad`, the reference's ``ops.py:112-120``),
+which :class:`_SparseGatherSum` and the compressed ring's backward share.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ import torch
 from . import neighbor_agg, ref, rows
 
 __all__ = ["GradIndex", "GRAD_CHUNK", "neighbor_gather_sum",
-           "sparse_neighbor_gather_sum", "segment_add_ordered",
+           "sparse_neighbor_gather_sum", "sparse_gather_sum_grad",
+           "segment_add_ordered",
            "scatter_sum_ordered", "gather_rows"]
 
 # Longest run of slots one thread adds in a row: a longer segment (a hub
@@ -186,13 +188,30 @@ class _SparseGatherSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        dbuf = torch.zeros((idx.shape[0], g.shape[1]), dtype=torch.float32,
-                           device=g.device)
-        scatter = scatter_sum_ordered if ctx.use_kernel \
-            else ref.scatter_sum_ordered_ref
-        scatter(dbuf, g.contiguous(), ctx.index)
-        dval = torch.gather(dbuf, 1, idx.long())
+        dval = sparse_gather_sum_grad(g.contiguous(), idx, ctx.index,
+                                      use_kernel=ctx.use_kernel)
         return dval, None, None, None, None, None, None
+
+
+def sparse_gather_sum_grad(g: torch.Tensor, idx: torch.Tensor,
+                           index: GradIndex, *,
+                           out: Optional[torch.Tensor] = None,
+                           use_kernel: bool = True) -> torch.Tensor:
+    """``d values`` of the sparse gather-sum → ``(T, k)`` float32: K4
+    scatter-sums ``g`` into the dense ``(T, D)`` gradient ``out`` (zeroed
+    here; a new one when ``None``), whose ``k`` live columns of each row
+    are then gathered at ``idx`` (the reference's ``ops.py:112-120``).
+    The compressed ring's backward runs it once a step."""
+    if out is None:
+        out = torch.zeros((idx.shape[0], g.shape[1]), dtype=torch.float32,
+                          device=g.device)
+    else:
+        out.zero_()
+    if index.num_slots:
+        scatter = scatter_sum_ordered if use_kernel \
+            else ref.scatter_sum_ordered_ref
+        scatter(out, g, index)
+    return torch.gather(out, 1, idx.long())
 
 
 def _sparse_gather_sum_fwd(values, idx, nbrs, mask, d_feat, use_kernel):

@@ -173,6 +173,21 @@ def test_sparse_gather_sum_backward_matches_reference_vjp(case):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def test_sparse_gather_sum_grad_zeroes_the_tile_it_is_given():
+    """The ring's backward hands the shared helper one tile gradient for
+    every step: a dirty tile gives the bits of a fresh one, and a group
+    with no masked slot gives zeros."""
+    (v, i, nbrs, mask, g), _, _, _ = _reference_op(KERNEL_CASES[0])
+    ti, tg = torch.from_numpy(i), torch.from_numpy(g)
+    index = ops.GradIndex.build(nbrs, mask)
+    fresh = ops.sparse_gather_sum_grad(tg, ti, index)
+    dirty = torch.full((v.shape[0], g.shape[1]), 7.0)
+    assert torch.equal(ops.sparse_gather_sum_grad(tg, ti, index, out=dirty),
+                       fresh)
+    empty = ops.GradIndex.build(nbrs, np.zeros_like(mask))
+    assert not ops.sparse_gather_sum_grad(tg, ti, empty, out=dirty).any()
+
+
 def test_sparse_kernel_refuses_cpu_tensors_and_counts_nothing_there():
     neighbor_agg.reset_launch_counts()
     v, i, nbrs, mask = _t(*_sparse_inputs(10, 8, 2, 4, 3, seed=0))
