@@ -8,8 +8,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
    and CUDA versions, and the build of the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
 2. every kernel against its plain PyTorch version on the card over a
-   sweep of shapes (rtol/atol 1e-5; K5 and K6 bitwise), and two launches
-   bitwise equal;
+   sweep of shapes (rtol/atol 1e-5; K5 and K6 bitwise; K7 fp32 rtol = atol
+   2e-5, bf16 1e-2), and two launches bitwise equal;
 3. serving at full width: GCN serving of the products stand-in at its
    real size (2.45 M nodes, D = 100, 64 classes, hidden 16, 2 layers)
    over 8 virtual shards, through ``GNNServeEngine``/``run_trace``, with
@@ -52,9 +52,26 @@ Phases, each of which passes or ends the run with a non-zero exit:
    k = 24, served == offline bitwise (full and cached passes); K6 timed
    at layer 1's aggregation, ``torch.topk`` per compress, the rotation
    copies of one aggregation at k = 96, 48, 24 and dense, and the step
-   time at k = 24 and dense.
+   time at k = 24 and dense;
+11. dense-LM inference at full width, after the GNN phases' device state
+   is freed: mistral-nemo-12b (40 layers, d_model 5120, 32/8 heads,
+   head_dim 128, vocab 131,072, fp32 parameters drawn on the card from a
+   ``torch.Generator``).  (a) The cache-less forward at B = 2, S = 4096
+   (``train_4k``'s length) with ``use_flash_attention`` (K7, one launch a
+   layer, counted) against the chunked path: in fp32 compute the logits
+   agree within rtol 2e-4, atol 2e-4 * max|logits|; in the configs' bf16
+   compute the largest difference and the share of equal argmaxes are
+   printed; both forwards timed (CUDA events), the flag-on one profiled,
+   and K7 timed at its shapes beside its plain version,
+   ``scaled_dot_product_attention`` and its bound.  (b) ``prefill`` of
+   512 tokens then ``decode_step`` against the forward of 513, fp32,
+   within 2e-3.  (c) Serving: in fp32 compute, batched tokens equal solo
+   tokens up to a step whose top-2 margin is under 1e-3 * max|logit|;
+   then the serving launcher at its defaults (8 requests, 32 new tokens,
+   4 slots) with its own parameters, every request answered with 32
+   tokens, tokens/s, prefill and decode-step times.
 
-The line before the last is a JSON object of the kernels K1–K6; the last
+The line before the last is a JSON object of the kernels K1–K7; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -82,6 +99,14 @@ SOURCE = {name: "src/repro_torch/kernels/csrc/gather_sum.cu" for name in (
 SOURCE["gather_rows"] = "src/repro_torch/kernels/csrc/rows.cu"
 SOURCE["sparse_gather_sum"] = \
     "src/repro_torch/kernels/csrc/sparse_gather_sum.cu"
+SOURCE["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
+CARD_FLOPS = [  # (name fragments, {input dtype: flop/s}): NVIDIA data
+    # sheets, dense; bf16 on the tensor cores, fp32 outside them
+    (("H200",), {"bfloat16": 989e12, "float32": 67e12}),
+    (("H100", "PCIE"), {"bfloat16": 756e12, "float32": 51e12}),
+    (("H100", "NVL"), {"bfloat16": 835e12, "float32": 60e12}),
+    (("H100",), {"bfloat16": 989e12, "float32": 67e12}),    # SXM
+]
 REPLACES = {
     "gather_sum_pipelined": "src/repro/kernels/neighbor_agg.py:77",
     "gather_sum_blocked": "src/repro/kernels/neighbor_agg.py:209",
@@ -91,6 +116,7 @@ REPLACES = {
     "scatter_sum_ordered": "src/repro/kernels/ops.py:76",
     "gather_rows": "src/repro/kernels/rows.py:31",
     "sparse_gather_sum": "src/repro/kernels/neighbor_agg.py:142",
+    "flash_attention": "src/repro/kernels/flash_attention.py:79",
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
@@ -105,6 +131,8 @@ PATH_KERNELS = {
                "scatter_sum_ordered", "sparse_gather_sum"),
     "sparse_serving": ("gather_sum_pipelined", "segment_add_ordered",
                        "sparse_gather_sum"),
+    # the LM's cache-less forward with use_flash_attention (bf16 compute)
+    "lm_forward": ("flash_attention",),
 }
 PRODUCTS_SCALE = 199.3   # 12288 · 199.3 ≈ 2.449 M nodes (ogbn-products)
 REDUCED_SCALE = 10.0     # 122,880 nodes: GIN, SAGE and GAT, one step each
@@ -113,6 +141,13 @@ SPARSE_D, SPARSE_CLASSES, SPARSE_KS = 96, 4, (96, 48, 24)
 TRAIN_STEPS = 10
 TOL_PLAIN = "rtol 1e-4, atol 1e-4 * max|leaf|"
 TOL_FUSED = "rtol 2e-4, atol 2e-4 * max|leaf|"
+# phase 11: mistral-nemo-12b, B x S = 2 x 4096 (train_4k's length)
+LM_ARCH, LM_B, LM_S, LM_PREFIX = "mistral-nemo-12b", 2, 4096, 512
+# K7 sweep: the reference's five cases (tests/test_kernels_flash.py:32-39;
+# (B, S, H, KV, causal, window), run at each head_dim K7 takes)
+FLASH_REF_CASES = [(2, 64, 4, 4, True, 0), (1, 128, 8, 2, True, 0),
+                   (2, 96, 4, 1, True, 32), (1, 50, 2, 2, True, 0),
+                   (1, 64, 4, 4, False, 0)]
 
 
 def fail(msg):
@@ -171,12 +206,16 @@ def main():
     rate = next((r for frags, r in CARD_RATES
                  if all(f in name.upper() for f in frags)), None)
     check(rate is not None, f"no memory rate on record for {name}")
+    flops = next((r for frags, r in CARD_FLOPS
+                  if all(f in name.upper() for f in frags)), None)
+    check(flops is not None, f"no flop rate on record for {name}")
     t0 = time.perf_counter()
     _build.build_all()
     say("environment", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, device=name,
         kernel_build_s=round(time.perf_counter() - t0, 3),
-        nvcc_s=_build.build_seconds, peak_bytes_per_s=rate)
+        nvcc_s=_build.build_seconds, peak_bytes_per_s=rate,
+        peak_flops=flops)
 
     # -- 2. kernels against their plain versions ---------------------------
     gen = np.random.default_rng(0)
@@ -285,8 +324,12 @@ def main():
                           f"sparse gather-sum D={d} k={k} {id_dtype} P={p}"
                           " not bitwise its plain version")
                     n_cases += 1
+    flash_cases, flash_err = sweep_flash(torch, ops, ref, dev, gen)
+    n_cases += flash_cases
     say("kernels_vs_plain", cases=n_cases, max_abs_err=worst,
         tolerance="rtol 1e-5 atol 1e-5 (K5, K6: bitwise)",
+        flash_cases=flash_cases, flash_max_abs_err=flash_err,
+        flash_tolerance="fp32 rtol 2e-5 atol 2e-5, bf16 rtol 1e-2 atol 1e-2",
         bitwise_relaunch=True)
 
     # -- 3. the main path at full width ------------------------------------
@@ -414,6 +457,13 @@ def main():
     kernels.append(train_sampled(torch, C, K, g, dev, ncls, rate, launches))
     train_launcher(dev)
     kernels.append(sparse_ring(torch, C, K, g, ring, dev, rate, launches))
+
+    # -- 11. dense-LM inference: the GNN phases' device state goes first ----
+    del params, results, ring, apply, init
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.append(lm_inference(torch, K, dev, rate, flops, launches))
 
     for k in kernels:
         by_path = {p: launches[p][k["name"]] for p in launches
@@ -1248,6 +1298,310 @@ def time_gather_rows(torch, K, tiers, ids, rate, dev):
                 bound_by="bytes", library_ms=t_lib, library="index_select",
                 bytes=nbytes, rows=int(ids.size), hot_rows=int(hot.sum()),
                 cold_rows=n_cold, width=d)
+
+
+# ---------------------------------------------------------------------------
+# dense-LM inference (phase 11) and K7
+# ---------------------------------------------------------------------------
+
+def _flash_tol(torch, dtype):
+    return 2e-5 if dtype == torch.float32 else 1e-2
+
+
+def sweep_flash(torch, ops, ref, dev, gen):
+    """Phase 2's K7 sweep against its plain version, fp32 and bf16: the
+    reference's five cases at each head_dim K7 takes, GQA groups 1, 4 and
+    12 at S = 50, 1000 and 4096, a window of 16 at S = 1000, mixtral's
+    window of 4096 at S = 8192, and causal off.  Returns (cases, the
+    largest absolute difference)."""
+    shapes = []   # (B, S, H, KV, hd, causal, window)
+    for hd in (16, 64, 112, 128):
+        shapes += [(b, s, h, kv, hd, c, w)
+                   for b, s, h, kv, c, w in FLASH_REF_CASES]
+        for s in (50, 1000, 4096):
+            shapes += [(1, s, 12, 12, hd, True, 0), (1, s, 8, 2, hd, True, 0),
+                       (1, s, 12, 1, hd, True, 0)]
+        shapes += [(2, 1000, 4, 2, hd, True, 16),
+                   (1, 1000, 4, 1, hd, False, 0)]
+    shapes.append((1, 8192, 8, 2, 128, True, 4096))
+    worst, n = 0.0, 0
+    for b, s, h, kv, hd, causal, window in shapes:
+        q, k, v = (torch.from_numpy(gen.normal(size=(b, s, m, hd)).astype(
+            np.float32)).to(dev) for m in (h, kv, kv))
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (q.to(dtype), k.to(dtype), v.to(dtype))
+            want = ref.flash_attention(*args, causal=causal, window=window)
+            got = ops.flash_attention(*args, causal=causal, window=window)
+            again = ops.flash_attention(*args, causal=causal, window=window)
+            tol = _flash_tol(torch, dtype)
+            what = (f"flash attention B={b} S={s} H={h} KV={kv} hd={hd} "
+                    f"causal={causal} window={window} {dtype}")
+            check(got.dtype == dtype and got.shape == want.shape
+                  and torch.allclose(got.float(), want.float(), rtol=tol,
+                                     atol=tol),
+                  f"{what}: disagrees with its plain version")
+            check(torch.equal(got, again), f"{what}: not bitwise stable")
+            worst = max(worst, (got.float() - want.float()).abs().max().item())
+            n += 1
+    return n, worst
+
+
+def _held_logits(torch, got, want, rtol, what):
+    """Logits within ``rtol`` and ``atol = rtol * max|want|``, compared a
+    batch row at a time (each is 2 GB at full width); returns the largest
+    absolute difference."""
+    scale = want.abs().max().item()
+    worst = 0.0
+    for a, b in zip(got, want):
+        check(torch.isfinite(a).all().item()
+              and torch.allclose(a, b, rtol=rtol, atol=rtol * scale),
+              f"{what}: logits disagree")
+        worst = max(worst, (a - b).abs().max().item())
+    return worst
+
+
+def lm_inference(torch, K, dev, rate, flops, launches):
+    """Phase 11: mistral-nemo-12b at full width on one card."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on: fp32 matmuls would keep three digits")
+    cfg = configs.get_config(LM_ARCH)
+    b, s = LM_B, LM_S
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode():
+        params = T.init_params(gen, cfg, vocab_multiple=16)
+    torch.cuda.synchronize()
+    from repro_torch.train.tree import tree_leaves
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    say("lm_built", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        d_ff=cfg.d_ff, vocab=cfg.vocab, params=n_params,
+        param_count=cfg.param_count(), param_dtype=cfg.param_dtype,
+        init_s=round(time.perf_counter() - t0, 3),
+        gpu_mem_gb=round(torch.cuda.memory_allocated() / 1e9, 3),
+        tf32=False)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+    flag = {dt: {on: dataclasses.replace(cfg, compute_dtype=dt,
+                                         use_flash_attention=on)
+                 for on in (True, False)} for dt in ("float32", "bfloat16")}
+
+    def forward(c, t=toks):
+        return T.forward(params, c, t)[0]
+
+    # (a) the cache-less forward with K7 against the chunked path
+    counts = {}
+    with torch.inference_mode():
+        logits = {}
+        for on in (True, False):
+            K.reset_launch_counts()
+            logits[on] = forward(flag["float32"][on])
+            torch.cuda.synchronize()
+            counts[("float32", on)] = K.launch_counts()["flash_attention"]
+        check(logits[True].shape == (b, s, cfg.vocab),
+              f"logits of shape {tuple(logits[True].shape)}")
+        err32 = _held_logits(torch, logits[True], logits[False], 2e-4,
+                             "fp32 forward, flash on against off")
+        max32 = logits[False].abs().max().item()
+        del logits
+        logits = {}
+        for on in (True, False):
+            K.reset_launch_counts()
+            logits[on] = forward(flag["bfloat16"][on])
+            torch.cuda.synchronize()
+            c = K.launch_counts()
+            counts[("bfloat16", on)] = c["flash_attention"]
+            if on:     # the main path: the configs' compute dtype
+                launches["lm_forward"] = c
+        check(all(torch.isfinite(lg).all().item() for lg in logits.values()),
+              "bf16 logits not finite")
+        diff16 = max((a - b_).abs().max().item()
+                     for a, b_ in zip(logits[True], logits[False]))
+        same_argmax = float(sum(
+            (a.argmax(-1) == b_.argmax(-1)).sum().item()
+            for a, b_ in zip(logits[True], logits[False])) / (b * s))
+        del logits
+        check(all(counts[(dt, True)] == cfg.n_layers
+                  and counts[(dt, False)] == 0
+                  for dt in ("float32", "bfloat16")),
+              f"flash attention launches per forward: {counts}")
+        fwd_ms = {f"{dt}_{'flash' if on else 'chunked'}": _time(
+            torch, lambda c=flag[dt][on]: forward(c), reps=reps,
+            warmup=warmup)
+            for dt, reps, warmup in (("bfloat16", 3, 1), ("float32", 1, 0))
+            for on in (True, False)}
+        breakdown = profile_pass(
+            torch, lambda: forward(flag["bfloat16"][True]), reps=1)
+    say("lm_forward", batch=b, seq=s, fp32_max_abs_err=err32,
+        fp32_max_abs_logit=max32,
+        fp32_tolerance="rtol 2e-4, atol 2e-4 * max|logits|",
+        bf16_max_abs_diff=diff16, bf16_same_argmax_share=same_argmax,
+        flash_launches_per_forward={f"{dt}_{'on' if on else 'off'}": n
+                                    for (dt, on), n in counts.items()},
+        forward_ms=fwd_ms, **breakdown)
+    k7 = time_flash(torch, K, dev, cfg, rate, flops)
+
+    # (b) prefill of LM_PREFIX tokens, then one decode step, against the
+    # cache-less forward of LM_PREFIX + 1 tokens (fp32)
+    f32 = flag["float32"][False]
+    with torch.inference_mode():
+        t = toks[:, :LM_PREFIX + 1]
+        full = forward(f32, t)
+        cache = T.init_cache(f32, b, LM_PREFIX + 8, dtype=torch.float32,
+                             device=dev)
+        lg1, cache = T.prefill(params, f32, t[:, :LM_PREFIX], cache)
+        pos = torch.full((b,), LM_PREFIX, dtype=torch.int32, device=dev)
+        lg2, _ = T.decode_step(params, f32, t[:, LM_PREFIX], pos, cache)
+        errs = [(x - y).abs().max().item()
+                for x, y in ((lg1, full[:, LM_PREFIX - 1]),
+                             (lg2, full[:, LM_PREFIX]))]
+        check(all(torch.allclose(x, y, rtol=2e-3, atol=2e-3)
+                  for x, y in ((lg1, full[:, LM_PREFIX - 1]),
+                               (lg2, full[:, LM_PREFIX]))),
+              f"prefill/decode against the forward: max|diff| {errs}")
+        del full, cache, lg1, lg2
+    say("lm_prefill_decode", prefix=LM_PREFIX, prefill_max_abs_err=errs[0],
+        decode_max_abs_err=errs[1], tolerance="rtol 2e-3 atol 2e-3")
+
+    # one decode step at the launcher's serving shape (4 slots, a 48-slot
+    # fp32 cache, bf16 compute), timed and profiled: where a token goes
+    bf16 = flag["bfloat16"][False]
+    with torch.inference_mode():
+        cache = T.init_cache(bf16, 4, 48, dtype=torch.float32, device=dev)
+        tok = torch.arange(1, 5, dtype=torch.int32, device=dev)
+        pos = torch.full((4,), 20, dtype=torch.int32, device=dev)
+        step = lambda: T.decode_step(params, bf16, tok, pos, cache)
+        decode_ms = _time(torch, step, reps=10, warmup=2)
+        decode_profile = profile_pass(torch, step, reps=3)
+        del cache
+    say("lm_decode_step", slots=4, cache_slots=48, compute="bfloat16",
+        decode_ms=decode_ms, **decode_profile)
+
+    # (c) serving: batched == solo in fp32 on these parameters, then the
+    # launcher at its defaults with its own (one copy of the weights at a
+    # time: these are freed first)
+    say("lm_batched_vs_solo", **batched_vs_solo(ServeEngine, params, f32))
+    del params
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    check(left < 1.0, f"{left:.1f} GB still allocated: the weights were "
+          "not freed before the launcher draws its own")
+
+    rep = serve_lm.main(["--arch", LM_ARCH])
+    check(rep["device"].startswith("cuda") and rep["requests"] == 8
+          and all(r.steps == 32 for r in rep["results"]),
+          "the LM serving launcher did not answer every request on the card")
+    say("lm_served", arch=rep["arch"], requests=rep["requests"],
+        tokens=rep["tokens"], seconds=rep["seconds"],
+        tokens_per_s=rep["tokens_per_s"],
+        prefill_ms_median=float(np.median(rep["prefill_ms"])),
+        prefill_ms=rep["prefill_ms"],
+        decode_ms_per_step_median=float(np.median(rep["decode_ms"])),
+        decode_steps=len(rep["decode_ms"]), compute=cfg.compute_dtype)
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k7
+
+
+def batched_vs_solo(ServeEngine, params, cfg):
+    """Phase 11 (c): the launcher's 8 prompts through 4 slots, batched,
+    against each prompt run alone, in ``cfg``'s (fp32) compute.  Tokens
+    are compared up to the first step whose top-2 logit margin in the solo
+    run is under 1e-3 * max|logit|, where the two may rightly part."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=rng.integers(4, 17))
+               .astype(np.int32) for _ in range(8)]
+    eng = ServeEngine(params, cfg, batch_slots=4, max_seq=512)
+    batched = eng.generate(prompts, max_new=32)
+    sample = eng._sample
+    agree, stops = [], []
+    for i, p in enumerate(prompts):
+        margins = []
+
+        def recording(lg, temperature, r):
+            top2 = np.sort(lg[0])[-2:]          # slot 0: the solo request
+            margins.append((top2[1] - top2[0]) / np.abs(lg[0]).max())
+            return sample(lg, temperature, r)
+
+        eng._sample = recording
+        solo = eng.generate([p], max_new=32)[0]
+        check(len(solo.tokens) == 32 and len(batched[i].tokens) == 32,
+              f"request {i}: not 32 tokens")
+        n = next((j for j, m in enumerate(margins[:32]) if m < 1e-3), 32)
+        if n < 32:
+            stops.append(dict(request=i, step=n, margin=float(margins[n])))
+        check(batched[i].tokens[:n] == solo.tokens[:n],
+              f"request {i}: batched tokens differ from solo before step {n}")
+        agree.append(n)
+    return dict(requests=len(prompts), compute=cfg.compute_dtype,
+                tokens_compared=agree, stopped_at_small_margin=stops,
+                margin_rule="top-2 margin < 1e-3 * max|logit|")
+
+
+def time_flash(torch, K, dev, cfg, rate, flops):
+    """K7 at phase 11 (a)'s shapes: q (B, S, H, hd), k/v (B, S, KV, hd),
+    causal, no window, in bf16 (the configs' compute dtype) and fp32,
+    held to its plain version, beside the plain version and
+    ``scaled_dot_product_attention`` (timed only, never on the path)."""
+    import torch.nn.functional as F
+
+    b, s, h, kv, hd = LM_B, LM_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(1)
+    base = [torch.randn((b, s, n, hd), generator=g, device=dev)
+            for n in (h, kv, kv)]
+    pairs = s * (s + 1) // 2                 # causal, no window
+    n_flops = 4 * b * h * hd * pairs
+    out = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dtype) for t in base)
+            got = K.flash_attention.flash_attention(q, k, v, causal=True)
+            want = K.ref.flash_attention(q, k, v, causal=True)
+            tol = _flash_tol(torch, dtype)
+            check(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol),
+                  f"flash_attention at the LM's shapes ({dtype}) != plain")
+            err = (got.float() - want.float()).abs().max().item()
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            t_plain = _time(torch, lambda: K.ref.flash_attention(
+                q, k, v, causal=True), reps=2, warmup=1)
+            t_k7 = _time(torch, lambda: K.flash_attention.flash_attention(
+                q, k, v, causal=True), reps=10, warmup=2)
+            t_lib = _time(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps=10,
+                warmup=2)
+            name = str(dtype).replace("torch.", "")
+            nbytes = sum(t.numel() for t in (q, k, v, q)) * q.element_size()
+            t_flops = n_flops / flops[name] * 1e3
+            t_bytes = nbytes / rate * 1e3
+            out[name] = dict(
+                ms=t_k7, plain_ms=t_plain, library_ms=t_lib,
+                bound_ms=max(t_flops, t_bytes),
+                bound_by="operations" if t_flops >= t_bytes else "bytes",
+                max_abs_err=err, flops=n_flops, bytes=nbytes,
+                peak_flops=flops[name])
+            del got, want, q, k, v, qt, kt, vt
+    main = out["bfloat16"]
+    return dict(name="flash_attention", route="cuda",
+                source=SOURCE["flash_attention"],
+                replaces=REPLACES["flash_attention"],
+                max_abs_err=main["max_abs_err"], ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["library_ms"],
+                library="scaled_dot_product_attention(is_causal, enable_gqa)",
+                dtype="bfloat16", float32=out["float32"],
+                shape=dict(batch=b, seq=s, heads=h, kv_heads=kv, head_dim=hd,
+                           causal=True, window=0),
+                flops=n_flops, bytes=main["bytes"], kept_pairs=pairs)
 
 
 if __name__ == "__main__":

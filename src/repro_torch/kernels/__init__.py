@@ -5,11 +5,13 @@
   segment add, K4 ordered scatter-sum (the gather-sum's backward), and
   around csrc/sparse_gather_sum.cu: K6 the top-k compressed gather-sum;
 * rows — the wrapper around csrc/rows.cu: K5 row gather;
+* flash_attention — the wrapper around csrc/flash_attention.cu: K7
+  flash attention (forward, GQA, causal and sliding-window);
 * ref — the plain PyTorch versions the CPU path and the tests run;
 * ops — the front door that picks one by the tensor's device, and the
   gather-sums' autograd Functions.
 """
-from . import neighbor_agg, ops, ref, rows
+from . import flash_attention, neighbor_agg, ops, ref, rows
 from .ops import (GradIndex, gather_rows, neighbor_gather_sum,
                   scatter_sum_ordered, segment_add_ordered,
                   sparse_neighbor_gather_sum)
@@ -19,8 +21,10 @@ def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     neighbor_agg.reset_launch_counts()
     rows.reset_launch_counts()
+    flash_attention.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    """Launches per kernel (K1–K6) since the last reset."""
-    return {**neighbor_agg.launch_counts(), **rows.launch_counts()}
+    """Launches per kernel (K1–K7) since the last reset."""
+    return {**neighbor_agg.launch_counts(), **rows.launch_counts(),
+            **flash_attention.launch_counts()}

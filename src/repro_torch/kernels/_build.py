@@ -83,6 +83,10 @@ _SIGNATURES = {
     "mgg_gather_rows": [_P, _P, _P, _L, _L, _I, _P],
     # values, idx, nbrs, mask, out, P, ps, k, D, id_bytes, stream
     "mgg_sparse_gather_sum": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # q, k, v, o, B, S, H, KV, hd, q/k/v strides (b, s, h), causal, window,
+    # bf16, stream
+    "mgg_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
+                            _L, _L, _L, _L, _L, _L, _I, _I, _I, _P],
 }
 
 

@@ -16,6 +16,7 @@ The sparse gather-sum over top-k compressed rows (K6 forward) has the
 same backward followed by a column gather at the ids
 (:func:`sparse_gather_sum_grad`, the reference's ``ops.py:112-120``),
 which :class:`_SparseGatherSum` and the compressed ring's backward share.
+:func:`flash_attention` routes the LM's cache-less attention to K7.
 """
 from __future__ import annotations
 
@@ -25,12 +26,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import flash_attention as _flash
 from . import neighbor_agg, ref, rows
 
 __all__ = ["GradIndex", "GRAD_CHUNK", "neighbor_gather_sum",
            "sparse_neighbor_gather_sum", "sparse_gather_sum_grad",
            "segment_add_ordered",
-           "scatter_sum_ordered", "gather_rows"]
+           "scatter_sum_ordered", "gather_rows", "flash_attention"]
 
 # Longest run of slots one thread adds in a row: a longer segment (a hub
 # neighbor) is cut into chunks of this many slots, summed in two passes.
@@ -270,3 +272,13 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if _route(src, "row gather") == "cpu":
         return ref.gather_rows_ref(src, idx)
     return rows.gather_rows(src, idx)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Causal / sliding-window GQA softmax attention in the model's
+    ``(B, S, H, hd)`` layout (K7 on the card, forward only: a tensor that
+    needs a gradient is refused there)."""
+    if _route(q, "flash attention") == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)

@@ -11,7 +11,7 @@ import torch
 
 __all__ = ["neighbor_gather_sum_ref", "segment_add_ordered_ref",
            "scatter_sum_ordered_ref", "gather_rows_ref", "topk_decompress",
-           "sparse_gather_sum_ref"]
+           "sparse_gather_sum_ref", "flash_attention"]
 
 
 def neighbor_gather_sum_ref(buf: torch.Tensor, nbrs: torch.Tensor,
@@ -115,3 +115,34 @@ def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         else src.new_zeros((idx.shape[0], src.shape[1]))
     out[~ok] = 0.0
     return out.float()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Plain version of K7: softmax attention of q ``(B, S, H, hd)`` over
+    k, v ``(B, S, KV, hd)`` (query head ``h`` reads KV head ``h // (H //
+    KV)``), positions ``0 .. S-1`` on both sides, causal ``k <= q`` and
+    ``q - k < window`` (0: no window) → ``(B, S, H, hd)`` in q's dtype.
+
+    q is scaled by ``hd**-0.5`` in fp32 before its fp32 dot products, masked
+    scores are -1e30, and the softmax over the whole row is fp32 (the
+    reference's dense oracle); one (batch, head) at a time, so the
+    ``(S, S)`` scores of one head are all it holds at once.
+    """
+    b, s, h, hd = q.shape
+    rep = h // k.shape[2]
+    pos = torch.arange(s, device=q.device)
+    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= pos[None, :] <= pos[:, None]
+    if window > 0:
+        ok &= (pos[:, None] - pos[None, :]) < window
+    out = torch.empty_like(q)
+    for bi in range(b):
+        for hi in range(h):
+            qf = q[bi, :, hi].float() * hd ** -0.5
+            kf = k[bi, :, hi // rep].float()
+            vf = v[bi, :, hi // rep].float()
+            scores = torch.where(ok, qf @ kf.T, -1e30)
+            out[bi, :, hi] = (torch.softmax(scores, dim=-1) @ vf).to(q.dtype)
+    return out

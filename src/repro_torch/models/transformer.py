@@ -1,0 +1,208 @@
+"""Decoder-only LM assembly (counterpart of ``repro/models/transformer.py``)
+for the dense families:
+
+  dense — GQA transformer (codeqwen / nemo / qwen3 / starcoder2)
+  vlm   — the dense backbone with a stub visual-token prefix (internvl2)
+
+Entry points: ``forward`` (the cache-less whole-sequence forward, where
+flash attention runs under ``cfg.use_flash_attention``), ``prefill`` and
+``decode_step`` (the ring-buffer KV cache), ``init_params`` and
+``init_cache``.  The parameter tree is the reference's leaf for leaf:
+blocks are stacked with a leading layer axis, and the reference's
+``lax.scan`` over them is a loop over that axis.  ``loss_fn`` (training)
+is not ported yet; the ``moe``, ``hybrid`` and ``xlstm`` families raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..train.tree import tree_map
+from .layers import (KVCache, attention_apply, attention_init, dense_init,
+                     embed_init, embed_lookup, kv_cache_init, layer_norm,
+                     mlp_apply, mlp_init, rms_norm, unembed_logits)
+
+__all__ = ["DistCtx", "init_params", "forward", "prefill", "decode_step",
+           "init_cache", "cache_length"]
+
+# the families of later slices, and the ROADMAP item that ports each
+_LATER = {"moe": "ROADMAP item 10.2 (the moe family)",
+          "hybrid": "ROADMAP item 10.3 (the hybrid family, with ssm.py)",
+          "xlstm": "ROADMAP item 10.4 (the xlstm family, with "
+                   "slstm_scan_call)"}
+
+
+def _dense_only(cfg) -> None:
+    if cfg.family in _LATER:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is {_LATER[cfg.family]}")
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(cfg.family)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistCtx:
+    """Distribution context.  The port runs on one card: ``constrain`` is
+    the identity, and a ``mesh`` makes the tensor-parallel matmuls raise
+    (ring TP is ROADMAP item 9)."""
+
+    mesh: Optional[Any] = None
+
+    def constrain(self, h: torch.Tensor) -> torch.Tensor:
+        return h
+
+
+def _norm(h, w, cfg):
+    if cfg.norm == "ln":
+        return layer_norm(h, w["scale"], w["bias"], cfg.norm_eps)
+    return rms_norm(h, w["scale"], cfg.norm_eps)
+
+
+def _norm_init(cfg, device, n: Optional[int] = None):
+    lead = () if n is None else (n,)
+    w = dict(scale=torch.ones(lead + (cfg.d_model,), dtype=cfg.pdtype,
+                              device=device))
+    if cfg.norm == "ln":
+        w["bias"] = torch.zeros(lead + (cfg.d_model,), dtype=cfg.pdtype,
+                                device=device)
+    return w
+
+
+# ---------------------------------------------------------------------------
+# the dense block
+# ---------------------------------------------------------------------------
+
+def _dense_block_init(gen: torch.Generator, cfg, n: Optional[int] = None):
+    """One block's parameters, or ``n`` blocks stacked on a leading axis
+    (drawn stacked: no second copy while stacking)."""
+    return dict(ln1=_norm_init(cfg, gen.device, n),
+                attn=attention_init(gen, cfg, n),
+                ln2=_norm_init(cfg, gen.device, n),
+                mlp=mlp_init(gen, cfg, n=n))
+
+
+def _attn_sub(bp, h, cfg, positions, cache, ctx):
+    a, new_cache = attention_apply(
+        bp["attn"], _norm(h, bp["ln1"], cfg), cfg, positions, cache, ctx=ctx)
+    return h + a, new_cache
+
+
+def _dense_block(bp, h, cfg, positions, cache, ctx):
+    h, new_cache = _attn_sub(bp, h, cfg, positions, cache, ctx)
+    h = h + mlp_apply(bp["mlp"], _norm(h, bp["ln2"], cfg), cfg, ctx=ctx)
+    return ctx.constrain(h), new_cache
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(gen: torch.Generator, cfg,
+                vocab_multiple: int = 16) -> Dict[str, Any]:
+    """The reference's parameter tree for ``cfg``, every leaf drawn on
+    ``gen``'s device (no host copy)."""
+    _dense_only(cfg)
+    params: Dict[str, Any] = dict(
+        embed=embed_init(gen, cfg.vocab, cfg.d_model, cfg.pdtype,
+                         vocab_multiple),
+        final_norm=_norm_init(cfg, gen.device),
+    )
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(
+            gen, cfg.d_model,
+            -(-cfg.vocab // vocab_multiple) * vocab_multiple, cfg.pdtype)
+    params["blocks"] = _dense_block_init(gen, cfg, cfg.n_layers)
+    if cfg.family == "vlm":
+        params["vis_proj"] = dense_init(gen, cfg.d_model, cfg.d_model,
+                                        cfg.pdtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def cache_length(cfg, seq_len: int) -> int:
+    """Ring-buffer size: the sliding window bounds it when set."""
+    return min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+
+
+def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
+               device="cpu"):
+    """Decode caches for a maximum context of ``seq_len`` tokens: one
+    ring-buffer KV cache a layer, stacked on a leading layer axis."""
+    _dense_only(cfg)
+    c = kv_cache_init(cfg, batch, cache_length(cfg, seq_len), dtype, device)
+    n = cfg.n_layers
+    return dict(kv=KVCache(
+        k=c.k.expand((n,) + c.k.shape).contiguous(),
+        v=c.v.expand((n,) + c.v.shape).contiguous(),
+        key_pos=c.key_pos.expand((n,) + c.key_pos.shape).contiguous()))
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def forward(
+    params: Dict[str, Any],
+    cfg,
+    tokens: torch.Tensor,              # (B, S)
+    *,
+    ctx: DistCtx = DistCtx(),
+    positions: Optional[torch.Tensor] = None,
+    cache=None,
+    vis: Optional[torch.Tensor] = None,   # vlm: (B, n_vis, d_model)
+):
+    """Returns (logits, new_cache); the cache is updated in place."""
+    _dense_only(cfg)
+    b, s = tokens.shape
+    dev = tokens.device
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=dev).expand(b, s)
+    h = embed_lookup(params["embed"], tokens, cfg.cdtype)
+    n_vis = 0
+    if cfg.family == "vlm" and vis is not None:
+        hv = vis.to(cfg.cdtype) @ params["vis_proj"]["w"].to(cfg.cdtype)
+        h = torch.cat([hv, h], dim=1)
+        n_vis = vis.shape[1]
+        positions = torch.arange(s + n_vis, dtype=torch.int32,
+                                 device=dev).expand(b, s + n_vis)
+    h = ctx.constrain(h)
+
+    kv = None if cache is None else cache["kv"]
+    for i in range(cfg.n_layers):
+        bp = tree_map(lambda x: x[i], params["blocks"])
+        h, _ = _dense_block(bp, h, cfg, positions,
+                            None if kv is None else kv.layer(i), ctx)
+    new_cache = None if cache is None else dict(kv=kv)
+
+    h = _norm(h, params["final_norm"], cfg)
+    if n_vis:
+        h = h[:, n_vis:]
+    if cfg.tie_embeddings:
+        logits = unembed_logits(params["embed"], h, cfg.vocab)
+    else:
+        logits = h.float() @ params["lm_head"]["w"].float()
+        if logits.shape[-1] != cfg.vocab:
+            logits[..., cfg.vocab:] = -1e30
+    return logits, new_cache
+
+
+def prefill(params, cfg, tokens, cache, *, ctx: DistCtx = DistCtx(),
+            vis=None):
+    """Run the prompt; fills caches; returns (last-position logits, cache)."""
+    logits, new_cache = forward(params, cfg, tokens, ctx=ctx, cache=cache,
+                                vis=vis)
+    return logits[:, -1], new_cache
+
+
+def decode_step(params, cfg, token, pos, cache, *, ctx: DistCtx = DistCtx()):
+    """One decode step. token: (B,) int; pos: (B,) absolute position."""
+    logits, new_cache = forward(params, cfg, token[:, None], ctx=ctx,
+                                positions=pos[:, None], cache=cache)
+    return logits[:, 0], new_cache

@@ -1,7 +1,8 @@
 """repro_torch on the card: the CUDA kernels against their plain versions,
 the ring (forward and backward, dense and top-k compressed) on the card
 against the ring on the CPU, sampled GraphSAGE's gradients on the card
-against the CPU's, and served == offline.
+against the CPU's, served == offline, and the LM's flash attention (K7)
+and its cache-less forward on the card against the CPU.
 
 These tests need an NVIDIA card and nvcc (a CUDA kernel has no CPU mode);
 without them they skip.  On the card, run them with
@@ -16,7 +17,10 @@ import torch
 
 import repro_torch.core as TC
 from repro_torch.dist import VirtualRing
+from repro_torch import configs as LMC
+from repro_torch.kernels import flash_attention as k7
 from repro_torch.kernels import neighbor_agg, ops, ref, rows
+from repro_torch.models import transformer as LMT
 from repro_torch.sample import block_tree, sample_blocks
 from repro_torch.train import value_and_grad
 from repro_torch.train.tree import tree_leaves, tree_map
@@ -342,3 +346,71 @@ def test_sparse_served_logits_bitwise_match_offline_on_card(cuda):
             params, eng, srv.xp).cpu().numpy())
     for r in results:
         np.testing.assert_array_equal(r.logits, offline[r.seeds])
+
+
+# K7: (B, S, H, KV, hd, causal, window): GQA 1, 4 and 12; a window under
+# the 64-key tile; S not a multiple of the tile; every head_dim K7 takes
+FLASH_SHAPES = [(2, 64, 4, 4, 16, True, 0), (1, 200, 8, 2, 64, True, 0),
+                (2, 77, 12, 1, 112, True, 0), (1, 300, 4, 1, 128, True, 16),
+                (1, 130, 4, 2, 128, False, 0), (1, 129, 8, 2, 64, False, 5),
+                (3, 1, 4, 4, 16, True, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window", FLASH_SHAPES)
+def test_flash_attention_matches_plain(cuda, b, s, h, kv, hd, causal, window,
+                                       dtype):
+    rng = np.random.default_rng(s * h + hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, hd)).astype(
+        np.float32)).to(cuda, dtype) for n in (h, kv, kv))
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    before = k7.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert k7.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, s, h, hd)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal,
+                                                window=window))
+
+
+def test_flash_attention_reads_strided_inputs(cuda):
+    """q, k and v as slices of one packed projection (the model's layout
+    before any copy): the kernel reads them through their strides."""
+    rng = np.random.default_rng(9)
+    b, s, h, kv, hd = 2, 100, 8, 2, 64
+    qkv = torch.from_numpy(rng.normal(size=(b, s, h + 2 * kv, hd)).astype(
+        np.float32)).to(cuda)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+    assert not q.is_contiguous()
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=True)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_refuses_a_tensor_that_needs_a_gradient(cuda):
+    q = torch.zeros(1, 8, 2, 16, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="forward only"):
+        ops.flash_attention(q, q.detach(), q.detach())
+    with pytest.raises(ValueError, match="head_dim"):
+        z = torch.zeros(1, 8, 2, 24, device=cuda)
+        ops.flash_attention(z, z, z)
+
+
+def test_lm_forward_with_flash_on_card_matches_cpu(cuda):
+    """The smoke mistral-nemo's cache-less forward, fp32, flag on: K7 on
+    the card against the plain version on the CPU, one launch a layer."""
+    import dataclasses
+    cfg = dataclasses.replace(LMC.get_smoke_config("mistral-nemo-12b"),
+                              compute_dtype="float32",
+                              use_flash_attention=True)
+    params = LMT.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (2, 70)).astype(np.int32))
+    want, _ = LMT.forward(params, cfg, toks)
+    dev_params = tree_map(lambda t: t.to(cuda), params)
+    before = k7.flash_attention.launches
+    got, _ = LMT.forward(dev_params, cfg, toks.to(cuda))
+    assert k7.flash_attention.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)

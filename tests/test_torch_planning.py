@@ -147,7 +147,11 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "need = {'repro_torch.train.optimizer', 'repro_torch.sample.blocks',\n"
         "        'repro_torch.store.tiered', 'repro_torch.launch.train_gnn',\n"
-        "        'repro_torch.kernels.rows'}\n"
+        "        'repro_torch.kernels.rows', 'repro_torch.configs.base',\n"
+        "        'repro_torch.configs.mistral_nemo_12b',\n"
+        "        'repro_torch.models.transformer',\n"
+        "        'repro_torch.serve.engine', 'repro_torch.launch.serve',\n"
+        "        'repro_torch.kernels.flash_attention'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
