@@ -9,7 +9,10 @@ Phases, each of which passes or ends the run with a non-zero exit:
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
 2. every kernel against its plain PyTorch version on the card over a
    sweep of shapes (rtol/atol 1e-5; K5 and K6 bitwise; K7 fp32 rtol = atol
-   2e-5, bf16 1e-2), and two launches bitwise equal;
+   2e-5, bf16 1e-2; K8 rtol = atol 1e-4 over hd 8/16/64/192, H 1/2/4,
+   B 1/3/8, S 1/7/256/4096 from a random state), and two launches bitwise
+   equal; for K8 also a row alone == the row in its batch at any ``bt``,
+   and one launch over S == two with the state carried, bitwise;
 3. serving at full width: GCN serving of the products stand-in at its
    real size (2.45 M nodes, D = 100, 64 classes, hidden 16, 2 layers)
    over 8 virtual shards, through ``GNNServeEngine``/``run_trace``, with
@@ -69,9 +72,25 @@ Phases, each of which passes or ends the run with a non-zero exit:
    tokens up to a step whose top-2 margin is under 1e-3 * max|logit|;
    then the serving launcher at its defaults (8 requests, 32 new tokens,
    4 slots) with its own parameters, every request answered with 32
-   tokens, tokens/s, prefill and decode-step times.
+   tokens, tokens/s, prefill and decode-step times;
+12. xlstm inference at full width, after phase 11's state is freed:
+   xlstm-125m (12 layers alternating mLSTM/sLSTM, d_model 768, 4 heads,
+   mLSTM d_in 1536 and dk 384, sLSTM hd 192, vocab 50,304 tied, fp32
+   parameters drawn on the card from seed 0).  (a) The cache-less forward
+   at B = 2, S = 4096 in the configs' bf16 compute (the main path, K8
+   launches counted: one an sLSTM layer) and in fp32, both timed (CUDA
+   events) and the bf16 one profiled; K8 held against its plain version on
+   the card on every sLSTM layer's inputs of the fp32 forward (rtol = atol
+   1e-4) and timed at those shapes beside the plain version and its bound.
+   (b) ``prefill`` of 512 tokens then ``decode_step`` against the forward
+   of 513, fp32, within 2e-3, and one decode step at the launcher's
+   serving shape (4 slots, bf16) timed and profiled.  (c) In fp32 compute,
+   batched tokens equal solo tokens under phase 11's top-2 margin rule;
+   then the serving launcher at its defaults with ``--arch xlstm-125m``,
+   K8 launches counted, every request answered with 32 tokens, tokens/s,
+   prefill and decode-step times.
 
-The line before the last is a JSON object of the kernels K1–K7; the last
+The line before the last is a JSON object of the kernels K1–K8; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -100,6 +119,7 @@ SOURCE["gather_rows"] = "src/repro_torch/kernels/csrc/rows.cu"
 SOURCE["sparse_gather_sum"] = \
     "src/repro_torch/kernels/csrc/sparse_gather_sum.cu"
 SOURCE["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SOURCE["slstm_scan"] = "src/repro_torch/kernels/csrc/slstm_scan.cu"
 CARD_FLOPS = [  # (name fragments, {input dtype: flop/s}): NVIDIA data
     # sheets, dense; bf16 on the tensor cores, fp32 outside them
     (("H200",), {"bfloat16": 989e12, "float32": 67e12}),
@@ -117,6 +137,7 @@ REPLACES = {
     "gather_rows": "src/repro/kernels/rows.py:31",
     "sparse_gather_sum": "src/repro/kernels/neighbor_agg.py:142",
     "flash_attention": "src/repro/kernels/flash_attention.py:79",
+    "slstm_scan": "src/repro/kernels/slstm_scan.py:83",
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
@@ -133,6 +154,9 @@ PATH_KERNELS = {
                        "sparse_gather_sum"),
     # the LM's cache-less forward with use_flash_attention (bf16 compute)
     "lm_forward": ("flash_attention",),
+    # xlstm-125m: the cache-less forward (bf16 compute), then the launcher
+    "xlstm_forward": ("slstm_scan",),
+    "xlstm_serving": ("slstm_scan",),
 }
 PRODUCTS_SCALE = 199.3   # 12288 · 199.3 ≈ 2.449 M nodes (ogbn-products)
 REDUCED_SCALE = 10.0     # 122,880 nodes: GIN, SAGE and GAT, one step each
@@ -148,6 +172,11 @@ LM_ARCH, LM_B, LM_S, LM_PREFIX = "mistral-nemo-12b", 2, 4096, 512
 FLASH_REF_CASES = [(2, 64, 4, 4, True, 0), (1, 128, 8, 2, True, 0),
                    (2, 96, 4, 1, True, 32), (1, 50, 2, 2, True, 0),
                    (1, 64, 4, 4, False, 0)]
+# phase 12: xlstm-125m, B x S = 2 x 4096 (train_4k's length)
+XL_ARCH, XL_B, XL_S, XL_PREFIX = "xlstm-125m", 2, 4096, 512
+SLSTM_TOL = 1e-4    # K8 against its plain version, rtol = atol
+# K8 sweep: head_dim, heads, batch rows, steps (each combination)
+SLSTM_SWEEP = ((8, 16, 64, 192), (1, 2, 4), (1, 3, 8), (1, 7, 256, 4096))
 
 
 def fail(msg):
@@ -326,10 +355,17 @@ def main():
                     n_cases += 1
     flash_cases, flash_err = sweep_flash(torch, ops, ref, dev, gen)
     n_cases += flash_cases
+    slstm_cases, slstm_err = sweep_slstm(torch, ops, ref, K, dev, gen)
+    n_cases += slstm_cases
     say("kernels_vs_plain", cases=n_cases, max_abs_err=worst,
         tolerance="rtol 1e-5 atol 1e-5 (K5, K6: bitwise)",
         flash_cases=flash_cases, flash_max_abs_err=flash_err,
         flash_tolerance="fp32 rtol 2e-5 atol 2e-5, bf16 rtol 1e-2 atol 1e-2",
+        slstm_cases=slstm_cases, slstm_max_abs_err=slstm_err,
+        slstm_tolerance=f"rtol {SLSTM_TOL} atol {SLSTM_TOL}",
+        slstm_bitwise=["row alone == row in its batch at bt 1, 3, 8",
+                       "one launch over S == two with the state carried",
+                       "two launches equal"],
         bitwise_relaunch=True)
 
     # -- 3. the main path at full width ------------------------------------
@@ -464,6 +500,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     kernels.append(lm_inference(torch, K, dev, rate, flops, launches))
+
+    # -- 12. xlstm inference: phase 11's device state goes first ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    check(left < 1.0, f"{left:.1f} GB still allocated after phase 11")
+    kernels.append(xlstm_inference(torch, K, dev, rate, flops, launches))
 
     for k in kernels:
         by_path = {p: launches[p][k["name"]] for p in launches
@@ -1602,6 +1645,271 @@ def time_flash(torch, K, dev, cfg, rate, flops):
                 shape=dict(batch=b, seq=s, heads=h, kv_heads=kv, head_dim=hd,
                            causal=True, window=0),
                 flops=n_flops, bytes=main["bytes"], kept_pairs=pairs)
+
+# ---------------------------------------------------------------------------
+# xlstm inference (phase 12) and K8
+# ---------------------------------------------------------------------------
+
+def _slstm_case(torch, gen, b, s, h, hd, dev):
+    """xp (B, S, H·4·hd) ~ N(0, 1), wr ~ N(0, 1/hd) as the model draws it,
+    and a random non-trivial state: h, c and m of either sign, n in
+    [0.5, 2)."""
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+    shape = (b, h, hd)
+    return (t(gen.normal(size=(b, s, h * 4 * hd))),
+            t(gen.normal(size=(h, hd, 4 * hd)) * hd ** -0.5),
+            dict(h=t(gen.normal(size=shape) * 0.5),
+                 c=t(gen.normal(size=shape)),
+                 n=t(gen.uniform(0.5, 2.0, shape)),
+                 m=t(gen.normal(size=shape))))
+
+
+def _slstm_held(torch, got, want, what):
+    """K8's (hs, states) within SLSTM_TOL of its plain version's; returns
+    the largest absolute difference."""
+    pairs = [(got[0], want[0])] + [(got[1][k], want[1][k]) for k in "hcnm"]
+    check(all(a.shape == b.shape and torch.allclose(
+        a, b, rtol=SLSTM_TOL, atol=SLSTM_TOL) for a, b in pairs),
+        f"{what}: disagrees with its plain version")
+    return max((a - b).abs().max().item() for a, b in pairs)
+
+
+def _slstm_same(torch, a, b):
+    return torch.equal(a[0], b[0]) and all(torch.equal(a[1][k], b[1][k])
+                                           for k in "hcnm")
+
+
+def sweep_slstm(torch, ops, ref, K, dev, gen):
+    """Phase 2's K8 sweep against its plain version: hd 8/16/64/192, H
+    1/2/4, B 1/3/8, S 1/7/256/4096, each from a random state; and the
+    three bitwise invariants on every case: two launches equal, the last
+    row alone equal to it in its batch (and the batch at bt 1 equal to bt
+    8), one launch over S equal to two with the state carried.  Returns
+    (cases, the largest absolute difference)."""
+    worst, n = 0.0, 0
+    hds, hs_, bs, ss = SLSTM_SWEEP
+    for hd in hds:
+        for h in hs_:
+            for b in bs:
+                for s in ss:
+                    xp, wr, st = _slstm_case(torch, gen, b, s, h, hd, dev)
+                    what = f"sLSTM scan B={b} S={s} H={h} hd={hd}"
+                    got = ops.slstm_scan(xp, wr, st)
+                    worst = max(worst, _slstm_held(
+                        torch, got, ref.slstm_scan_ref(xp, wr, st), what))
+                    check(_slstm_same(torch, got, ops.slstm_scan(xp, wr, st)),
+                          f"{what}: two launches differ")
+                    k8 = K.slstm_scan.slstm_scan
+                    i = b - 1
+                    solo = k8(xp[i:i + 1].contiguous(), wr,
+                              {k: v[i:i + 1].contiguous()
+                               for k, v in st.items()})
+                    check(_slstm_same(torch, solo, (
+                        got[0][i:i + 1],
+                        {k: v[i:i + 1] for k, v in got[1].items()})),
+                        f"{what}: a row alone differs from it in its batch")
+                    check(_slstm_same(torch, k8(xp, wr, st, bt=1), got),
+                          f"{what}: bt 1 differs from bt 8")
+                    if s > 1:
+                        cut = s // 3 or 1
+                        h1, st1 = k8(xp[:, :cut].contiguous(), wr, st)
+                        h2, st2 = k8(xp[:, cut:].contiguous(), wr, st1)
+                        check(_slstm_same(torch, (torch.cat([h1, h2], 1),
+                                                  st2), got),
+                              f"{what}: split at {cut} differs")
+                    n += 1
+                    del xp, wr, st, got
+    return n, worst
+
+
+def xlstm_inference(torch, K, dev, rate, flops, launches):
+    """Phase 12: xlstm-125m at full width on one card."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = configs.get_config(XL_ARCH)
+    b, s = XL_B, XL_S
+    pat = cfg.xlstm_pattern
+    n_slstm = cfg.n_layers // len(pat) * pat.count("s")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode():
+        params = T.init_params(gen, cfg, vocab_multiple=16)
+    torch.cuda.synchronize()
+    say("xlstm_built", arch=cfg.name, layers=cfg.n_layers, pattern=pat,
+        d_model=cfg.d_model, heads=cfg.n_heads, mlstm_d_in=2 * cfg.d_model,
+        mlstm_dk=2 * cfg.d_model // cfg.n_heads,
+        slstm_hd=cfg.d_model // cfg.n_heads, vocab=cfg.vocab,
+        ssm_chunk=cfg.ssm_chunk,
+        params=sum(t.numel() for t in tree_leaves(params)),
+        param_dtype=cfg.param_dtype, init_s=round(time.perf_counter() - t0, 3),
+        gpu_mem_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+    cfgs = {dt: dataclasses.replace(cfg, compute_dtype=dt)
+            for dt in ("bfloat16", "float32")}
+
+    def forward(c, t=toks):
+        return T.forward(params, c, t)[0]
+
+    # (a) the cache-less forward: bf16 (the configs' compute) is the main
+    # path; the fp32 one records every K8 call's inputs and outputs
+    calls = []
+    plain_scan = ops.slstm_scan
+
+    def recording(xp, wr, st):
+        out = plain_scan(xp, wr, st)
+        calls.append((xp, wr, {k: v.clone() for k, v in st.items()}, out))
+        return out
+
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        lg16 = forward(cfgs["bfloat16"])
+        torch.cuda.synchronize()
+        launches["xlstm_forward"] = K.launch_counts()
+        ops.slstm_scan = recording
+        try:
+            lg32 = forward(cfgs["float32"])
+        finally:
+            ops.slstm_scan = plain_scan
+        torch.cuda.synchronize()
+        n16 = launches["xlstm_forward"]["slstm_scan"]
+        check(n16 == n_slstm and len(calls) == n_slstm,
+              f"K8 launches a forward: {n16} (bf16), {len(calls)} (fp32); "
+              f"expected {n_slstm}")
+        for lg in (lg16, lg32):
+            check(lg.shape == (b, s, cfg.vocab) and all(
+                torch.isfinite(r).all().item() for r in lg),
+                f"xlstm logits of shape {tuple(lg.shape)} or not finite")
+        diff16 = max((x.float() - y).abs().max().item()
+                     for x, y in zip(lg16, lg32))
+        same_argmax = float(sum((x.argmax(-1) == y.argmax(-1)).sum().item()
+                                for x, y in zip(lg16, lg32)) / (b * s))
+        max32 = lg32.abs().max().item()
+        del lg16, lg32
+        errs = [_slstm_held(torch, out, K.ref.slstm_scan_ref(xp, wr, st),
+                            f"K8 on sLSTM layer {i} of the fp32 forward")
+                for i, (xp, wr, st, out) in enumerate(calls)]
+        fwd_ms = {dt: _time(torch, lambda c=cfgs[dt]: forward(c), reps=reps,
+                            warmup=1)
+                  for dt, reps in (("bfloat16", 3), ("float32", 2))}
+        breakdown = profile_pass(torch, lambda: forward(cfgs["bfloat16"]),
+                                 reps=1)
+    say("xlstm_forward", batch=b, seq=s, slstm_launches_per_forward=n16,
+        k8_max_abs_err_by_layer=errs, k8_tolerance=f"rtol {SLSTM_TOL} atol "
+        f"{SLSTM_TOL}", bf16_vs_fp32_max_abs_diff=diff16,
+        fp32_max_abs_logit=max32, bf16_fp32_same_argmax_share=same_argmax,
+        forward_ms=fwd_ms, **breakdown)
+    xp, wr, st, _ = calls[0]
+    k8 = time_slstm(torch, K, xp, wr, st, rate, flops)
+    k8["max_abs_err"] = max(errs)
+    del calls, xp, wr, st
+
+    # (b) prefill of XL_PREFIX tokens, then one decode step, against the
+    # cache-less forward of XL_PREFIX + 1 tokens (fp32)
+    f32 = cfgs["float32"]
+    with torch.inference_mode():
+        t = toks[:, :XL_PREFIX + 1]
+        full = forward(f32, t)
+        cache = T.init_cache(f32, b, XL_PREFIX + 8, dtype=torch.float32,
+                             device=dev)
+        lg1, cache = T.prefill(params, f32, t[:, :XL_PREFIX], cache)
+        pos = torch.full((b,), XL_PREFIX, dtype=torch.int32, device=dev)
+        K.reset_launch_counts()
+        lg2, _ = T.decode_step(params, f32, t[:, XL_PREFIX], pos, cache)
+        torch.cuda.synchronize()
+        per_step = K.launch_counts()["slstm_scan"]
+        check(per_step == n_slstm,
+              f"K8 launches a decode step: {per_step}, expected {n_slstm}")
+        pairs = ((lg1, full[:, XL_PREFIX - 1]), (lg2, full[:, XL_PREFIX]))
+        errs = [(x - y).abs().max().item() for x, y in pairs]
+        check(all(torch.allclose(x, y, rtol=2e-3, atol=2e-3)
+                  for x, y in pairs),
+              f"xlstm prefill/decode against the forward: max|diff| {errs}")
+        del full, cache, lg1, lg2
+    say("xlstm_prefill_decode", prefix=XL_PREFIX, prefill_max_abs_err=errs[0],
+        decode_max_abs_err=errs[1], tolerance="rtol 2e-3 atol 2e-3",
+        slstm_launches_per_decode_step=per_step)
+
+    # one decode step at the launcher's serving shape (4 slots, bf16)
+    bf16 = cfgs["bfloat16"]
+    with torch.inference_mode():
+        cache = T.init_cache(bf16, 4, 48, dtype=torch.float32, device=dev)
+        tok = torch.arange(1, 5, dtype=torch.int32, device=dev)
+        pos = torch.full((4,), 20, dtype=torch.int32, device=dev)
+        step = lambda: T.decode_step(params, bf16, tok, pos, cache)
+        decode_ms = _time(torch, step, reps=10, warmup=2)
+        decode_profile = profile_pass(torch, step, reps=3)
+        del cache
+    say("xlstm_decode_step", slots=4, compute="bfloat16",
+        decode_ms=decode_ms, **decode_profile)
+
+    # (c) serving: batched == solo in fp32 on these parameters, then the
+    # launcher at its defaults with its own
+    say("xlstm_batched_vs_solo", **batched_vs_solo(ServeEngine, params, f32))
+    del params
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    rep = serve_lm.main(["--arch", XL_ARCH])
+    torch.cuda.synchronize()
+    launches["xlstm_serving"] = K.launch_counts()
+    n_serve = launches["xlstm_serving"]["slstm_scan"]
+    check(rep["device"].startswith("cuda") and rep["requests"] == 8
+          and all(r.steps == 32 for r in rep["results"]),
+          "the xlstm serving launcher did not answer every request")
+    check(n_serve == n_slstm * (len(rep["prefill_ms"])
+                                + len(rep["decode_ms"])),
+          f"K8 launches while serving: {n_serve}")
+    say("xlstm_served", arch=rep["arch"], requests=rep["requests"],
+        tokens=rep["tokens"], seconds=rep["seconds"],
+        tokens_per_s=rep["tokens_per_s"],
+        prefill_ms_median=float(np.median(rep["prefill_ms"])),
+        prefill_ms=rep["prefill_ms"],
+        decode_ms_per_step_median=float(np.median(rep["decode_ms"])),
+        decode_steps=len(rep["decode_ms"]), slstm_launches=n_serve,
+        compute=cfg.compute_dtype)
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k8
+
+
+def time_slstm(torch, K, xp, wr, st, rate, flops):
+    """K8 at phase 12 (a)'s shapes (one sLSTM layer of the B x S forward:
+    xp (B, S, H·4·hd), wr (H, hd, 4·hd)), beside its plain version.  No
+    PyTorch call computes this recurrence (``nn.LSTM`` is the classic LSTM:
+    a sigmoid input gate, no normaliser n, no stabiliser m), so there is
+    no library time.  Bound: the recurrent products' 2·B·S·H·hd·4·hd flops
+    over the fp32 peak, or xp, hs, wr and the states read or written once
+    over the memory rate, whichever is larger."""
+    b, s = xp.shape[0], xp.shape[1]
+    h, hd = wr.shape[0], wr.shape[1]
+    with torch.inference_mode():
+        k8 = lambda: K.slstm_scan.slstm_scan(xp, wr, st)
+        t_k8 = _time(torch, k8, reps=5, warmup=1)
+        t_plain = _time(torch, lambda: K.ref.slstm_scan_ref(xp, wr, st),
+                        reps=1, warmup=0)
+    n_flops = 2 * b * s * h * hd * 4 * hd
+    nbytes = 4 * (xp.numel() + b * s * h * hd + wr.numel() + 8 * b * h * hd)
+    t_flops = n_flops / flops["float32"] * 1e3
+    t_bytes = nbytes / rate * 1e3
+    return dict(name="slstm_scan", route="cuda", source=SOURCE["slstm_scan"],
+                replaces=REPLACES["slstm_scan"], ms=t_k8, plain_ms=t_plain,
+                bound_ms=max(t_flops, t_bytes),
+                bound_by="operations" if t_flops >= t_bytes else "bytes",
+                library_ms=None,
+                library="none: nn.LSTM/cuDNN compute the classic LSTM (no "
+                        "normaliser n, no stabiliser m)",
+                dtype="float32", shape=dict(batch=b, seq=s, heads=h,
+                                            head_dim=hd),
+                flops=n_flops, bytes=nbytes, peak_flops=flops["float32"])
 
 
 if __name__ == "__main__":

@@ -7,11 +7,13 @@
 * rows — the wrapper around csrc/rows.cu: K5 row gather;
 * flash_attention — the wrapper around csrc/flash_attention.cu: K7
   flash attention (forward, GQA, causal and sliding-window);
+* slstm_scan — the wrapper around csrc/slstm_scan.cu: K8 the sLSTM
+  recurrence over a sequence (forward);
 * ref — the plain PyTorch versions the CPU path and the tests run;
 * ops — the front door that picks one by the tensor's device, and the
   gather-sums' autograd Functions.
 """
-from . import flash_attention, neighbor_agg, ops, ref, rows
+from . import flash_attention, neighbor_agg, ops, ref, rows, slstm_scan
 from .ops import (GradIndex, gather_rows, neighbor_gather_sum,
                   scatter_sum_ordered, segment_add_ordered,
                   sparse_neighbor_gather_sum)
@@ -22,9 +24,10 @@ def reset_launch_counts() -> None:
     neighbor_agg.reset_launch_counts()
     rows.reset_launch_counts()
     flash_attention.reset_launch_counts()
+    slstm_scan.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    """Launches per kernel (K1–K7) since the last reset."""
+    """Launches per kernel (K1–K8) since the last reset."""
     return {**neighbor_agg.launch_counts(), **rows.launch_counts(),
-            **flash_attention.launch_counts()}
+            **flash_attention.launch_counts(), **slstm_scan.launch_counts()}

@@ -87,6 +87,8 @@ _SIGNATURES = {
     # bf16, stream
     "mgg_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
                             _L, _L, _L, _L, _L, _L, _I, _I, _I, _P],
+    # xp, wr, h0, c0, n0, m0, hs, hN, cN, nN, mN, B, S, H, hd, bt, stream
+    "mgg_slstm_scan": [_P] * 11 + [_I, _I, _I, _I, _I, _P],
 }
 
 

@@ -16,7 +16,8 @@ The sparse gather-sum over top-k compressed rows (K6 forward) has the
 same backward followed by a column gather at the ids
 (:func:`sparse_gather_sum_grad`, the reference's ``ops.py:112-120``),
 which :class:`_SparseGatherSum` and the compressed ring's backward share.
-:func:`flash_attention` routes the LM's cache-less attention to K7.
+:func:`flash_attention` routes the LM's cache-less attention to K7, and
+:func:`slstm_scan` the xLSTM's sLSTM recurrence to K8.
 """
 from __future__ import annotations
 
@@ -28,11 +29,13 @@ import torch
 
 from . import flash_attention as _flash
 from . import neighbor_agg, ref, rows
+from . import slstm_scan as _slstm
 
 __all__ = ["GradIndex", "GRAD_CHUNK", "neighbor_gather_sum",
            "sparse_neighbor_gather_sum", "sparse_gather_sum_grad",
            "segment_add_ordered",
-           "scatter_sum_ordered", "gather_rows", "flash_attention"]
+           "scatter_sum_ordered", "gather_rows", "flash_attention",
+           "slstm_scan"]
 
 # Longest run of slots one thread adds in a row: a longer segment (a hub
 # neighbor) is cut into chunks of this many slots, summed in two passes.
@@ -282,3 +285,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _route(q, "flash attention") == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window)
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def slstm_scan(xp: torch.Tensor, wr: torch.Tensor, state: dict):
+    """The sLSTM recurrence over a sequence (``ref.slstm_scan_ref``'s
+    contract): the plain loop on the CPU, K8 on the card."""
+    if _route(xp, "sLSTM scan") == "cpu":
+        return ref.slstm_scan_ref(xp, wr, state)
+    return _slstm.slstm_scan(xp, wr, state)

@@ -6,12 +6,16 @@ kernel against them on the card.  They repeat the kernels' arithmetic
 """
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 __all__ = ["neighbor_gather_sum_ref", "segment_add_ordered_ref",
            "scatter_sum_ordered_ref", "gather_rows_ref", "topk_decompress",
-           "sparse_gather_sum_ref", "flash_attention"]
+           "sparse_gather_sum_ref", "flash_attention", "slstm_cell",
+           "slstm_scan_ref"]
 
 
 def neighbor_gather_sum_ref(buf: torch.Tensor, nbrs: torch.Tensor,
@@ -146,3 +150,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             scores = torch.where(ok, qf @ kf.T, -1e30)
             out[bi, :, hi] = (torch.softmax(scores, dim=-1) @ vf).to(q.dtype)
     return out
+
+
+def slstm_cell(xt: torch.Tensor, wr: torch.Tensor,
+               st: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """One sLSTM step, op for op the reference's ``_slstm_cell``
+    (``repro/models/xlstm.py:191-210``): xt ``(B, H, 4·hd)`` fp32, each
+    head ``[z | i | f | o]``; wr ``(H, hd, 4·hd)``; ``st`` h/c/n/m ``(B, H,
+    hd)`` fp32 → the new states."""
+    hd = wr.shape[1]
+    h, c, n, m = st["h"], st["c"], st["n"], st["m"]
+    rec = torch.einsum("bhd,hdg->bhg", h.float(), wr.float())
+    gates = xt.float() + rec
+    zt = torch.tanh(gates[..., 0 * hd:1 * hd])
+    log_i = gates[..., 1 * hd:2 * hd]
+    log_f = F.logsigmoid(gates[..., 2 * hd:3 * hd])
+    ot = torch.sigmoid(gates[..., 3 * hd:4 * hd])
+    m_new = torch.maximum(log_f + m, log_i)
+    i_p = torch.exp(log_i - m_new)
+    f_p = torch.exp(log_f + m - m_new)
+    c = f_p * c + i_p * zt
+    n = f_p * n + i_p
+    h = ot * c / torch.clamp(n.abs(), min=1.0)
+    return dict(h=h, c=c, n=n, m=m_new)
+
+
+def slstm_scan_ref(xp: torch.Tensor, wr: torch.Tensor,
+                   state: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Plain version of K8: the sLSTM recurrence over S steps.
+
+    xp ``(B, S, 4·D)`` fp32 in the model's head-major layout (``reshape(B,
+    S, H, 4·hd)``, each head ``[z | i | f | o]``), wr ``(H, hd, 4·hd)``,
+    ``state`` h/c/n/m ``(B, H, hd)`` fp32 → (hs ``(B, S, H, hd)`` fp32, the
+    states after the last step).  A loop of :func:`slstm_cell`, as the
+    reference's ``lax.scan`` over it (``xlstm.py:230``).
+    """
+    b, s = xp.shape[0], xp.shape[1]
+    heads, hd = wr.shape[0], wr.shape[1]
+    xs = xp.reshape(b, s, heads, 4 * hd)
+    st = {k: state[k].float() for k in ("h", "c", "n", "m")}
+    hs = torch.empty((b, s, heads, hd), dtype=torch.float32,
+                     device=xp.device)
+    for t in range(s):
+        st = slstm_cell(xs[:, t], wr, st)
+        hs[:, t] = st["h"]
+    return hs, st

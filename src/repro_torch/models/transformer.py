@@ -1,16 +1,19 @@
 """Decoder-only LM assembly (counterpart of ``repro/models/transformer.py``)
-for the dense families:
+for the dense and recurrent families:
 
   dense — GQA transformer (codeqwen / nemo / qwen3 / starcoder2)
   vlm   — the dense backbone with a stub visual-token prefix (internvl2)
+  xlstm — alternating mLSTM/sLSTM groups (xlstm-125m; ``models/xlstm.py``,
+          the sLSTM recurrence on K8 on the card)
 
 Entry points: ``forward`` (the cache-less whole-sequence forward, where
 flash attention runs under ``cfg.use_flash_attention``), ``prefill`` and
-``decode_step`` (the ring-buffer KV cache), ``init_params`` and
-``init_cache``.  The parameter tree is the reference's leaf for leaf:
-blocks are stacked with a leading layer axis, and the reference's
-``lax.scan`` over them is a loop over that axis.  ``loss_fn`` (training)
-is not ported yet; the ``moe``, ``hybrid`` and ``xlstm`` families raise
+``decode_step`` (the ring-buffer KV cache, or the xlstm's fp32 recurrent
+states), ``init_params`` and ``init_cache``.  The parameter tree is the
+reference's leaf for leaf: blocks are stacked with a leading layer (or
+group) axis, and the reference's ``lax.scan`` over them is a loop over
+that axis.  Caches are updated in place.  ``loss_fn`` (training) is not
+ported yet; the ``moe`` and ``hybrid`` families raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..train.tree import tree_map
+from . import xlstm as xlstm_lib
 from .layers import (KVCache, attention_apply, attention_init, dense_init,
                      embed_init, embed_lookup, kv_cache_init, layer_norm,
                      mlp_apply, mlp_init, rms_norm, unembed_logits)
@@ -30,16 +34,14 @@ __all__ = ["DistCtx", "init_params", "forward", "prefill", "decode_step",
 
 # the families of later slices, and the ROADMAP item that ports each
 _LATER = {"moe": "ROADMAP item 10.2 (the moe family)",
-          "hybrid": "ROADMAP item 10.3 (the hybrid family, with ssm.py)",
-          "xlstm": "ROADMAP item 10.4 (the xlstm family, with "
-                   "slstm_scan_call)"}
+          "hybrid": "ROADMAP item 10.3 (the hybrid family, with ssm.py)"}
 
 
-def _dense_only(cfg) -> None:
+def _ported(cfg) -> None:
     if cfg.family in _LATER:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is {_LATER[cfg.family]}")
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "xlstm"):
         raise ValueError(cfg.family)
 
 
@@ -97,6 +99,47 @@ def _dense_block(bp, h, cfg, positions, cache, ctx):
 
 
 # ---------------------------------------------------------------------------
+# the xlstm groups
+# ---------------------------------------------------------------------------
+
+def _xlstm_stacks(cfg):
+    """(groups, [(stack name, kind)]): the pattern repeated over the
+    layers, one stack ``xl_{i}_{kind}`` per pattern element."""
+    pat = cfg.xlstm_pattern or ("m", "s")
+    return (cfg.n_layers // len(pat),
+            [(f"xl_{i}_{kind}", kind) for i, kind in enumerate(pat)])
+
+
+def _xlstm_block_init(gen: torch.Generator, cfg, kind: str, n: int):
+    mix = xlstm_lib.mlstm_init if kind == "m" else xlstm_lib.slstm_init
+    return dict(ln=_norm_init(cfg, gen.device, n), mix=mix(gen, cfg, n))
+
+
+def _xlstm_block(bp, h, cfg, kind, state, ctx):
+    z = _norm(h, bp["ln"], cfg)
+    fn = xlstm_lib.mlstm_apply if kind == "m" else xlstm_lib.slstm_apply
+    y, new_state = fn(bp["mix"], z, cfg, state=state)
+    return ctx.constrain(h + y), new_state
+
+
+def _xlstm_forward(params, cfg, h, cache, ctx):
+    """The reference's scan over groups (``transformer.py:394-425``): each
+    group applies one block of every stack in pattern order; a cache's
+    states are read and overwritten in place."""
+    n_groups, stacks = _xlstm_stacks(cfg)
+    for g in range(n_groups):
+        for name, kind in stacks:
+            bp = tree_map(lambda x: x[g], params[name])
+            st = None if cache is None else {
+                k: v[g] for k, v in cache[name].items()}
+            h, new = _xlstm_block(bp, h, cfg, kind, st, ctx)
+            if st is not None:
+                for k, v in new.items():
+                    st[k].copy_(v)
+    return h
+
+
+# ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
@@ -104,7 +147,7 @@ def init_params(gen: torch.Generator, cfg,
                 vocab_multiple: int = 16) -> Dict[str, Any]:
     """The reference's parameter tree for ``cfg``, every leaf drawn on
     ``gen``'s device (no host copy)."""
-    _dense_only(cfg)
+    _ported(cfg)
     params: Dict[str, Any] = dict(
         embed=embed_init(gen, cfg.vocab, cfg.d_model, cfg.pdtype,
                          vocab_multiple),
@@ -114,6 +157,11 @@ def init_params(gen: torch.Generator, cfg,
         params["lm_head"] = dense_init(
             gen, cfg.d_model,
             -(-cfg.vocab // vocab_multiple) * vocab_multiple, cfg.pdtype)
+    if cfg.family == "xlstm":
+        n_groups, stacks = _xlstm_stacks(cfg)
+        for name, kind in stacks:
+            params[name] = _xlstm_block_init(gen, cfg, kind, n_groups)
+        return params
     params["blocks"] = _dense_block_init(gen, cfg, cfg.n_layers)
     if cfg.family == "vlm":
         params["vis_proj"] = dense_init(gen, cfg.d_model, cfg.d_model,
@@ -133,8 +181,19 @@ def cache_length(cfg, seq_len: int) -> int:
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                device="cpu"):
     """Decode caches for a maximum context of ``seq_len`` tokens: one
-    ring-buffer KV cache a layer, stacked on a leading layer axis."""
-    _dense_only(cfg)
+    ring-buffer KV cache a layer, stacked on a leading layer axis; for the
+    xlstm family, each stack's recurrent states, fp32 whatever ``dtype``
+    is asked (as the reference), stacked on a leading group axis."""
+    _ported(cfg)
+    if cfg.family == "xlstm":
+        n_groups, stacks = _xlstm_stacks(cfg)
+        out = {}
+        for name, kind in stacks:
+            init = (xlstm_lib.mlstm_state_init if kind == "m"
+                    else xlstm_lib.slstm_state_init)
+            out[name] = {k: v.expand((n_groups,) + v.shape).contiguous()
+                         for k, v in init(cfg, batch, device=device).items()}
+        return out
     c = kv_cache_init(cfg, batch, cache_length(cfg, seq_len), dtype, device)
     n = cfg.n_layers
     return dict(kv=KVCache(
@@ -158,7 +217,7 @@ def forward(
     vis: Optional[torch.Tensor] = None,   # vlm: (B, n_vis, d_model)
 ):
     """Returns (logits, new_cache); the cache is updated in place."""
-    _dense_only(cfg)
+    _ported(cfg)
     b, s = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -174,12 +233,14 @@ def forward(
                                  device=dev).expand(b, s + n_vis)
     h = ctx.constrain(h)
 
-    kv = None if cache is None else cache["kv"]
-    for i in range(cfg.n_layers):
-        bp = tree_map(lambda x: x[i], params["blocks"])
-        h, _ = _dense_block(bp, h, cfg, positions,
-                            None if kv is None else kv.layer(i), ctx)
-    new_cache = None if cache is None else dict(kv=kv)
+    if cfg.family == "xlstm":
+        h = _xlstm_forward(params, cfg, h, cache, ctx)
+    else:
+        kv = None if cache is None else cache["kv"]
+        for i in range(cfg.n_layers):
+            bp = tree_map(lambda x: x[i], params["blocks"])
+            h, _ = _dense_block(bp, h, cfg, positions,
+                                None if kv is None else kv.layer(i), ctx)
 
     h = _norm(h, params["final_norm"], cfg)
     if n_vis:
@@ -190,7 +251,7 @@ def forward(
         logits = h.float() @ params["lm_head"]["w"].float()
         if logits.shape[-1] != cfg.vocab:
             logits[..., cfg.vocab:] = -1e30
-    return logits, new_cache
+    return logits, cache
 
 
 def prefill(params, cfg, tokens, cache, *, ctx: DistCtx = DistCtx(),

@@ -6,9 +6,11 @@ slots; one ``decode_step`` advances every active slot; a slot that finishes
 (EOS / budget) is refilled from the queue at the next step, not at a wave
 boundary.
 
-Each admission prefills alone (batch 1, exact prompt length) and its cache
-is copied into the shared decode cache at the slot index (axis 1, under the
-layer axis), so per-slot results are those of running that prompt solo.
+Each admission prefills alone (batch 1, exact prompt length) and every
+leaf of its cache (a KV cache's k, v and key positions, or an xlstm's
+recurrent states) is copied into the shared decode cache at the slot index
+(axis 1, under the layer or group axis), as the reference's ``_scatter``
+does, so per-slot results are those of running that prompt solo.
 The decode cache is fp32, as the reference allocates it, whatever the
 compute dtype.  Sampling stays on the host with numpy, as in the
 reference (argmax, or Gumbel-max over ``np.random.default_rng(seed)``), so
@@ -28,8 +30,19 @@ import numpy as np
 import torch
 
 from ..models import transformer
+from ..models.layers import KVCache
 
 __all__ = ["ServeEngine", "GenerationResult"]
+
+
+def _cache_leaves(cache) -> List[torch.Tensor]:
+    """Every tensor of a cache tree, in a fixed order (a KVCache's three
+    fields included)."""
+    if isinstance(cache, KVCache):
+        return [cache.k, cache.v, cache.key_pos]
+    if isinstance(cache, dict):
+        return [t for k in sorted(cache) for t in _cache_leaves(cache[k])]
+    return [cache]
 
 
 @dataclasses.dataclass
@@ -110,9 +123,8 @@ class ServeEngine:
                                             device=dev)
                 logits1, c1 = transformer.prefill(
                     self.params, cfg, self._tensor(toks), c1, ctx=self.ctx)
-                for dst, src in ((cache["kv"].k, c1["kv"].k),
-                                 (cache["kv"].v, c1["kv"].v),
-                                 (cache["kv"].key_pos, c1["kv"].key_pos)):
+                for dst, src in zip(_cache_leaves(cache),
+                                    _cache_leaves(c1)):
                     dst[:, j:j + 1].copy_(src)
                 cur[j] = self._sample(logits1.float().cpu().numpy(),
                                       temperature, rng)[0]

@@ -20,6 +20,7 @@ from repro_torch.dist import VirtualRing
 from repro_torch import configs as LMC
 from repro_torch.kernels import flash_attention as k7
 from repro_torch.kernels import neighbor_agg, ops, ref, rows
+from repro_torch.kernels import slstm_scan as k8
 from repro_torch.models import transformer as LMT
 from repro_torch.sample import block_tree, sample_blocks
 from repro_torch.train import value_and_grad
@@ -414,3 +415,104 @@ def test_lm_forward_with_flash_on_card_matches_cpu(cuda):
     got, _ = LMT.forward(dev_params, cfg, toks.to(cuda))
     assert k7.flash_attention.launches == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+# K8: (B, S, H, hd): one step, odd rows and steps, hd 8 to 256 (one
+# thread a gate column: up to 1024), the dynamic shared-memory opt-in (bt 8
+# at hd 256 is 64 KB)
+SLSTM_SHAPES = [(1, 1, 1, 8), (3, 7, 2, 16), (8, 256, 4, 64),
+                (2, 300, 4, 192), (9, 33, 1, 256)]
+
+
+def _slstm_inputs(rng, b, s, h, hd, device):
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+    shape = (b, h, hd)
+    xp = t(rng.normal(size=(b, s, h * 4 * hd)))
+    wr = t(rng.normal(size=(h, hd, 4 * hd)) * hd ** -0.5)
+    st = dict(h=t(rng.normal(size=shape) * 0.5), c=t(rng.normal(size=shape)),
+              n=t(rng.uniform(0.5, 2.0, shape)), m=t(rng.normal(size=shape)))
+    return xp, wr, st
+
+
+def _same(a, b):
+    return torch.equal(a[0], b[0]) and all(torch.equal(a[1][k], b[1][k])
+                                           for k in "hcnm")
+
+
+@pytest.mark.parametrize("b,s,h,hd", SLSTM_SHAPES)
+def test_slstm_scan_matches_plain(cuda, b, s, h, hd):
+    xp, wr, st = _slstm_inputs(np.random.default_rng(s + hd), b, s, h, hd,
+                               cuda)
+    want_h, want_st = ref.slstm_scan_ref(xp, wr, st)
+    before = k8.slstm_scan.launches
+    got = ops.slstm_scan(xp, wr, st)
+    assert k8.slstm_scan.launches == before + 1
+    assert got[0].shape == (b, s, h, hd) and got[0].dtype == torch.float32
+    torch.testing.assert_close(got[0], want_h, rtol=1e-4, atol=1e-4)
+    for k in "hcnm":
+        torch.testing.assert_close(got[1][k], want_st[k], rtol=1e-4,
+                                   atol=1e-4)
+    assert _same(got, ops.slstm_scan(xp, wr, st))        # two launches
+
+
+@pytest.mark.parametrize("hd", [16, 192])
+def test_slstm_scan_bitwise_invariants(cuda, hd):
+    """A row's result does not depend on B, bt or the other rows; one
+    launch over S equals two with the state carried."""
+    b, s, h = 5, 40, 2
+    xp, wr, st = _slstm_inputs(np.random.default_rng(hd), b, s, h, hd, cuda)
+    whole = k8.slstm_scan(xp, wr, st)
+    for bt in (1, 3, 8):
+        assert _same(k8.slstm_scan(xp, wr, st, bt=bt), whole), bt
+    for i in (0, 3):
+        solo = k8.slstm_scan(xp[i:i + 1].contiguous(), wr,
+                             {k: v[i:i + 1].contiguous()
+                              for k, v in st.items()})
+        assert _same(solo, (whole[0][i:i + 1],
+                            {k: v[i:i + 1] for k, v in whole[1].items()}))
+    for cut in (1, 17):
+        h1, st1 = k8.slstm_scan(xp[:, :cut].contiguous(), wr, st)
+        h2, st2 = k8.slstm_scan(xp[:, cut:].contiguous(), wr, st1)
+        assert _same((torch.cat([h1, h2], dim=1), st2), whole), cut
+
+
+def test_slstm_scan_refuses_what_it_does_not_take(cuda):
+    xp, wr, st = _slstm_inputs(np.random.default_rng(0), 1, 3, 1, 8, cuda)
+    with pytest.raises(ValueError, match="forward only"):
+        k8.slstm_scan(xp.clone().requires_grad_(True), wr, st)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        k8.slstm_scan(xp.cpu(), wr.cpu(), {k: v.cpu() for k, v in st.items()})
+    with pytest.raises(TypeError, match="float32"):
+        k8.slstm_scan(xp.double(), wr, st)
+    with pytest.raises(ValueError, match="head_dim"):
+        z = torch.zeros(1, 3, 4 * 260, device=cuda)
+        k8.slstm_scan(z, torch.zeros(1, 260, 1040, device=cuda),
+                      {k: torch.zeros(1, 1, 260, device=cuda)
+                       for k in "hcnm"})
+
+
+def test_xlstm_forward_on_card_matches_cpu(cuda):
+    """The smoke xlstm-125m's cache-less forward and a prefill + decode,
+    fp32: K8 on the card against the plain loop on the CPU, one launch an
+    sLSTM layer."""
+    import dataclasses
+    cfg = dataclasses.replace(LMC.get_smoke_config("xlstm-125m"),
+                              compute_dtype="float32")
+    params = LMT.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (2, 70)).astype(np.int32))
+    want, _ = LMT.forward(params, cfg, toks)
+    dev_params = tree_map(lambda t: t.to(cuda), params)
+    n_slstm = cfg.n_layers // 2
+    before = k8.slstm_scan.launches
+    got, _ = LMT.forward(dev_params, cfg, toks.to(cuda))
+    assert k8.slstm_scan.launches == before + n_slstm
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    cache = LMT.init_cache(cfg, 2, 80, device=cuda)
+    _, cache = LMT.prefill(dev_params, cfg, toks[:, :69].to(cuda), cache)
+    step, _ = LMT.decode_step(dev_params, cfg, toks[:, 69].to(cuda),
+                              torch.full((2,), 69, device=cuda), cache)
+    assert k8.slstm_scan.launches == before + 3 * n_slstm
+    torch.testing.assert_close(step.cpu(), want[:, 69], rtol=2e-3,
+                               atol=2e-3)

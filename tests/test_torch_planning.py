@@ -151,7 +151,9 @@ def test_port_imports_no_jax():
         "        'repro_torch.configs.mistral_nemo_12b',\n"
         "        'repro_torch.models.transformer',\n"
         "        'repro_torch.serve.engine', 'repro_torch.launch.serve',\n"
-        "        'repro_torch.kernels.flash_attention'}\n"
+        "        'repro_torch.kernels.flash_attention',\n"
+        "        'repro_torch.kernels.slstm_scan',\n"
+        "        'repro_torch.models.xlstm'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
