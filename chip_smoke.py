@@ -7,9 +7,14 @@ Phases, each of which passes or ends the run with a non-zero exit:
 1. environment: the card's name and power limit (nvidia-smi), the torch
    and CUDA versions, and the build of the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
+   the run fails unless the SASS of K7's bf16 kernel (cuobjdump) holds
+   HGMMA (wgmma) and UTMALDG (TMA load) instructions, whose counts it
+   prints;
 2. every kernel against its plain PyTorch version on the card over a
-   sweep of shapes (rtol/atol 1e-5; K5 and K6 bitwise; K7 fp32 rtol = atol
-   2e-5, bf16 1e-2; K8 rtol = atol 1e-4 over hd 8/16/64/192, H 1/2/4,
+   sweep of shapes (rtol/atol 1e-5; K3 over a hub, K5 and K6 bitwise; K7
+   fp32 rtol = atol 2e-5, bf16 1e-2 and each row's rms difference within
+   2e-2 of the row's rms; K8 rtol = atol 1e-4 over hd
+   8/16/64/192, H 1/2/4,
    B 1/3/8, S 1/7/256/4096 from a random state), and two launches bitwise
    equal; for K8 also a row alone == the row in its batch at any ``bt``,
    and one launch over S == two with the state carried, bitwise;
@@ -23,9 +28,11 @@ Phases, each of which passes or ends the run with a non-zero exit:
    and the plain-version aggregations at rtol/atol 1e-5;
 4. the serving launcher at a small scale;
 5. K1–K3 timings at the serving shapes (CUDA events), beside the plain
-   versions, one PyTorch library call and the memory-rate bound; each
-   kernel held against its plain version on every ring group of those
-   shapes at rtol/atol 1e-5;
+   versions, one PyTorch library call and the memory-rate bound; K1 and
+   K2 held against their plain versions on every ring group of those
+   shapes at rtol/atol 1e-5, K3 bitwise; each group's longest segment
+   and K3's longest serial walk after its hub chunks, and K3 timed with
+   the hubs cut at other chunk lengths;
 6. full-graph training at full width: GCN (hidden 16, 2 layers) on the
    same graph with ``graph_features`` data, ``ps=16, dist=2``, 8 virtual
    shards, 10 AdamW steps on the kernels with the launch counts read
@@ -63,14 +70,18 @@ Phases, each of which passes or ends the run with a non-zero exit:
    (``train_4k``'s length) with ``use_flash_attention`` (K7, one launch a
    layer, counted) against the chunked path: in fp32 compute the logits
    agree within rtol 2e-4, atol 2e-4 * max|logits|; in the configs' bf16
-   compute the largest difference and the share of equal argmaxes are
-   printed; both forwards timed (CUDA events), the flag-on one profiled,
+   compute the flag-on logits' rms error against the fp32 logits is at
+   most 1.5 times the flag-off logits', and the largest difference and
+   the share of equal argmaxes are printed; both forwards timed (CUDA events), the flag-on one profiled,
    and K7 timed at its shapes beside its plain version,
    ``scaled_dot_product_attention`` and its bound.  (b) ``prefill`` of
    512 tokens then ``decode_step`` against the forward of 513, fp32,
    within 2e-3.  (c) Serving: in fp32 compute, batched tokens equal solo
-   tokens up to a step whose top-2 margin is under 1e-3 * max|logit|;
-   then the serving launcher at its defaults (8 requests, 32 new tokens,
+   tokens up to a step whose top-2 margin is under 1e-3 * max|logit|,
+   and each request's batched logits equal its solo logits within rtol
+   1e-4, atol 1e-4 * max|logit| at every step up to and including the
+   first where the tokens part (all 32 when they never do); then the
+   serving launcher at its defaults (8 requests, 32 new tokens,
    4 slots) with its own parameters, every request answered with 32
    tokens, tokens/s, prefill and decode-step times;
 12. xlstm inference at full width, after phase 11's state is freed:
@@ -85,7 +96,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
    (b) ``prefill`` of 512 tokens then ``decode_step`` against the forward
    of 513, fp32, within 2e-3, and one decode step at the launcher's
    serving shape (4 slots, bf16) timed and profiled.  (c) In fp32 compute,
-   batched tokens equal solo tokens under phase 11's top-2 margin rule;
+   batched tokens equal solo tokens under phase 11's top-2 margin rule,
+   and batched logits equal solo logits step by step as in phase 11;
    then the serving launcher at its defaults with ``--arch xlstm-125m``,
    K8 launches counted, every request answered with 32 tokens, tokens/s,
    prefill and decode-step times.
@@ -96,6 +108,7 @@ repository beside it, the script exits non-zero and prints no result.
 """
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -175,6 +188,10 @@ FLASH_REF_CASES = [(2, 64, 4, 4, True, 0), (1, 128, 8, 2, True, 0),
 # phase 12: xlstm-125m, B x S = 2 x 4096 (train_4k's length)
 XL_ARCH, XL_B, XL_S, XL_PREFIX = "xlstm-125m", 2, 4096, 512
 SLSTM_TOL = 1e-4    # K8 against its plain version, rtol = atol
+LOGIT_TOL = 1e-4    # batched against solo logits, each step (fp32)
+# phase 11 (a), bf16: the flag-on forward's rms error against the fp32
+# logits, at most this times the flag-off (chunked) forward's
+BF16_RMS_RATIO = 1.5
 # K8 sweep: head_dim, heads, batch rows, steps (each combination)
 SLSTM_SWEEP = ((8, 16, 64, 192), (1, 2, 4), (1, 3, 8), (1, 7, 256, 4096))
 
@@ -240,11 +257,15 @@ def main():
     check(flops is not None, f"no flop rate on record for {name}")
     t0 = time.perf_counter()
     _build.build_all()
+    build_s = time.perf_counter() - t0
+    sass, n_fn = flash_tc_sass(_build)
+    check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
+          f"K7's bf16 kernel holds no wgmma or no TMA load: {sass}")
     say("environment", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, device=name,
-        kernel_build_s=round(time.perf_counter() - t0, 3),
-        nvcc_s=_build.build_seconds, peak_bytes_per_s=rate,
-        peak_flops=flops)
+        kernel_build_s=round(build_s, 3), nvcc_s=_build.build_seconds,
+        peak_bytes_per_s=rate, peak_flops=flops,
+        flash_bf16_sass=dict(functions=n_fn, **sass))
 
     # -- 2. kernels against their plain versions ---------------------------
     gen = np.random.default_rng(0)
@@ -282,11 +303,14 @@ def main():
             np.float32)).to(dev)
         out0 = torch.from_numpy(gen.normal(size=(rows, d)).astype(
             np.float32)).to(dev)
-        segs = (grp.order, grp.seg_rows, grp.seg_start)
+        check(grp.chunks is not None, "the Zipf targets hold no hub")
+        segs = (grp.order, grp.seg_rows, grp.seg_start, grp.chunks)
         want = ref.segment_add_ordered_ref(out0.clone(), partial, *segs)
         got = ops.segment_add_ordered(out0.clone(), partial, *segs)
         again = ops.segment_add_ordered(out0.clone(), partial, *segs)
         worst = max(worst, held(got, want, f"segment add D={d}"))
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"segment add D={d} not bitwise its plain version")
         check(torch.equal(got, again), f"segment add not bitwise D={d}")
         n_cases += 1
     for d in (1, 16, 100, 130):          # K4: the gather-sum's backward
@@ -353,14 +377,16 @@ def main():
                           f"sparse gather-sum D={d} k={k} {id_dtype} P={p}"
                           " not bitwise its plain version")
                     n_cases += 1
-    flash_cases, flash_err = sweep_flash(torch, ops, ref, dev, gen)
+    flash_cases, flash_err, flash_row = sweep_flash(torch, ops, ref, dev, gen)
     n_cases += flash_cases
     slstm_cases, slstm_err = sweep_slstm(torch, ops, ref, K, dev, gen)
     n_cases += slstm_cases
     say("kernels_vs_plain", cases=n_cases, max_abs_err=worst,
         tolerance="rtol 1e-5 atol 1e-5 (K5, K6: bitwise)",
         flash_cases=flash_cases, flash_max_abs_err=flash_err,
-        flash_tolerance="fp32 rtol 2e-5 atol 2e-5, bf16 rtol 1e-2 atol 1e-2",
+        flash_bf16_max_row_rms_ratio=flash_row,
+        flash_tolerance="fp32 rtol 2e-5 atol 2e-5, bf16 rtol 1e-2 atol 1e-2 "
+                        f"and each row's rms within {FLASH_ROW_RTOL}",
         slstm_cases=slstm_cases, slstm_max_abs_err=slstm_err,
         slstm_tolerance=f"rtol {SLSTM_TOL} atol {SLSTM_TOL}",
         slstm_bitwise=["row alone == row in its batch at bt 1, 3, 8",
@@ -523,6 +549,22 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def flash_tc_sass(_build):
+    """Counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions in the
+    SASS of K7's bf16 kernel (every ``flash_tc_kernel`` instance of the
+    built library, by cuobjdump), and the number of instances."""
+    out = subprocess.run(
+        [_build.toolkit_binary("cuobjdump"), "-sass",
+         str(_build.library_path("flash_attention"))],
+        capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    fns = [f for f in out.stdout.split("Function : ")[1:]
+           if "flash_tc_kernel" in f.split("\n", 1)[0]]
+    check(fns, "no flash_tc_kernel in flash_attention's SASS")
+    return {op: sum(f.count(op) for f in fns)
+            for op in ("HGMMA", "UTMALDG")}, len(fns)
+
+
 def _time(torch, fn, reps=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -568,11 +610,30 @@ def profile_pass(torch, fn, reps=3):
                 device_ms_by_kernel=dict(top))
 
 
+def segment_walks(grp):
+    """A group's longest segment and the longest serial walk of K3's
+    threads after chunking: the longest chunk (pass 1) plus the longest
+    run of pass 2 (a short segment's partials or a hub's chunk sums)."""
+    lens = np.diff(grp.seg_start.cpu().numpy())
+    if lens.size == 0:
+        return 0, 0
+    ch = grp.chunks
+    if ch is None:
+        return int(lens.max()), int(lens.max())
+    short = np.ones(lens.size, bool)
+    short[ch.hubs.cpu().numpy()] = False
+    pass1 = int((ch.chunk_end - ch.chunk_start).max())
+    pass2 = max(int(lens[short].max(initial=0)),
+                int(np.diff(ch.hub_chunks.cpu().numpy()).max()))
+    return int(lens.max()), pass1 + pass2
+
+
 def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
     """Time one aggregation's worth of each kernel (every group of the
     products plan: 7 remote ring steps + 7 interleaved local slices, D=16,
     the width both GCN layers aggregate at) with its real layer-0 input."""
     import torch.nn.functional as F
+    from repro_torch.kernels.ops import SEG_CHUNK, SegmentChunks
 
     with torch.inference_mode():
         dinv = torch.rsqrt(eng.deg)[:, None]
@@ -622,15 +683,17 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
 
         outs = [out0.clone() for _ in groups]
 
-        def k3():
-            for o, p, (_, g) in zip(outs, partials, groups):
+        def k3(chunks=None):
+            for o, p, (_, g), ch in zip(outs, partials, groups,
+                                        chunks or [g.chunks
+                                                   for _, g in groups]):
                 neighbor_agg.segment_add_ordered(o, p, g.order, g.seg_rows,
-                                                 g.seg_start)
+                                                 g.seg_start, ch)
 
         def plain_seg():
             for o, p, (_, g) in zip(outs, partials, groups):
                 ref.segment_add_ordered_ref(o, p, g.order, g.seg_rows,
-                                            g.seg_start)
+                                            g.seg_start, g.chunks)
 
         def lib_seg():
             for o, s, t in zip(outs, srt, tgt):
@@ -646,12 +709,24 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
                           ref.neighbor_gather_sum_ref(b, g.nbrs, g.mask),
                           "gather_sum_blocked at the main path's shapes")
                      for b, g in groups)
-        err_k3 = max(held(neighbor_agg.segment_add_ordered(
-            out0.clone(), p, g.order, g.seg_rows, g.seg_start),
-            ref.segment_add_ordered_ref(out0.clone(), p, g.order,
-                                        g.seg_rows, g.seg_start),
-            "segment_add_ordered at the main path's shapes")
-            for p, (_, g) in zip(partials, groups))
+        # K3 bitwise its plain version on every group, hub chunks and all;
+        # the error and the bitwise flag are read from these comparisons
+        err_k3, bitwise_k3 = 0.0, True
+        for i, (p, (_, g)) in enumerate(zip(partials, groups)):
+            segs = (g.order, g.seg_rows, g.seg_start, g.chunks)
+            got = neighbor_agg.segment_add_ordered(out0.clone(), p, *segs)
+            want = ref.segment_add_ordered_ref(out0.clone(), p, *segs)
+            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            err_k3 = max(err_k3, (got - want).abs().max().item())
+            bitwise_k3 = bitwise_k3 and same
+            check(same, f"segment_add_ordered, group {i} of the main path: "
+                  "not bitwise its plain version")
+        walks = [segment_walks(g) for _, g in groups]
+        # the chunk length on the card: K3's time with each group's hubs
+        # cut at other lengths (the index is a function of seg_start)
+        alt = {c: [SegmentChunks.build(g.seg_start.cpu().numpy(), h.device,
+                                       chunk=c) for _, g in groups]
+               for c in (32, 128, 256)}
 
         # plain and library calls around the kernels: plain, kernel,
         # kernel, plain in one process on one card
@@ -661,6 +736,9 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
         t_lib_g = _time(torch, lib_gather)
         t_k3 = _time(torch, k3)
         t_lib_s = _time(torch, lib_seg)
+        t_k3_by_chunk = {c: _time(torch, lambda ch=ch: k3(ch))
+                         for c, ch in alt.items()}
+        t_k3_by_chunk[SEG_CHUNK] = t_k3
         t_plain_s = _time(torch, plain_seg, reps=2, warmup=1)
 
     def row(name, ms, plain_ms, lib_ms, lib, nbytes, err):
@@ -675,8 +753,14 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
                 "embedding_bag", gather_bytes, err_k1),
             row("gather_sum_blocked", t_k2, t_plain_g, t_lib_g,
                 "embedding_bag", gather_bytes, err_k2),
-            row("segment_add_ordered", t_k3, t_plain_s, t_lib_s,
-                "index_add_", seg_bytes, err_k3)]
+            dict(row("segment_add_ordered", t_k3, t_plain_s, t_lib_s,
+                     "index_add_", seg_bytes, err_k3),
+                 bitwise_plain=bitwise_k3, chunk_len=SEG_CHUNK,
+                 ms_by_chunk_len=dict(sorted(t_k3_by_chunk.items())),
+                 hub_chunks=sum(g.chunks.num_chunks for _, g in groups
+                                if g.chunks is not None),
+                 longest_segment_by_group=[w[0] for w in walks],
+                 longest_walk_by_group=[w[1] for w in walks])]
 
 
 # ---------------------------------------------------------------------------
@@ -1351,6 +1435,35 @@ def _flash_tol(torch, dtype):
     return 2e-5 if dtype == torch.float32 else 1e-2
 
 
+# bf16 K7 is also held a (b, s, h) row at a time: the rms of the row's
+# difference within FLASH_ROW_RTOL of the rms of the plain row.  The flat
+# atol of 1e-2 is a third of a typical output on a long causal row (|o| ~
+# sqrt(e / keys)); this bound scales with each row.  The kernel's two bf16
+# roundings (P before P.V, and the output) are relative and leave well
+# under 1 % of a row's rms; a masked key or a dropped 64-key tile moves a
+# row by far more.
+FLASH_ROW_RTOL = 2e-2
+
+
+def _flash_held(torch, got, want, dtype, what):
+    """K7's output held to its plain version: elementwise within
+    :func:`_flash_tol`, and in bf16 every row within ``FLASH_ROW_RTOL`` of
+    its own rms.  Returns (largest absolute difference, largest row rms of
+    the difference over the row's rms; 0 in fp32)."""
+    tol = _flash_tol(torch, dtype)
+    g, w = got.float(), want.float()
+    check(got.dtype == dtype and got.shape == want.shape
+          and torch.allclose(g, w, rtol=tol, atol=tol),
+          f"{what}: disagrees with its plain version")
+    row = 0.0
+    if dtype == torch.bfloat16:
+        ratio = ((g - w).pow(2).mean(-1) / w.pow(2).mean(-1)).sqrt()
+        row = ratio.max().item()
+        check(row <= FLASH_ROW_RTOL, f"{what}: a row's rms difference is "
+              f"{row:.4f} of its rms (bound {FLASH_ROW_RTOL})")
+    return (g - w).abs().max().item(), row
+
+
 def sweep_flash(torch, ops, ref, dev, gen):
     """Phase 2's K7 sweep against its plain version, fp32 and bf16: the
     reference's five cases at each head_dim K7 takes, GQA groups 1, 4 and
@@ -1367,7 +1480,7 @@ def sweep_flash(torch, ops, ref, dev, gen):
         shapes += [(2, 1000, 4, 2, hd, True, 16),
                    (1, 1000, 4, 1, hd, False, 0)]
     shapes.append((1, 8192, 8, 2, 128, True, 4096))
-    worst, n = 0.0, 0
+    worst, worst_row, n = 0.0, 0.0, 0
     for b, s, h, kv, hd, causal, window in shapes:
         q, k, v = (torch.from_numpy(gen.normal(size=(b, s, m, hd)).astype(
             np.float32)).to(dev) for m in (h, kv, kv))
@@ -1376,17 +1489,13 @@ def sweep_flash(torch, ops, ref, dev, gen):
             want = ref.flash_attention(*args, causal=causal, window=window)
             got = ops.flash_attention(*args, causal=causal, window=window)
             again = ops.flash_attention(*args, causal=causal, window=window)
-            tol = _flash_tol(torch, dtype)
             what = (f"flash attention B={b} S={s} H={h} KV={kv} hd={hd} "
                     f"causal={causal} window={window} {dtype}")
-            check(got.dtype == dtype and got.shape == want.shape
-                  and torch.allclose(got.float(), want.float(), rtol=tol,
-                                     atol=tol),
-                  f"{what}: disagrees with its plain version")
+            err, row = _flash_held(torch, got, want, dtype, what)
             check(torch.equal(got, again), f"{what}: not bitwise stable")
-            worst = max(worst, (got.float() - want.float()).abs().max().item())
+            worst, worst_row = max(worst, err), max(worst_row, row)
             n += 1
-    return n, worst
+    return n, worst, worst_row
 
 
 def _held_logits(torch, got, want, rtol, what):
@@ -1452,6 +1561,7 @@ def lm_inference(torch, K, dev, rate, flops, launches):
         err32 = _held_logits(torch, logits[True], logits[False], 2e-4,
                              "fp32 forward, flash on against off")
         max32 = logits[False].abs().max().item()
+        ref32 = logits[False].cpu()     # the bf16 forwards' reference
         del logits
         logits = {}
         for on in (True, False):
@@ -1466,6 +1576,16 @@ def lm_inference(torch, K, dev, rate, flops, launches):
               "bf16 logits not finite")
         diff16 = max((a - b_).abs().max().item()
                      for a, b_ in zip(logits[True], logits[False]))
+        # each bf16 forward's rms error against the fp32 logits: K7 may add
+        # no more bf16 error than the chunked path has of its own
+        rms16 = {on: math.sqrt(sum(
+            (lg.float() - r.to(dev)).pow(2).sum().item()
+            for lg, r in zip(logits[on], ref32)) / ref32.numel())
+            for on in (True, False)}
+        del ref32
+        check(rms16[True] <= BF16_RMS_RATIO * rms16[False],
+              f"bf16 forward: K7's rms error against fp32 {rms16[True]} is "
+              f"over {BF16_RMS_RATIO} x the chunked path's {rms16[False]}")
         same_argmax = float(sum(
             (a.argmax(-1) == b_.argmax(-1)).sum().item()
             for a, b_ in zip(logits[True], logits[False])) / (b * s))
@@ -1485,6 +1605,8 @@ def lm_inference(torch, K, dev, rate, flops, launches):
         fp32_max_abs_logit=max32,
         fp32_tolerance="rtol 2e-4, atol 2e-4 * max|logits|",
         bf16_max_abs_diff=diff16, bf16_same_argmax_share=same_argmax,
+        bf16_rms_err_vs_fp32={"flash": rms16[True], "chunked": rms16[False]},
+        bf16_tolerance=f"flash rms error <= {BF16_RMS_RATIO} x chunked",
         flash_launches_per_forward={f"{dt}_{'on' if on else 'off'}": n
                                     for (dt, on), n in counts.items()},
         forward_ms=fwd_ms, **breakdown)
@@ -1556,38 +1678,52 @@ def lm_inference(torch, K, dev, rate, flops, launches):
 
 
 def batched_vs_solo(ServeEngine, params, cfg):
-    """Phase 11 (c): the launcher's 8 prompts through 4 slots, batched,
-    against each prompt run alone, in ``cfg``'s (fp32) compute.  Tokens
-    are compared up to the first step whose top-2 logit margin in the solo
-    run is under 1e-3 * max|logit|, where the two may rightly part."""
+    """Phases 11 (c) and 12 (c): the launcher's 8 prompts through 4 slots,
+    batched, against each prompt run alone, in ``cfg``'s (fp32) compute.
+    Tokens are compared up to the first step whose top-2 logit margin in
+    the solo run is under 1e-3 * max|logit|, where the two may rightly
+    part.  Logits are compared at every step up to and including the first
+    step where the tokens part (after it the two runs feed other inputs),
+    all 32 when they never part, within rtol LOGIT_TOL and atol LOGIT_TOL
+    * max|logit| of the solo run's compared steps: cuBLAS's products
+    differ by batch size, so not bitwise."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab, size=rng.integers(4, 17))
                .astype(np.int32) for _ in range(8)]
     eng = ServeEngine(params, cfg, batch_slots=4, max_seq=512)
-    batched = eng.generate(prompts, max_new=32)
-    sample = eng._sample
-    agree, stops = [], []
+    batched = eng.generate(prompts, max_new=32, keep_logits=True)
+    agree, stops, steps, diffs = [], [], [], []
     for i, p in enumerate(prompts):
-        margins = []
-
-        def recording(lg, temperature, r):
-            top2 = np.sort(lg[0])[-2:]          # slot 0: the solo request
-            margins.append((top2[1] - top2[0]) / np.abs(lg[0]).max())
-            return sample(lg, temperature, r)
-
-        eng._sample = recording
-        solo = eng.generate([p], max_new=32)[0]
-        check(len(solo.tokens) == 32 and len(batched[i].tokens) == 32,
-              f"request {i}: not 32 tokens")
-        n = next((j for j, m in enumerate(margins[:32]) if m < 1e-3), 32)
+        solo = eng.generate([p], max_new=32, keep_logits=True)[0]
+        b_lg, s_lg = batched[i].logits, solo.logits
+        check(len(solo.tokens) == 32 and len(batched[i].tokens) == 32
+              and b_lg.shape == s_lg.shape == (32, s_lg.shape[1]),
+              f"request {i}: not 32 tokens and their logits")
+        top2 = np.partition(s_lg, -2, axis=-1)[:, -2:]
+        margins = (np.abs(top2[:, 1] - top2[:, 0])
+                   / np.abs(s_lg).max(axis=-1))
+        n = next((j for j, m in enumerate(margins) if m < 1e-3), 32)
         if n < 32:
             stops.append(dict(request=i, step=n, margin=float(margins[n])))
         check(batched[i].tokens[:n] == solo.tokens[:n],
               f"request {i}: batched tokens differ from solo before step {n}")
         agree.append(n)
+        part = next((j for j in range(32)
+                     if batched[i].tokens[j] != solo.tokens[j]), 31)
+        scale = float(np.abs(s_lg[:part + 1]).max())
+        diff = float(np.abs(b_lg[:part + 1] - s_lg[:part + 1]).max())
+        check(np.allclose(b_lg[:part + 1], s_lg[:part + 1], rtol=LOGIT_TOL,
+                          atol=LOGIT_TOL * scale),
+              f"request {i}: batched logits differ from solo by {diff} "
+              f"(max|logit| {scale}) within the first {part + 1} steps")
+        steps.append(part + 1)
+        diffs.append(diff)
     return dict(requests=len(prompts), compute=cfg.compute_dtype,
                 tokens_compared=agree, stopped_at_small_margin=stops,
-                margin_rule="top-2 margin < 1e-3 * max|logit|")
+                margin_rule="top-2 margin < 1e-3 * max|logit|",
+                logit_steps_compared=steps, logit_max_abs_diff=diffs,
+                logit_tolerance=f"rtol {LOGIT_TOL}, atol {LOGIT_TOL} * "
+                                "max|logit|")
 
 
 def time_flash(torch, K, dev, cfg, rate, flops):
@@ -1609,11 +1745,9 @@ def time_flash(torch, K, dev, cfg, rate, flops):
             q, k, v = (t.to(dtype) for t in base)
             got = K.flash_attention.flash_attention(q, k, v, causal=True)
             want = K.ref.flash_attention(q, k, v, causal=True)
-            tol = _flash_tol(torch, dtype)
-            check(torch.allclose(got.float(), want.float(), rtol=tol,
-                                 atol=tol),
-                  f"flash_attention at the LM's shapes ({dtype}) != plain")
-            err = (got.float() - want.float()).abs().max().item()
+            err, row = _flash_held(torch, got, want, dtype,
+                                   f"flash_attention at the LM's shapes "
+                                   f"({dtype})")
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             t_plain = _time(torch, lambda: K.ref.flash_attention(
                 q, k, v, causal=True), reps=2, warmup=1)
@@ -1630,14 +1764,16 @@ def time_flash(torch, K, dev, cfg, rate, flops):
                 ms=t_k7, plain_ms=t_plain, library_ms=t_lib,
                 bound_ms=max(t_flops, t_bytes),
                 bound_by="operations" if t_flops >= t_bytes else "bytes",
-                max_abs_err=err, flops=n_flops, bytes=nbytes,
+                max_abs_err=err, max_row_rms_ratio=row, flops=n_flops,
+                bytes=nbytes,
                 peak_flops=flops[name])
             del got, want, q, k, v, qt, kt, vt
     main = out["bfloat16"]
     return dict(name="flash_attention", route="cuda",
                 source=SOURCE["flash_attention"],
                 replaces=REPLACES["flash_attention"],
-                max_abs_err=main["max_abs_err"], ms=main["ms"],
+                max_abs_err=main["max_abs_err"],
+                max_row_rms_ratio=main["max_row_rms_ratio"], ms=main["ms"],
                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                 bound_by=main["bound_by"], library_ms=main["library_ms"],
                 library="scaled_dot_product_attention(is_causal, enable_gqa)",

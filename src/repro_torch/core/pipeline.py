@@ -15,7 +15,8 @@ and ONE ordered segment add over every shard's partitions at once: the
 host flattens the per-shard plan arrays, offset into the stacked buffers,
 when the plan is bound (:func:`plan_device_arrays`).  That is also where
 each step's segment order is built (a stable argsort of its targets plus
-segment offsets), so the hot path never sorts.  The reference pads every
+segment offsets, and its hub segments cut into fixed-order chunks), so
+the hot path never sorts.  The reference pads every
 shard and step to one partition count for SPMD; the flattened arrays drop
 those all-masked partitions, which only ever added zero rows.
 
@@ -52,7 +53,7 @@ import torch
 
 from ..dist.ring import VirtualRing
 from ..kernels import ops, ref
-from ..kernels.ops import GradIndex
+from ..kernels.ops import GradIndex, SegmentChunks
 from .placement import AggregationPlan
 
 __all__ = ["WorkGroup", "RingArrays", "plan_device_arrays", "mgg_aggregate",
@@ -109,9 +110,11 @@ class WorkGroup:
 
     ``nbrs`` index rows of the flat buffer the group gathers from (the
     stacked ring tiles or the whole table); ``order``/``seg_rows``/
-    ``seg_start`` drive the ordered segment add into the flat output;
-    ``grad`` is the transposed index whose K4 scatter-sum carries the
-    output's gradient back to the rows gathered from.
+    ``seg_start`` drive the ordered segment add into the flat output, and
+    ``chunks`` cuts its hub segments into fixed-order chunks (None when no
+    segment is longer than ``ops.SEG_CHUNK``); ``grad`` is the transposed
+    index whose K4 scatter-sum carries the output's gradient back to the
+    rows gathered from.
     """
 
     nbrs: torch.Tensor       # (P, ps) int32
@@ -119,6 +122,7 @@ class WorkGroup:
     order: torch.Tensor      # (P,) int32: partitions sorted stably by target
     seg_rows: torch.Tensor   # (S,) int32: distinct target rows, ascending
     seg_start: torch.Tensor  # (S + 1,) int32: segment offsets into order
+    chunks: Optional[SegmentChunks]  # hub segments cut into chunks
     grad: GradIndex          # masked slots by neighbor row → target rows
 
     @property
@@ -140,6 +144,7 @@ class WorkGroup:
         return WorkGroup(nbrs=t(nbrs), mask=t(mask, torch.bool),
                          order=t(order), seg_rows=t(seg_rows),
                          seg_start=t(seg_start),
+                         chunks=SegmentChunks.build(seg_start, device),
                          grad=GradIndex.build(nbrs, mask, targets, device))
 
 
@@ -198,7 +203,7 @@ def _gather_sum(buf, grp: WorkGroup, use_kernel: bool,
 
 def _segment_add(out, partial, grp: WorkGroup, use_kernel: bool) -> None:
     fn = ops.segment_add_ordered if use_kernel else ref.segment_add_ordered_ref
-    fn(out, partial, grp.order, grp.seg_rows, grp.seg_start)
+    fn(out, partial, grp.order, grp.seg_rows, grp.seg_start, grp.chunks)
 
 
 def _scatter_sum(dbuf, g, grp: WorkGroup, use_kernel: bool) -> None:

@@ -20,7 +20,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["library", "build_all", "build_seconds", "BUILD_DIR"]
+__all__ = ["library", "library_path", "toolkit_binary", "build_all",
+           "build_seconds", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -73,8 +74,10 @@ _SIGNATURES = {
     "mgg_gather_sum_pipelined": [_P, _P, _P, _P, _L, _I, _I, _P],
     # buf, nbrs, mask, out, P, ps, D, pb, stream
     "mgg_gather_sum_blocked": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
-    # out, partial, order, seg_rows, seg_start, n_seg, D, stream
-    "mgg_segment_add_ordered": [_P, _P, _P, _P, _P, _L, _I, _P],
+    # out, partial, order, seg_rows, seg_start, n_seg, D, hubs, hub_chunks,
+    # n_hubs, chunk_start, chunk_end, n_chunks, chunk_len, sums, stream
+    "mgg_segment_add_ordered": [_P, _P, _P, _P, _P, _L, _I, _P, _P, _L, _P,
+                                _P, _L, _I, _P, _P],
     # dbuf, g, src, seg_rows, seg_start, n_seg, chunk_start, row_chunks,
     # chunk_sums, n_chunks, D, stream
     "mgg_scatter_sum_ordered": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _L, _I,
@@ -101,6 +104,16 @@ def library(name: str = "gather_sum") -> ctypes.CDLL:
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def library_path(name: str) -> Path:
+    """The shared library built from ``csrc/<name>.cu`` (built if need be)."""
+    return _compile(CSRC / f"{name}.cu")
+
+
+def toolkit_binary(name: str) -> str:
+    """A binary of the CUDA toolkit beside nvcc (``cuobjdump``, ...)."""
+    return os.path.join(os.path.dirname(_nvcc()), name)
 
 
 def build_all() -> list:

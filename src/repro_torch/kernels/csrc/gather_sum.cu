@@ -39,13 +39,20 @@
 // K3's design: targets are sorted only up to their padding, and a row with
 // degree > ps owns several partitions, so a plain scatter-add needs atomics
 // and its bits change from run to run.  The host builds, once per plan, a
-// stable argsort of each target array plus segment offsets; here one thread
-// owns one (destination row, column) and adds that row's partials in
-// partition order.  One owner per output word: deterministic, no atomics.
-// It moves (P * D * 4 + P * 4 + S * 8 + 2 * S * D * 4) bytes for P partials
-// into S rows; its time is set by the longest segment (a hub row), whose
-// loads it batches so that they are in flight together.
-//
+// stable argsort of each target array plus segment offsets; here a thread
+// owns one (destination row, group of V columns) and adds that row's
+// partials in partition order.  One owner per output word: deterministic,
+// no atomics.  It moves (P * D * 4 + P * 4 + S * 8 + 2 * S * D * 4) bytes
+// for P partials into S rows.  Two things set its time: the bytes, read as
+// 16-byte float4 (V = 4, four threads a 64-byte row at D = 16) wherever D
+// % 4 == 0; and the longest serial walk, a hub row's (8,123 partials in the
+// products serving plan).  So the host also cuts every segment longer than
+// a chunk length C (ops.SEG_CHUNK) into chunks of C partials: pass 1 sums
+// each hub chunk in partition order into a scratch row, pass 2 runs every
+// segment, a hub adding its chunk sums in chunk order, any other its
+// partials as without chunks (same bits, no scratch).  The longest walk
+// drops from L to C + ceil(L / C); the association is fixed by the index,
+// and the plain version takes the same two passes, bitwise.
 // K4 computes dbuf[r] += sum of g[src(k)] over the masked slots k whose
 // neighbor id is r: the transpose of K1/K2.  A CUDA scatter-add of the
 // slots would need atomics (and its bits would change from run to run), so
@@ -54,9 +61,9 @@
 // slot, the row of g it reads -- in the ring that is the slot's target row
 // tgt[p], composed on the host, so the backward never materialises the
 // per-partition gradient.  That is K3's problem with a gather index in
-// front, so K4 runs K3's kernel (generalised to read g[src[k]] where K3
-// reads partial[order[k]]; K3's bits are unchanged): one thread owns one
-// (row, column).  What bounds it: bytes, (G * D * 4 + K * 4 + S * 8 +
+// front, so K4 runs the ordered segment-sum kernel that K3 ran before it
+// took its own (ordered_segment_sum_kernel, reading g[src[k]]): one thread
+// owns one (row, column).  What bounds it: bytes, (G * D * 4 + K * 4 + S * 8 +
 // 2 * S * D * 4) for K masked slots reading G distinct rows of g into S
 // rows.  Its tail is the longest segment: a hub neighbor is named by
 // ~1e5 slots of one ring step, where K3's longest segment is ps times
@@ -76,7 +83,7 @@ namespace {
 
 constexpr int kThreads = 256;  // K1 / K3 block size
 constexpr int kVPT = 4;        // K1: columns per thread per column chunk
-constexpr int kSegBatch = 32;  // K3: partials loaded ahead of their adds
+constexpr int kSegBatch = 32;  // K3/K4: partial words loaded ahead of adds
 
 __device__ __forceinline__ void cp_async_4(float* smem_dst,
                                            const float* gmem_src) {
@@ -195,8 +202,8 @@ __global__ void gather_sum_blocked_kernel(const float* __restrict__ buf,
 }
 
 // out[seg_rows[s]] += sum over k in segment s of partial[order[k]], added in
-// k order (K3 and K4).  Without kRows the row is s, without kOrder the
-// partial is k (K4's two passes); K3 takes both, compiled as before.
+// k order (K4).  Without kRows the row is s, without kOrder the partial is
+// k (K4's two passes); K4's one pass takes both.
 template <bool kOrder, bool kRows>
 __global__ void ordered_segment_sum_kernel(float* __restrict__ out,
                                           const float* __restrict__ partial,
@@ -256,6 +263,151 @@ __global__ void ordered_segment_sum_kernel(float* __restrict__ out,
   *dst = acc;
 }
 
+// K3: V columns a thread, as one float4 where V = 4.
+template <int V>
+struct Cols;
+template <>
+struct Cols<1> {
+  using T = float;
+  static __device__ __forceinline__ T zero() { return 0.0f; }
+  static __device__ __forceinline__ void add(T& a, T b) { a += b; }
+};
+template <>
+struct Cols<4> {
+  using T = float4;
+  static __device__ __forceinline__ T zero() {
+    return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  static __device__ __forceinline__ void add(T& a, T b) {
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  }
+};
+
+// acc += src[id(k)] (columns c .. c + V - 1) for k = k0 .. k1 - 1 in k
+// order, id(k) = order[k] (or k without an order); the rows of a batch are
+// in flight together.
+template <int V, bool kOrder>
+__device__ __forceinline__ void add_rows(typename Cols<V>::T& acc,
+                                         const float* __restrict__ src,
+                                         const int* __restrict__ order,
+                                         int k0, int k1, int D, int c) {
+  using T = typename Cols<V>::T;
+  constexpr int kB = kSegBatch / V;
+  auto row = [&](int k) {
+    const long long id = kOrder ? order[k] : k;
+    return *reinterpret_cast<const T*>(src + static_cast<size_t>(id) * D + c);
+  };
+  int k = k0;
+  for (; k + kB <= k1; k += kB) {
+    T v[kB];
+#pragma unroll
+    for (int u = 0; u < kB; ++u) v[u] = row(k + u);
+#pragma unroll
+    for (int u = 0; u < kB; ++u) Cols<V>::add(acc, v[u]);
+  }
+  for (; k < k1; ++k) Cols<V>::add(acc, row(k));
+}
+
+// K3 pass 1: sums[ch] = sum of partial[order[k]] over chunk ch, from zero.
+template <int V>
+__global__ void segment_chunk_sum_kernel(float* __restrict__ sums,
+                                         const float* __restrict__ partial,
+                                         const int* __restrict__ order,
+                                         const int* __restrict__ chunk_start,
+                                         const int* __restrict__ chunk_end,
+                                         long long n_chunks, int D) {
+  const int nv = D / V;
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= n_chunks * nv) return;
+  const long long ch = t / nv;
+  const int c = static_cast<int>(t - ch * nv) * V;
+  typename Cols<V>::T acc = Cols<V>::zero();
+  add_rows<V, true>(acc, partial, order, chunk_start[ch], chunk_end[ch], D,
+                    c);
+  *reinterpret_cast<typename Cols<V>::T*>(sums + ch * D + c) = acc;
+}
+
+// K3 pass 2 (or the only pass): out[seg_rows[s]] += each partial of
+// segment s in order, or, for a hub (a segment longer than chunk_len found
+// in hubs), its chunk sums in chunk order.
+template <int V>
+__global__ void segment_add_kernel(float* __restrict__ out,
+                                   const float* __restrict__ partial,
+                                   const int* __restrict__ order,
+                                   const int* __restrict__ seg_rows,
+                                   const int* __restrict__ seg_start,
+                                   long long n_seg, int D,
+                                   const float* __restrict__ sums,
+                                   const int* __restrict__ hubs,
+                                   const int* __restrict__ hub_chunks,
+                                   int n_hubs, int chunk_len) {
+  using T = typename Cols<V>::T;
+  const int nv = D / V;
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= n_seg * nv) return;
+  const int s = static_cast<int>(t / nv);
+  const int c = static_cast<int>(t - static_cast<long long>(s) * nv) * V;
+  T* dst = reinterpret_cast<T*>(out + static_cast<size_t>(seg_rows[s]) * D +
+                                c);
+  T acc = *dst;
+  const int k0 = seg_start[s], k1 = seg_start[s + 1];
+  int hub = -1;
+  if (k1 - k0 > chunk_len && n_hubs > 0) {  // find s among the hubs
+    int lo = 0, hi = n_hubs;
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (hubs[mid] < s) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    if (lo < n_hubs && hubs[lo] == s) hub = lo;
+  }
+  if (hub >= 0) {
+    add_rows<V, false>(acc, sums, nullptr, hub_chunks[hub],
+                       hub_chunks[hub + 1], D, c);
+  } else {
+    add_rows<V, true>(acc, partial, order, k0, k1, D, c);
+  }
+  *dst = acc;
+}
+
+template <int V>
+int launch_segment_add(float* out, const float* partial, const int* order,
+                       const int* seg_rows, const int* seg_start,
+                       long long n_seg, int D, const int* hubs,
+                       const int* hub_chunks, long long n_hubs,
+                       const int* chunk_start, const int* chunk_end,
+                       long long n_chunks, int chunk_len, float* sums,
+                       cudaStream_t stream) {
+  const int nv = D / V;
+  if (n_chunks > 0) {
+    const long long work = n_chunks * nv;
+    segment_chunk_sum_kernel<V>
+        <<<static_cast<unsigned>((work + kThreads - 1) / kThreads), kThreads,
+           0, stream>>>(sums, partial, order, chunk_start, chunk_end,
+                        n_chunks, D);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long work = n_seg * nv;
+  segment_add_kernel<V>
+      <<<static_cast<unsigned>((work + kThreads - 1) / kThreads), kThreads, 0,
+         stream>>>(out, partial, order, seg_rows, seg_start, n_seg, D, sums,
+                   hubs, hub_chunks, static_cast<int>(n_hubs), chunk_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 template <bool kOrder, bool kRows>
 int launch_segments(float* out, const float* partial, const int* order,
                     const int* seg_rows, const int* seg_start, long long n_seg,
@@ -303,13 +455,28 @@ int mgg_gather_sum_blocked(const float* buf, const int* nbrs,
   return static_cast<int>(cudaGetLastError());
 }
 
+// hubs == nullptr (n_hubs = n_chunks = 0): one pass.  Otherwise sums
+// (n_chunks, D), scratch that pass 1 fills, receives each chunk's sum
+// (order[chunk_start[c]] .. order[chunk_end[c] - 1]), and hub hubs[h] adds
+// its chunks hub_chunks[h] .. hub_chunks[h + 1] - 1 in order.
 int mgg_segment_add_ordered(float* out, const float* partial, const int* order,
                             const int* seg_rows, const int* seg_start,
-                            long long n_seg, int D, void* stream) {
+                            long long n_seg, int D, const int* hubs,
+                            const int* hub_chunks, long long n_hubs,
+                            const int* chunk_start, const int* chunk_end,
+                            long long n_chunks, int chunk_len, float* sums,
+                            void* stream) {
   if (n_seg == 0 || D == 0) return static_cast<int>(cudaGetLastError());
-  return launch_segments<true, true>(out, partial, order, seg_rows, seg_start,
-                                    n_seg, D,
-                                    static_cast<cudaStream_t>(stream));
+  auto s = static_cast<cudaStream_t>(stream);
+  if (D % 4 == 0 && aligned16(out) && aligned16(partial) && aligned16(sums))
+    return launch_segment_add<4>(out, partial, order, seg_rows, seg_start,
+                                 n_seg, D, hubs, hub_chunks, n_hubs,
+                                 chunk_start, chunk_end, n_chunks, chunk_len,
+                                 sums, s);
+  return launch_segment_add<1>(out, partial, order, seg_rows, seg_start,
+                               n_seg, D, hubs, hub_chunks, n_hubs,
+                               chunk_start, chunk_end, n_chunks, chunk_len,
+                               sums, s);
 }
 
 // chunk_start == nullptr: one pass over the segments.  Otherwise two:

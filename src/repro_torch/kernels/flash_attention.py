@@ -4,7 +4,10 @@
 Counterpart of ``repro/kernels/flash_attention.py``: :func:`flash_attention`
 is K7, for ``flash_attention_call`` — causal and sliding-window softmax
 attention with GQA, forward only, in the model's ``(B, S, H, hd)`` layout
-(the kernel reads q, k and v through their strides: no transpose).  It
+(the kernel reads q, k and v through their strides: no transpose).  bf16
+runs on the tensor cores and reads q, k and v with TMA, which needs a
+16-byte-aligned base and (b, s, h) strides that are multiples of 16 bytes:
+anything else is refused, never copied.  fp32 runs on the CUDA cores.  It
 takes CUDA tensors only, checks them, allocates the output, launches on
 PyTorch's current stream, raises if the launch failed and adds one to its
 ``launches`` count.  A tensor that needs a gradient is refused: the kernel
@@ -25,6 +28,7 @@ __all__ = ["flash_attention", "HEAD_DIMS", "reset_launch_counts",
 # configs and their smoke() reductions that runs attention
 HEAD_DIMS = (16, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TMA_ALIGN = 16
 
 
 def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
@@ -40,6 +44,15 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
     if t.requires_grad:
         raise ValueError(f"{name} requires a gradient: the flash-attention "
                          "kernel is forward only")
+    if t.dtype == torch.bfloat16:     # TMA's addressing rules
+        if t.data_ptr() % _TMA_ALIGN:
+            raise ValueError(f"{name}'s base is not {_TMA_ALIGN}-byte "
+                             "aligned, which TMA needs")
+        if any(st <= 0 or st * t.element_size() % _TMA_ALIGN
+               for st in t.stride()[:3]):
+            raise ValueError(f"{name} has strides {t.stride()[:3]}: TMA "
+                             f"needs positive multiples of {_TMA_ALIGN} "
+                             "bytes")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

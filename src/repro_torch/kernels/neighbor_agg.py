@@ -7,7 +7,8 @@ Counterpart of ``repro/kernels/neighbor_agg.py``:
 * :func:`gather_sum_blocked` — K2, for ``gather_sum_blocked_call`` (the
   paper's warps-per-block knob ``pb``);
 * :func:`segment_add_ordered` — K3, the deterministic per-step scatter-add
-  (``out.at[tgt].add`` in the reference), which has no Pallas kernel;
+  (``out.at[tgt].add`` in the reference), which has no Pallas kernel; hub
+  rows take two passes over fixed-order chunks;
 * :func:`scatter_sum_ordered` — K4, the gather-sum's backward (the masked
   scatter-add of ``repro/kernels/ops.py::_gather_sum_bwd``), deterministic
   through a transposed index built on the host;
@@ -127,18 +128,38 @@ def _check_segments(out, vals, idx, seg_rows, seg_start, names):
 
 def segment_add_ordered(out: torch.Tensor, partial: torch.Tensor,
                         order: torch.Tensor, seg_rows: torch.Tensor,
-                        seg_start: torch.Tensor) -> torch.Tensor:
+                        seg_start: torch.Tensor, chunks=None) -> torch.Tensor:
     """K3, in place: ``out[seg_rows[s]] += Σ partial[order[k]]`` over
-    segment ``s``, in partition order — one owner per output word."""
+    segment ``s``, in partition order — one owner per output word; with
+    ``chunks`` (an ``ops.SegmentChunks``) a hub row adds its chunk sums in
+    chunk order, summed first into a scratch the wrapper allocates."""
     _check_segments(out, partial, order, seg_rows, seg_start,
                     ("out", "partial", "order"))
     if order.shape[0] != partial.shape[0]:
         raise ValueError(f"order {tuple(order.shape)} does not match "
                          f"partial {tuple(partial.shape)}")
+    dev, d = out.device, out.shape[1]
+    hubs = hub_chunks = start = end = sums = None
+    n_hubs = n_chunks = chunk_len = 0
+    if chunks is not None:
+        hubs, hub_chunks = chunks.hubs, chunks.hub_chunks
+        start, end = chunks.chunk_start, chunks.chunk_end
+        for name, t in (("hubs", hubs), ("hub_chunks", hub_chunks),
+                        ("chunk_start", start), ("chunk_end", end)):
+            _check(name, t, torch.int32, 1, dev)
+        if hub_chunks.shape[0] != hubs.shape[0] + 1 \
+                or end.shape != start.shape:
+            raise ValueError("hub_chunks must have one entry per hub and one "
+                             "more, chunk_end one per chunk_start")
+        n_hubs, n_chunks, chunk_len = hubs.shape[0], start.shape[0], \
+            chunks.chunk
+        sums = torch.empty((n_chunks, d), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     rc = _build.library().mgg_segment_add_ordered(
         out.data_ptr(), partial.data_ptr(), order.data_ptr(),
-        seg_rows.data_ptr(), seg_start.data_ptr(), seg_rows.shape[0],
-        out.shape[1], _stream(out.device))
+        seg_rows.data_ptr(), seg_start.data_ptr(), seg_rows.shape[0], d,
+        ptr(hubs), ptr(hub_chunks), n_hubs, ptr(start), ptr(end), n_chunks,
+        chunk_len, ptr(sums), _stream(dev))
     _raise_on(rc, "segment_add_ordered")
     segment_add_ordered.launches += 1
     return out

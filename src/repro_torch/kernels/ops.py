@@ -31,7 +31,8 @@ from . import flash_attention as _flash
 from . import neighbor_agg, ref, rows
 from . import slstm_scan as _slstm
 
-__all__ = ["GradIndex", "GRAD_CHUNK", "neighbor_gather_sum",
+__all__ = ["GradIndex", "GRAD_CHUNK", "SegmentChunks", "SEG_CHUNK",
+           "neighbor_gather_sum",
            "sparse_neighbor_gather_sum", "sparse_gather_sum_grad",
            "segment_add_ordered",
            "scatter_sum_ordered", "gather_rows", "flash_attention",
@@ -40,6 +41,11 @@ __all__ = ["GradIndex", "GRAD_CHUNK", "neighbor_gather_sum",
 # Longest run of slots one thread adds in a row: a longer segment (a hub
 # neighbor) is cut into chunks of this many slots, summed in two passes.
 GRAD_CHUNK = 256
+# The same for the ring's ordered segment add (K3): a target row with more
+# partials than this (a hub) has them summed in chunks of this many, then
+# the chunk sums in order.  Near the square root of the serving plan's
+# longest segment (8,123 partials), so both passes walk about as far.
+SEG_CHUNK = 64
 
 
 def _route(t: torch.Tensor, what: str = "gather-sum") -> str:
@@ -125,6 +131,57 @@ class GradIndex:
                 row_chunks=t(row_chunks))
         return GradIndex(src=t(src[order]), rows=t(seg_rows),
                          start=t(seg_start), **chunks)
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentChunks:
+    """The hub chunks of one ordered segment add (K3).
+
+    A segment (a target row's run in the stable order of the partitions)
+    longer than ``chunk`` partials is a hub; its run is cut into chunks of
+    ``chunk`` partials from its start, the last one shorter.  Pass 1 sums
+    each chunk's partials in partition order (from zero); pass 2 adds each
+    hub's chunk sums in chunk order onto its row, while every other
+    segment adds its partials in partition order, as without chunks.  The
+    association is a function of the index alone: the same bits on the
+    card and in the plain version, from run to run.
+    """
+
+    hubs: torch.Tensor         # (H,) int32: hub segment ids, ascending
+    hub_chunks: torch.Tensor   # (H + 1,) int32: each hub's chunks
+    chunk_start: torch.Tensor  # (C,) int32: offsets into the order
+    chunk_end: torch.Tensor    # (C,) int32
+    chunk: int
+
+    @property
+    def num_chunks(self) -> int:
+        return int(self.chunk_start.shape[0])
+
+    @staticmethod
+    def build(seg_start: np.ndarray, device="cpu",
+              chunk: int = SEG_CHUNK) -> Optional["SegmentChunks"]:
+        """The hub chunks of the segments ``seg_start`` delimits, or None
+        when no segment is longer than ``chunk``."""
+        seg_start = np.asarray(seg_start, np.int64)
+        lens = np.diff(seg_start)
+        hubs = np.flatnonzero(lens > chunk)
+        if hubs.size == 0:
+            return None
+        per_hub = -(-lens[hubs] // chunk)
+        hub_chunks = np.zeros(hubs.size + 1, np.int64)
+        np.cumsum(per_hub, out=hub_chunks[1:])
+        owner = np.repeat(np.arange(hubs.size), per_hub)
+        start = seg_start[hubs][owner] + chunk * (
+            np.arange(hub_chunks[-1]) - hub_chunks[owner])
+        end = np.minimum(start + chunk, seg_start[hubs + 1][owner])
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+                device)
+
+        return SegmentChunks(hubs=t(hubs), hub_chunks=t(hub_chunks),
+                             chunk_start=t(start), chunk_end=t(end),
+                             chunk=int(chunk))
 
 
 class _GatherSum(torch.autograd.Function):
@@ -249,14 +306,17 @@ def sparse_neighbor_gather_sum(values: torch.Tensor, idx: torch.Tensor,
 
 def segment_add_ordered(out: torch.Tensor, partial: torch.Tensor,
                         order: torch.Tensor, seg_rows: torch.Tensor,
-                        seg_start: torch.Tensor) -> torch.Tensor:
+                        seg_start: torch.Tensor,
+                        chunks: Optional[SegmentChunks] = None
+                        ) -> torch.Tensor:
     """In place ``out[tgt] += partial``, deterministic: each destination
-    row adds its partials in partition order (K3 on the card)."""
+    row adds its partials in partition order, a hub row of ``chunks`` its
+    chunk sums in chunk order (K3 on the card)."""
     if _route(out) == "cpu":
         return ref.segment_add_ordered_ref(out, partial, order, seg_rows,
-                                           seg_start)
+                                           seg_start, chunks)
     return neighbor_agg.segment_add_ordered(out, partial, order, seg_rows,
-                                            seg_start)
+                                            seg_start, chunks)
 
 
 def scatter_sum_ordered(dbuf: torch.Tensor, g: torch.Tensor,

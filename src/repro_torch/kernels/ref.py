@@ -57,36 +57,63 @@ def sparse_gather_sum_ref(values: torch.Tensor, idx: torch.Tensor,
                                    nbrs, mask)
 
 
+def _ordered_add(out: torch.Tensor, rows: torch.Tensor, srt: torch.Tensor,
+                 start: torch.Tensor, lens: torch.Tensor) -> None:
+    """In place: ``out[rows[i]] += srt[start[i] + k]`` for ``k < lens[i]``,
+    added in ``k`` order; ``rows`` distinct.  The loop runs over the rank
+    ``k``, vectorised across the runs; the runs are taken longest first,
+    so the live ones at rank ``k`` are a prefix whose lengths are read
+    from the device once."""
+    if rows.numel() == 0:
+        return
+    by_len = torch.argsort(lens, descending=True, stable=True)
+    lens_desc = lens[by_len].cpu().numpy()
+    # live[k] = runs longer than k
+    live = np.searchsorted(-lens_desc, -np.arange(int(lens_desc[0])),
+                           side="left")
+    start = start[by_len]
+    rows = rows[by_len]
+    acc = out.index_select(0, rows)
+    for k, n in enumerate(live.tolist()):
+        acc[:n] += srt.index_select(0, start[:n] + k)
+    out[rows] = acc
+
+
 def segment_add_ordered_ref(out: torch.Tensor, partial: torch.Tensor,
                             order: torch.Tensor, seg_rows: torch.Tensor,
-                            seg_start: torch.Tensor) -> torch.Tensor:
+                            seg_start: torch.Tensor,
+                            chunks=None) -> torch.Tensor:
     """In place: ``out[seg_rows[s]] += Σ_k partial[order[k]]`` for ``k`` in
     segment ``s``, added in segment order (the order of ``order``).
 
     ``order`` is a stable argsort of the partitions' targets and
     ``seg_start`` its segment offsets, so each destination row receives its
     partials in partition order: bitwise what a sequential loop
-    ``for i: out[tgt[i]] += partial[i]`` gives.  The loop runs over the
-    rank inside a segment, vectorised across segments; the segments are
-    taken longest first, so the live ones at rank ``k`` are a prefix whose
-    lengths are read from the device once.
+    ``for i: out[tgt[i]] += partial[i]`` gives.  With ``chunks`` (a
+    :class:`~repro_torch.kernels.ops.SegmentChunks`) a hub segment takes
+    K3's two passes instead: each of its chunks summed in partition order
+    from zero, then the chunk sums added onto its row in chunk order; the
+    other segments are added as without chunks.
     """
     if seg_rows.numel() == 0:
         return out
     start = seg_start[:-1].long()
     lens = seg_start[1:].long() - start
-    by_len = torch.argsort(lens, descending=True, stable=True)
-    lens_desc = lens[by_len].cpu().numpy()
-    # live[k] = segments longer than k
-    live = np.searchsorted(-lens_desc, -np.arange(int(lens_desc[0])),
-                           side="left")
-    start = start[by_len]
-    rows = seg_rows.long()[by_len]
+    rows = seg_rows.long()
     srt = partial.index_select(0, order.long())
-    acc = out.index_select(0, rows)
-    for k, n in enumerate(live.tolist()):
-        acc[:n] += srt.index_select(0, start[:n] + k)
-    out[rows] = acc
+    if chunks is None:
+        _ordered_add(out, rows, srt, start, lens)
+        return out
+    hub = torch.zeros(rows.shape[0], dtype=torch.bool, device=rows.device)
+    hub[chunks.hubs.long()] = True
+    first = chunks.chunk_start.long()
+    sums = torch.zeros((first.shape[0], out.shape[1]), dtype=torch.float32,
+                       device=out.device)
+    _ordered_add(sums, torch.arange(first.shape[0], device=out.device), srt,
+                 first, chunks.chunk_end.long() - first)
+    _ordered_add(out, rows[~hub], srt, start[~hub], lens[~hub])
+    hc = chunks.hub_chunks.long()
+    _ordered_add(out, rows[hub], sums, hc[:-1], hc[1:] - hc[:-1])
     return out
 
 

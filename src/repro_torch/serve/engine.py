@@ -17,7 +17,9 @@ reference (argmax, or Gumbel-max over ``np.random.default_rng(seed)``), so
 the same logits give the same tokens.  Each ``generate`` records the host
 time of every admission's prefill and of every decode step (each ends in
 the logits' copy to the host, which waits for the device) in
-``self.timings``.
+``self.timings``.  With ``keep_logits`` each result also carries the
+logits every one of its tokens was sampled from, so a batched run can be
+held to solo runs step by step.
 """
 from __future__ import annotations
 
@@ -50,6 +52,9 @@ class GenerationResult:
     tokens: List[int]
     prompt_len: int
     steps: int
+    # (steps, vocab) float32: row t the logits token t was sampled from
+    # (``generate(keep_logits=True)`` only)
+    logits: Optional[np.ndarray] = None
 
 
 class ServeEngine:
@@ -82,9 +87,10 @@ class ServeEngine:
 
     @torch.inference_mode()
     def generate(self, prompts: List[np.ndarray], *, max_new: int = 32,
-                 temperature: float = 0.0, seed: int = 0
-                 ) -> List[GenerationResult]:
-        """Continuously batched generation over all prompts."""
+                 temperature: float = 0.0, seed: int = 0,
+                 keep_logits: bool = False) -> List[GenerationResult]:
+        """Continuously batched generation over all prompts;
+        ``keep_logits`` fills each result's ``logits``."""
         rng = np.random.default_rng(seed)
         self.timings = dict(prefill_s=[], decode_s=[])
         results: List[Optional[GenerationResult]] = [None] * len(prompts)
@@ -97,6 +103,8 @@ class ServeEngine:
                                        device=dev)
         slot_req = [-1] * self.B                 # request index per slot
         out_tokens: List[List[int]] = [[] for _ in range(self.B)]
+        out_logits: List[List[np.ndarray]] = [[] for _ in range(self.B)]
+        cur_logits: List[Optional[np.ndarray]] = [None] * self.B
         cur = np.zeros(self.B, np.int32)          # next token to emit/feed
         pos = np.zeros(self.B, np.int32)
         active = np.zeros(self.B, bool)
@@ -105,7 +113,8 @@ class ServeEngine:
             i = slot_req[j]
             results[i] = GenerationResult(
                 tokens=out_tokens[j], prompt_len=len(prompts[i]),
-                steps=len(out_tokens[j]))
+                steps=len(out_tokens[j]),
+                logits=np.stack(out_logits[j]) if keep_logits else None)
             slot_req[j] = -1
             active[j] = False
             cur[j] = 0
@@ -126,12 +135,15 @@ class ServeEngine:
                 for dst, src in zip(_cache_leaves(cache),
                                     _cache_leaves(c1)):
                     dst[:, j:j + 1].copy_(src)
-                cur[j] = self._sample(logits1.float().cpu().numpy(),
-                                      temperature, rng)[0]
+                lg = logits1.float().cpu().numpy()
+                cur[j] = self._sample(lg, temperature, rng)[0]
+                if keep_logits:
+                    cur_logits[j] = lg[0]
                 self.timings["prefill_s"].append(time.perf_counter() - t0)
                 pos[j] = toks.shape[1]
                 slot_req[j] = i
                 out_tokens[j] = []
+                out_logits[j] = []
                 active[j] = True
 
             # -- emit the sampled token for every active slot -------------
@@ -139,6 +151,8 @@ class ServeEngine:
                 if not active[j]:
                     continue
                 out_tokens[j].append(int(cur[j]))
+                if keep_logits:
+                    out_logits[j].append(cur_logits[j])
                 if ((self.eos_id is not None and cur[j] == self.eos_id)
                         or len(out_tokens[j]) >= max_new):
                     finalize(j)
@@ -150,9 +164,12 @@ class ServeEngine:
             logits, cache = transformer.decode_step(
                 self.params, cfg, self._tensor(cur),
                 self._tensor(np.minimum(pos, L - 1)), cache, ctx=self.ctx)
-            nxt = self._sample(logits.float().cpu().numpy(), temperature,
-                               rng)
+            lg = logits.float().cpu().numpy()
+            nxt = self._sample(lg, temperature, rng)
             self.timings["decode_s"].append(time.perf_counter() - t0)
+            if keep_logits:
+                for j in np.flatnonzero(active):
+                    cur_logits[j] = lg[j].copy()
             cur = np.where(active, nxt, cur).astype(np.int32)
             pos = pos + active.astype(np.int32)
         return results  # type: ignore[return-value]

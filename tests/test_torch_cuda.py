@@ -78,6 +78,32 @@ def test_segment_add_matches_sequential_loop(cuda):
     np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
+@pytest.mark.parametrize("d", [16, 96])
+def test_segment_add_hub_chunks_bitwise_equal_plain(cuda, d):
+    """K3's two passes over a 10,000-partial hub, mixed with short
+    segments and a segment of exactly the chunk length: bitwise the plain
+    version's, one launch."""
+    rng = np.random.default_rng(d)
+    tgt = np.concatenate([np.full(10_000, 3), np.full(ops.SEG_CHUNK, 5),
+                          rng.integers(6, 3000, 20_000)])
+    rng.shuffle(tgt)
+    grp = TC.WorkGroup.build(np.zeros((tgt.size, 1)),
+                             np.ones((tgt.size, 1), bool), tgt, cuda)
+    assert grp.chunks is not None and grp.chunks.hubs.numel() == 1
+    partial = torch.from_numpy(rng.normal(size=(tgt.size, d)).astype(
+        np.float32)).to(cuda)
+    out0 = torch.from_numpy(rng.normal(size=(3000, d)).astype(
+        np.float32)).to(cuda)
+    segs = (grp.order, grp.seg_rows, grp.seg_start, grp.chunks)
+    want = ref.segment_add_ordered_ref(out0.clone(), partial, *segs)
+    before = neighbor_agg.segment_add_ordered.launches
+    got = ops.segment_add_ordered(out0.clone(), partial, *segs)
+    assert neighbor_agg.segment_add_ordered.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got, ops.segment_add_ordered(out0.clone(), partial,
+                                                    *segs))
+
+
 @pytest.mark.parametrize("ps,dist,interleave,fused",
                          [(4, 1, True, False), (8, 2, False, False),
                           (8, 1, True, True), (1, 3, False, True)])
@@ -357,6 +383,16 @@ FLASH_SHAPES = [(2, 64, 4, 4, 16, True, 0), (1, 200, 8, 2, 64, True, 0),
                 (3, 1, 4, 4, 16, True, 0)]
 
 
+def _bf16_held(got, want):
+    """bf16 K7 against its plain version: rtol = atol 1e-2 elementwise, and
+    each (b, s, h) row's rms difference within 2e-2 of the row's rms (on a
+    long causal row a flat 1e-2 is a third of a typical output)."""
+    g, w = got.float(), want.float()
+    torch.testing.assert_close(g, w, rtol=1e-2, atol=1e-2)
+    ratio = ((g - w).pow(2).mean(-1) / w.pow(2).mean(-1)).sqrt()
+    assert ratio.max().item() <= 2e-2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,kv,hd,causal,window", FLASH_SHAPES)
 def test_flash_attention_matches_plain(cuda, b, s, h, kv, hd, causal, window,
@@ -369,8 +405,10 @@ def test_flash_attention_matches_plain(cuda, b, s, h, kv, hd, causal, window,
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert k7.flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == (b, s, h, hd)
-    tol = 2e-5 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        _bf16_held(got, want)
     assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal,
                                                 window=window))
 
@@ -388,6 +426,53 @@ def test_flash_attention_reads_strided_inputs(cuda):
     want = ref.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=True)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_bf16_reads_packed_strided_inputs(cuda):
+    """bf16 q, k and v as slices of one packed projection: TMA reads them
+    through their strides, with no copy."""
+    rng = np.random.default_rng(10)
+    b, s, h, kv, hd = 2, 300, 8, 2, 128
+    qkv = torch.from_numpy(rng.normal(size=(b, s, h + 2 * kv, hd)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+    assert not q.is_contiguous()
+    got = ops.flash_attention(q, k, v, causal=True, window=100)
+    want = ref.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=True, window=100)
+    _bf16_held(got, want)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window", [(1, 4096, 32, 8, 128, 0),
+                                                (2, 65, 4, 2, 112, 16),
+                                                (1, 127, 6, 3, 112, 16)])
+def test_flash_attention_bf16_at_the_lm_shapes_and_ragged_tails(
+        cuda, b, s, h, kv, hd, window):
+    """mistral-nemo's shapes at B = 1, and S one past a 64-key tile and
+    one short of a 128-row q tile with a window, at the padded hd 112."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn((b, s, n, hd), generator=g, device=cuda)
+               .to(torch.bfloat16) for n in (h, kv, kv))
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention(q, k, v, causal=True, window=window)
+    _bf16_held(got, want)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=True,
+                                                window=window))
+
+
+def test_flash_attention_bf16_refuses_what_tma_cannot_address(cuda):
+    z = torch.zeros(1, 8, 2, 65, device=cuda, dtype=torch.bfloat16)
+    q = z[..., 1:]                          # base off 16 bytes, hd 64
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(q, q, q)
+    w = torch.zeros(1, 8, 3, 64, device=cuda, dtype=torch.bfloat16)
+    packed = w.view(1, 8, 192)[:, :, 4:132].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(packed, packed, packed)
+    x = torch.zeros(1, 8, 2, 68, device=cuda, dtype=torch.bfloat16)
+    q = x[..., :64]                         # strides of 136 bytes
+    with pytest.raises(ValueError, match="strides"):
+        ops.flash_attention(q, q, q)
 
 
 def test_flash_attention_refuses_a_tensor_that_needs_a_gradient(cuda):

@@ -397,6 +397,27 @@ def test_continuous_batching_matches_solo_runs():
         assert batched[i].tokens == solo.tokens, (i, batched[i], solo)
 
 
+def test_kept_logits_give_the_tokens_and_batched_equals_solo():
+    """``keep_logits``: each token is the argmax of its kept row, and the
+    batched run's rows equal the solo runs' step by step (fp32 on the
+    CPU, 1e-5)."""
+    cfg = _fp32(TC.get_smoke_config("codeqwen1.5-7b"))
+    params = TT.init_params(torch.Generator().manual_seed(2), cfg,
+                            vocab_multiple=4)
+    eng = TServeEngine(params, cfg, batch_slots=2, max_seq=64)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab, size=rng.integers(2, 7))
+               .astype(np.int32) for _ in range(3)]
+    batched = eng.generate(prompts, max_new=5, keep_logits=True)
+    assert eng.generate(prompts[:1], max_new=5)[0].logits is None
+    for i, p in enumerate(prompts):
+        solo = eng.generate([p], max_new=5, keep_logits=True)[0]
+        assert solo.logits.shape == (5, params["embed"]["w"].shape[0])
+        assert solo.tokens == list(solo.logits.argmax(-1))
+        np.testing.assert_allclose(batched[i].logits, solo.logits,
+                                   rtol=1e-5, atol=1e-5)
+
+
 def test_eos_frees_slot_for_refill():
     cfg = _fp32(TC.get_smoke_config("codeqwen1.5-7b"))
     params = TT.init_params(torch.Generator().manual_seed(4), cfg,
