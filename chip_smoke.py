@@ -17,7 +17,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
    8/16/64/192, H 1/2/4,
    B 1/3/8, S 1/7/256/4096 from a random state), and two launches bitwise
    equal; for K8 also a row alone == the row in its batch at any ``bt``,
-   and one launch over S == two with the state carried, bitwise;
+   and one launch over S == two with the state carried, bitwise, and its
+   plan's shared memory a block equal to the kernel's own layout for
+   every hd 1..256, bt 1..8 and cluster size 2/4/8;
 3. serving at full width: GCN serving of the products stand-in at its
    real size (2.45 M nodes, D = 100, 64 classes, hidden 16, 2 layers)
    over 8 virtual shards, through ``GNNServeEngine``/``run_trace``, with
@@ -92,7 +94,12 @@ Phases, each of which passes or ends the run with a non-zero exit:
    launches counted: one an sLSTM layer) and in fp32, both timed (CUDA
    events) and the bf16 one profiled; K8 held against its plain version on
    the card on every sLSTM layer's inputs of the fp32 forward (rtol = atol
-   1e-4) and timed at those shapes beside the plain version and its bound.
+   1e-4) and timed at those shapes beside the plain version and its bound,
+   with its cluster size and shared memory a block, µs a step, every
+   portable cluster size that fits timed in turns and held bitwise to the
+   plan's, the cluster probe (the exchange of h alone, by K8's mbarriers
+   and by a cluster barrier) µs a step, and a decode-shape launch (B 4,
+   S 1).
    (b) ``prefill`` of 512 tokens then ``decode_step`` against the forward
    of 513, fp32, within 2e-3, and one decode step at the launcher's
    serving shape (4 slots, bf16) timed and profiled.  (c) In fp32 compute,
@@ -2024,12 +2031,57 @@ def time_slstm(torch, K, xp, wr, st, rate, flops):
     a sigmoid input gate, no normaliser n, no stabiliser m), so there is
     no library time.  Bound: the recurrent products' 2·B·S·H·hd·4·hd flops
     over the fp32 peak, or xp, hs, wr and the states read or written once
-    over the memory rate, whichever is larger."""
+    over the memory rate, whichever is larger.  Also: the plan's cluster
+    size and shared memory a block; every portable cluster size that fits
+    timed in turns (and held bitwise to the plan's result), and µs a step
+    at every size that fits for hd 32 to 256 (S 1024, B 2 and B 8); the
+    cluster probe a step at each size, K8's exchange of h alone (st.async
+    and mbarriers: the floor of a step); and a decode-shape launch (B 4,
+    S 1, 100 launches) by CUDA events and by the profiler's device time."""
+    k8m = K.slstm_scan
     b, s = xp.shape[0], xp.shape[1]
     h, hd = wr.shape[0], wr.shape[1]
+    bt = min(k8m.MAX_BT, b)
+    cluster, smem = k8m.plan(hd, bt)
+    sizes = k8m.cluster_sizes(hd, bt)
     with torch.inference_mode():
-        k8 = lambda: K.slstm_scan.slstm_scan(xp, wr, st)
+        k8 = lambda: k8m.slstm_scan(xp, wr, st)
         t_k8 = _time(torch, k8, reps=5, warmup=1)
+        want = k8()
+        for c in sizes:
+            check(_slstm_same(torch, k8m._launch(xp, wr, st, bt, c), want),
+                  f"K8 at {c} blocks a cluster differs from the plan's "
+                  f"{cluster}")
+        by_c = {c: [] for c in sizes}
+        for order in (sizes, sizes[::-1]):          # in turns: a b b a
+            for c in order:
+                by_c[c].append(_time(
+                    torch, lambda c=c: k8m._launch(xp, wr, st, bt, c),
+                    reps=3, warmup=1))
+        probe_ms = {}
+        for c in sizes:
+            run = lambda c=c: k8m.cluster_probe(b, s, h, hd, bt, c,
+                                                xp.device)
+            check(bool((run() == s).all().item()),
+                  f"the cluster probe at {c} blocks lost a store")
+            probe_ms[c] = _time(torch, run, reps=5, warmup=1)
+        rng = np.random.default_rng(1)
+        by_hd = {}                   # the plan's rule: S 1024, H 4
+        for b_r in (2, 8):
+            for hd_r in (32, 64, 128, 192, 256):
+                xr, wr_r, sr = _slstm_case(torch, rng, b_r, 1024, 4, hd_r,
+                                           xp.device)
+                by_hd.setdefault(str(b_r), {})[str(hd_r)] = dict(
+                    plan=k8m.plan(hd_r, b_r)[0], **{
+                        str(c): _time(torch, lambda c=c: k8m._launch(
+                            xr, wr_r, sr, b_r, c), reps=3, warmup=1)
+                        * 1e3 / 1024
+                        for c in k8m.cluster_sizes(hd_r, b_r)})
+                del xr, wr_r, sr
+        xd, wd, sd = _slstm_case(torch, rng, 4, 1, h, hd, xp.device)
+        decode = lambda: k8m.slstm_scan(xd, wd, sd)
+        decode_ms = _time(torch, decode, reps=100, warmup=5)
+        decode_dev = profile_pass(torch, decode, reps=100)
         t_plain = _time(torch, lambda: K.ref.slstm_scan_ref(xp, wr, st),
                         reps=1, warmup=0)
     n_flops = 2 * b * s * h * hd * 4 * hd
@@ -2045,7 +2097,19 @@ def time_slstm(torch, K, xp, wr, st, rate, flops):
                         "normaliser n, no stabiliser m)",
                 dtype="float32", shape=dict(batch=b, seq=s, heads=h,
                                             head_dim=hd),
-                flops=n_flops, bytes=nbytes, peak_flops=flops["float32"])
+                flops=n_flops, bytes=nbytes, peak_flops=flops["float32"],
+                cluster=cluster, smem_bytes_per_block=smem,
+                us_per_step=t_k8 * 1e3 / s,
+                ms_by_cluster={str(c): v for c, v in by_c.items()},
+                us_per_step_by_batch_and_head_dim=by_hd,
+                probe_us_per_step={str(c): v * 1e3 / s
+                                   for c, v in probe_ms.items()},
+                decode_shape=dict(batch=4, seq=1, reps=100),
+                decode_shape_ms=decode_ms,
+                decode_shape_device_ms=sum(
+                    v for k, v in decode_dev["device_ms_by_kernel"].items()
+                    if "slstm" in k),
+                decode_shape_cluster=k8m.plan(hd, 4)[0])
 
 
 if __name__ == "__main__":

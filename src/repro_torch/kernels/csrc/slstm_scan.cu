@@ -16,71 +16,142 @@
 // hd) fp32 and the four states after the last step.  The TPU kernel took a
 // gate-major xp and a block-diagonal (D, 4·D) wr so that one MXU product
 // covered every head; that matrix is H times the work, on zeros, and is not
-// carried over: a block here owns one head.
+// carried over: a cluster here owns one head.
 //
-// What bounds it: operations, on paper.  A step costs 2·hd·4·hd flops a
-// (row, head) for the recurrent product (the gate arithmetic is O(hd));
-// xp is read once, hs written once and wr read once: at B = 2, S = 4096,
-// H = 4, hd = 192 that is 9.66e9 flops against about 128 MB, so the bound
-// is 0.144 ms at 67 TFLOP/s fp32.  In practice the recurrence bounds it:
-// S dependent steps, each a product whose input is the previous step's
-// output, on only ceil(B / bt) · H blocks (4 at that shape).  Each step
-// reads the head's wr (590 KB at hd = 192, more than one SM's 227 KB of
-// shared memory) from L2 on one SM, so a step costs about that read: on
-// one "NVIDIA H100 80GB HBM3, 700.00 W" this design reads about 37 GB/s
-// from L2 an SM, some 16 us a step (65 ms a launch at that shape).
+// What bounds it.  On paper operations: 2·hd·4·hd flops a (row, head) a
+// step, 9.66e9 at B = 2, S = 4096, H = 4, hd = 192, or 0.144 ms at 67
+// TFLOP/s fp32.  In practice one step's latency: S dependent steps, each a
+// product whose input is the previous step's output, on ceil(B / bt) · H
+// clusters.  No step reads wr from global memory, so bytes do not bound
+// it.  A step is the product out of shared memory (each block reads its
+// whole wr slice and h every step), the gate update's transcendentals and
+// the exchange of h between the blocks.  On one "NVIDIA H100 80GB HBM3,
+// 700.00 W" at that shape (chip_smoke.py, PERF.md §6): about 1.2 us a
+// step, 4.8 to 4.9 ms a launch, with C = 8 (about 7.0 ms with C = 4); the
+// exchange alone (mgg_slstm_cluster_probe) about 0.35 us a step, where a
+// cluster barrier a step instead took about 0.94 us.  The one-block-a-head
+// kernel this replaces read its head's 590 KB of wr from L2 on one SM
+// every step: 15.8 us a step.
+// What is left: the step less the exchange, mostly the product, whose
+// shared-memory reads (73.7 KB of wr a block a step at C = 8) set its
+// floor; holding wr in registers (96 floats a thread there) would remove
+// them.
 //
-// Design (simple and right first).  Grid (ceil(B / bt), H), one block of
-// 4·hd threads (768 at hd = 192), bt <= 8 batch rows a block.  The kernel
-// is instantiated for BT = 1, 2, 4 and 8 rows and a launch takes the
-// smallest BT >= bt, so a block spends its instructions on the rows it
-// has.  Thread j owns gate column j.  Each
-// step it issues its xp loads for the block's rows, then adds the BT dot
-// products h[r] . wr[:, j] over k = 0 .. hd-1 in that order with
-// __fmaf_rn: its wr column is read through L2, coalesced across the
-// block, kKB values a batch with the next batch's loads in flight while
-// the current one is multiplied; h is read from shared memory as float4
-// broadcasts (rows padded to a multiple of 4 floats).  It adds xp and
-// stores the gate in shared memory.  After a barrier, bt · hd threads (a
-// loop when bt · hd > 4·hd) update c, n, m and h of one (row, unit) each
-// in fp32, with explicitly rounded adds, products and quotients (no
-// contraction the compiler could choose differently), and write h to hs.
-// The states live in shared memory across all S steps and are written
-// once at the end.  Shared memory: 8 · BT · hd floats and the padding
-// (48 KB at BT = 8, hd = 192; the opt-in above 48 KB).
+// Design.  One thread-block cluster of C blocks (C = 2, 4 or 8, the
+// portable sizes, or 1 for a head of one unit; kernels/slstm_scan.py's
+// plan picks C, and smem_bytes below gives the bytes it computes) per (row
+// tile of bt <= 8 batch rows, head): grid (C · ceil(B / bt), H), launched
+// with cudaLaunchKernelEx and a cluster dimension of C.  Block c owns the
+// units [c·U, (c+1)·U), U = ceil(hd / C) (the last block may be short,
+// never empty: (C - 1) · U < hd), and all
+// four gate columns z, i, f, o of each, so it updates its units' c, n, m
+// and h with no exchange of gates.  kSplit = 8 threads share a unit: thread
+// kSplit·uu + s holds slice s of the k range of the unit's four columns.
+//  * wr: each thread copies its slice of its unit's four columns into
+//    shared memory once per launch with cp.async and reads it from there
+//    every step (the block's slice: hd × 4U fp32, 73.7 KB at hd = 192 and
+//    C = 8).  Slice s holds k = 32i + 4s .. 32i + 4s + 3 for i = 0, 1, ...,
+//    so a warp reads 512 contiguous bytes of wr a float4 and the eight
+//    slices of a unit read neighbouring float4s of h.
+//  * xp: thread s prefetches its unit's four gates of row s (the row it
+//    updates; BT <= kSplit) kStages - 1 steps ahead with cp.async into a
+//    ring of kStages slots; it reads only what it copied, so its own
+//    cp.async.wait_group is the only wait.
+//  * The product: each slice sums its k in increasing order with __fmaf_rn
+//    from 0 (k padded with zeros to a multiple of 32), then the slices of a
+//    column are added pairwise by __shfl_xor_sync at distance 1, 2 and 4:
+//    ((s0 + s1) + (s2 + s3)) + ((s4 + s5) + (s6 + s7)), the same bits in
+//    every slice's thread; gate = xp + that (__fadd_rn).  The association
+//    depends only on hd: not on bt, C, the row or timing.  Eight slices,
+//    not the one k = 0 .. hd-1 chain of the kernel this replaces: a chain
+//    of hd dependent fmas a thread set the step on the card, and a split
+//    over four threads still left the step clearly longer than over eight
+//    (variant builds, not in the repo).
+//  * The update: thread s of a unit updates row s; its c, n, m and h live
+//    in registers for all S steps, with explicitly rounded adds, products
+//    and quotients (no contraction the compiler could choose differently).
+//    It writes h to hs with a plain store and into every block of the
+//    cluster with st.async into distributed shared memory, into the h
+//    buffer of parity t + 1, each store completing bytes on that block's
+//    mbarrier for the buffer.
+//  * The exchange: a block starts step t + 1 when its mbarrier for buffer
+//    (t + 1) & 1 has counted rows · hd · 4 bytes, every unit's h of step t
+//    (thread 0 re-arms it right after, for step t + 2).  No cluster barrier
+//    runs a step.  The argument needs every thread still in the loop to
+//    send h each step, or to meet a thread of its warp that does at the
+//    step's __shfl_xor_sync: so every block holds a unit ((C - 1) · U <
+//    hd, which valid() demands) and a warp with no live unit leaves after
+//    the set-up (thread 0 sits in warp 0, live whenever its block is).
+//    Then a block writes buffer (t + 1) & 1 of block q at step t only
+//    after it has received every unit's h of step t - 1, each stored after
+//    its warp's shuffle of step t - 1: every thread of q still in the loop
+//    has read that buffer at step t - 1, and thread 0 has re-armed its
+//    mbarrier for the h of step t.  Nor can a thread fall two phases
+//    behind the mbarrier it waits on: the h of step t + 2 includes its own
+//    warp's, sent after it passed its wait of step t + 1.  A block leaves
+//    only after the last step's h has reached it, so no store lands in a
+//    finished block.
+// Shared memory, in floats: h 2 · BT · hdk, wr hdk · 4U, the xp ring
+// kStages · BT · 4U, and two mbarriers, with hdk = hd padded to 32
+// (79,888 bytes at BT = 2, hd = 192, C = 8; smem_bytes).
 //
 // Invariants that hold by construction, bitwise:
-//  * a row's result does not depend on B, bt or the other rows: every row
-//    runs the same sequence of explicitly rounded operations on its own h,
-//    c, n, m whichever BT instance runs it, so served batched == solo for
-//    this layer;
+//  * a row's result does not depend on B, bt, C or the other rows: every
+//    row runs the same sequence of explicitly rounded operations on its own
+//    h, c, n, m whichever BT instance and cluster size runs it, so served
+//    batched == solo for this layer;
 //  * one launch over S equals any split of S with the state carried: the
 //    state written at the end is the fp32 state the next step would read;
 //  * two launches are equal: no atomics, no order that depends on timing.
 //
-// Making it fast is later work.  The plan: a thread-block cluster per
-// (head, row tile) holds the head's wr split across its SMs' shared memory
-// (590 KB over 4 SMs, 147 KB each): SM c owns a quarter of the hd units
-// and the four gate columns (z, i, f, o) of each, so it computes those
-// gates from its resident slice and updates its units' states locally;
-// the new h of its units is written into every SM of the cluster through
-// distributed shared memory, with one cluster barrier a step.  That
-// removes the L2 read of wr from every step; what is left is the latency
-// of one product from shared memory and one cluster barrier a step.
-//
-// The launch runs on the caller's stream, allocates nothing and returns
-// cudaGetLastError() (cudaErrorInvalidValue for hd > 256 or bt outside
-// 1..8).
+// Every launch runs on the caller's stream and allocates nothing.
+// mgg_slstm_scan returns cudaErrorInvalidValue for hd outside 1..256, bt
+// outside 1..8, C not 1, 2, 4 or 8, a block with no unit or more than
+// kMaxUnits, or shared memory above the card's opt-in limit;
+// cudaErrorLaunchOutOfResources when cudaOccupancyMaxActiveClusters says
+// no such cluster can be placed; else cudaGetLastError().
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 namespace {
 
-constexpr int kMaxBT = 8;        // batch rows a block
-constexpr int kKB = 8;           // wr values a batch (a thread's loads)
-constexpr int kMaxThreads = 1024;
-constexpr int kStaticSmem = 48 * 1024;
+constexpr int kMaxBT = 8;          // batch rows a cluster
+constexpr int kMaxHeadDim = 256;
+constexpr int kSplit = 8;          // threads a unit (its k range split)
+constexpr int kChunk = 4 * kSplit; // k that one float4 of each slice spans
+constexpr int kMaxUnits = 48;      // units a block
+constexpr int kMaxThreads = kSplit * kMaxUnits;
+constexpr int kStages = 4;         // xp ring: steps in flight
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kSplit >= kMaxBT, "a thread updates one row: kSplit >= BT");
+
+__host__ __device__ __forceinline__ int bt_instance(int bt) {
+  return bt <= 1 ? 1 : bt <= 2 ? 2 : bt <= 4 ? 4 : 8;
+}
+
+// A block's shared memory, in floats (offsets and total).
+struct Layout {
+  int units;   // U = ceil(hd / C)
+  int nt;      // threads: kSplit · U rounded up to a warp
+  int hdk;     // k padded to a multiple of kChunk (zeros past hd)
+  int w_off, x_off, bar_off, total;
+};
+
+__host__ __device__ __forceinline__ Layout layout(int hd, int BT, int C) {
+  Layout L;
+  L.units = (hd + C - 1) / C;
+  L.nt = (kSplit * L.units + 31) & ~31;
+  L.hdk = (hd + kChunk - 1) / kChunk * kChunk;
+  L.w_off = 2 * BT * L.hdk;                        // h (2, BT, hdk)
+  L.x_off = L.w_off + L.hdk / kChunk * 16 * L.nt;  // wr (hdk/kChunk, 4, nt)
+  L.bar_off = L.x_off + kStages * BT * 4 * L.units;  // xp (kStages, BT, U, 4)
+  L.total = L.bar_off + 4;                         // two mbarriers
+  return L;
+}
 
 __device__ __forceinline__ float log_sigmoid(float x) {
   // min(x, 0) - log1p(exp(-|x|)), the stable form torch and jax use
@@ -91,174 +162,478 @@ __device__ __forceinline__ float sigmoid(float x) {
   return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x)));
 }
 
-__host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-template <int BT>
-__global__ void __launch_bounds__(kMaxThreads)
-slstm_scan_kernel(const float* __restrict__ xp, const float* __restrict__ wr,
-                  const float* __restrict__ h0, const float* __restrict__ c0,
-                  const float* __restrict__ n0, const float* __restrict__ m0,
-                  float* __restrict__ hs, float* __restrict__ hN,
-                  float* __restrict__ cN, float* __restrict__ nN,
-                  float* __restrict__ mN, int B, int S, int H, int hd,
-                  int bt) {
-  extern __shared__ float4 smem4[];
-  const int G = 4 * hd;                 // gate columns of a head
-  const int hdp = pad4(hd);             // an h row in shared memory
-  const int head = blockIdx.y;
-  const int b0 = blockIdx.x * bt;
-  const int rows = min(bt, B - b0);
-  const int units = rows * hd;
-  float* h_s = reinterpret_cast<float*>(smem4);   // (BT, hdp), 16-B rows
-  float* c_s = h_s + BT * hdp;                     // (BT, hd)
-  float* n_s = c_s + BT * hd;
-  float* m_s = n_s + BT * hd;
-  float* g_s = m_s + BT * hd;                      // (BT, 4·hd)
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
 
-  for (int idx = threadIdx.x; idx < BT * hdp; idx += blockDim.x)
-    h_s[idx] = 0.f;                     // rows past B and the padding
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < units; idx += blockDim.x) {
-    const int r = idx / hd, u = idx - (idx / hd) * hd;
-    const size_t o = (static_cast<size_t>(b0 + r) * H + head) * hd + u;
-    h_s[r * hdp + u] = h0[o];
-    c_s[idx] = c0[o];
-    n_s[idx] = n0[o];
-    m_s[idx] = m0[o];
-  }
-  __syncthreads();
+// Every thread of the cluster arrives (release) and waits (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
-  const int j = threadIdx.x;            // blockDim.x == G
-  const float* wcol = wr + static_cast<size_t>(head) * hd * G + j;
-  const size_t row_stride = static_cast<size_t>(S) * H * G;  // xp, per b
-  const float* xcol = xp + static_cast<size_t>(b0) * row_stride +
-                      static_cast<size_t>(head) * G + j;
-  const size_t step_stride = static_cast<size_t>(H) * G;      // xp, per t
-  const size_t hs_row = static_cast<size_t>(S) * H * hd;      // hs, per b
-  const int k_full = hd - hd % kKB;     // k below it: whole batches
+__device__ __forceinline__ uint32_t map_rank(uint32_t local, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
 
-  for (int t = 0; t < S; ++t) {
-    float x[BT], acc[BT];
-#pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      x[r] = r < rows ? xcol[r * row_stride + t * step_stride] : 0.f;
-      acc[r] = 0.f;
-    }
-    float w[kKB];
-#pragma unroll
-    for (int i = 0; i < kKB; ++i)
-      w[i] = k_full > 0 ? __ldg(wcol + static_cast<size_t>(i) * G) : 0.f;
-    for (int k0 = 0; k0 < k_full; k0 += kKB) {
-      float wn[kKB];                    // the next batch, in flight
-      const bool more = k0 + kKB < k_full;
-#pragma unroll
-      for (int i = 0; i < kKB; ++i)
-        wn[i] = more ? __ldg(wcol + static_cast<size_t>(k0 + kKB + i) * G)
-                     : 0.f;
-#pragma unroll
-      for (int q = 0; q < kKB / 4; ++q) {
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const float4 h4 =
-              *reinterpret_cast<const float4*>(h_s + r * hdp + k0 + 4 * q);
-          acc[r] = __fmaf_rn(h4.x, w[4 * q + 0], acc[r]);
-          acc[r] = __fmaf_rn(h4.y, w[4 * q + 1], acc[r]);
-          acc[r] = __fmaf_rn(h4.z, w[4 * q + 2], acc[r]);
-          acc[r] = __fmaf_rn(h4.w, w[4 * q + 3], acc[r]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kKB; ++i) w[i] = wn[i];
-    }
-    for (int k = k_full; k < hd; ++k) {  // the tail, in the same k order
-      const float wk = __ldg(wcol + static_cast<size_t>(k) * G);
-#pragma unroll
-      for (int r = 0; r < BT; ++r)
-        acc[r] = __fmaf_rn(h_s[r * hdp + k], wk, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < BT; ++r)
-      if (r < rows) g_s[r * G + j] = __fadd_rn(x[r], acc[r]);
-    __syncthreads();
+// v into block `rank`'s shared memory at the offset `local` has in this
+// block's, completing 4 bytes on that block's mbarrier at `bar`'s offset.
+__device__ __forceinline__ void st_async(uint32_t local, uint32_t bar,
+                                         uint32_t rank, float v) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n"
+      :: "r"(map_rank(local, rank)), "f"(v), "r"(map_rank(bar, rank))
+      : "memory");
+}
 
-    for (int idx = threadIdx.x; idx < units; idx += blockDim.x) {
-      const int r = idx / hd, u = idx - (idx / hd) * hd;
-      const float* g = g_s + r * G;
-      const float z = tanhf(g[u]);
-      const float log_i = g[hd + u];
-      const float log_f = log_sigmoid(g[2 * hd + u]);
-      const float o = sigmoid(g[3 * hd + u]);
-      const float fm = __fadd_rn(log_f, m_s[idx]);
-      const float m_new = fmaxf(fm, log_i);
-      const float i_p = expf(__fsub_rn(log_i, m_new));
-      const float f_p = expf(__fsub_rn(fm, m_new));
-      const float c = __fadd_rn(__fmul_rn(f_p, c_s[idx]), __fmul_rn(i_p, z));
-      const float n = __fadd_rn(__fmul_rn(f_p, n_s[idx]), i_p);
-      const float h = __fdiv_rn(__fmul_rn(o, c), fmaxf(fabsf(n), 1.f));
-      c_s[idx] = c;
-      n_s[idx] = n;
-      m_s[idx] = m_new;
-      h_s[r * hdp + u] = h;
-      hs[(b0 + r) * hs_row + (static_cast<size_t>(t) * H + head) * hd + u] =
-          h;
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
 
-  for (int idx = threadIdx.x; idx < units; idx += blockDim.x) {
-    const int r = idx / hd, u = idx - (idx / hd) * hd;
-    const size_t o = (static_cast<size_t>(b0 + r) * H + head) * hd + u;
-    hN[o] = h_s[r * hdp + u];
-    cN[o] = c_s[idx];
-    nN[o] = n_s[idx];
-    mN[o] = m_s[idx];
+// The one arrival of the barrier's current phase, expecting `bytes`.
+__device__ __forceinline__ void mbar_arm(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of the given parity has completed; what the other
+// blocks stored before completing it is seen after.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
   }
 }
 
-template <int BT>
-int launch(const float* xp, const float* wr, const float* h0, const float* c0,
-           const float* n0, const float* m0, float* hs, float* hN, float* cN,
-           float* nN, float* mN, int B, int S, int H, int hd, int bt,
-           cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (BT * (pad4(hd) + 3 * hd + 4 * hd));
-  if (smem > kStaticSmem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        slstm_scan_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// What one thread of a block owns.  Thread kSplit·uu + s holds slice s of
+// the k range of the four gate columns of unit u = rank·U + uu and
+// updates row s of that unit.
+struct Place {
+  Layout L;
+  int rank, head, b0, rows, uu, s, u;
+  bool live;    // u < hd: the unit exists
+  bool owner;   // and row s is one of the tile's rows
+  bool warp_live;   // the unit of the warp's lane 0 exists
+};
+
+__device__ __forceinline__ Place place(int B, int hd, int bt, int BT,
+                                       int C) {
+  Place p;
+  p.L = layout(hd, BT, C);
+  p.rank = static_cast<int>(cluster_rank());
+  p.head = blockIdx.y;
+  p.b0 = (blockIdx.x / C) * bt;
+  p.rows = min(bt, B - p.b0);
+  p.uu = threadIdx.x / kSplit;
+  p.s = threadIdx.x % kSplit;
+  p.u = p.rank * p.L.units + p.uu;
+  p.live = p.uu < p.L.units && p.u < hd;
+  p.owner = p.live && p.s < p.rows;
+  const int uu0 = (threadIdx.x & ~31) / kSplit;
+  p.warp_live = uu0 < p.L.units && p.rank * p.L.units + uu0 < hd;
+  return p;
+}
+
+// The two mbarriers, armed for the h of steps 0 and 1, seen by the whole
+// cluster before any block stores into another.
+__device__ __forceinline__ void exchange_init(uint64_t* full,
+                                              uint32_t bytes) {
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_arm(&full[1], bytes);
+    mbar_arm(&full[0], bytes);
   }
-  const dim3 grid((B + bt - 1) / bt, H);
-  slstm_scan_kernel<BT><<<grid, 4 * hd, smem, stream>>>(
-      xp, wr, h0, c0, n0, m0, hs, hN, cN, nN, mN, B, S, H, hd, bt);
+  __syncthreads();
+  cluster_sync();
+}
+
+// Before step t reads buffer t & 1: wait for step t - 1's h, then re-arm
+// that buffer's mbarrier for the h of step t + 1.
+__device__ __forceinline__ void exchange_wait(uint64_t* full, int t,
+                                              uint32_t bytes) {
+  if (t == 0) return;                       // buffer 0 holds h0
+  mbar_wait(&full[t & 1], ((t - 1) >> 1) & 1);
+  if (threadIdx.x == 0) mbar_arm(&full[t & 1], bytes);
+}
+
+// a[r] for a row r known only at run time, without indexing registers
+template <int BT>
+__device__ __forceinline__ float pick(const float (&a)[BT], int r) {
+  float v = a[0];
+#pragma unroll
+  for (int q = 1; q < BT; ++q) v = q == r ? a[q] : v;
+  return v;
+}
+
+template <int BT>
+__global__ void __launch_bounds__(kMaxThreads)
+slstm_cluster_kernel(const float* __restrict__ xp,
+                     const float* __restrict__ wr,
+                     const float* __restrict__ h0,
+                     const float* __restrict__ c0,
+                     const float* __restrict__ n0,
+                     const float* __restrict__ m0, float* __restrict__ hs,
+                     float* __restrict__ hN, float* __restrict__ cN,
+                     float* __restrict__ nN, float* __restrict__ mN, int B,
+                     int S, int H, int hd, int bt, int C) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const Place p = place(B, hd, bt, BT, C);
+  const Layout& L = p.L;
+  const int G = 4 * hd;
+  const int tid = threadIdx.x;
+  float* h_s = sm;                          // (2, BT, hdk)
+  float4* w_s = reinterpret_cast<float4*>(sm + L.w_off);
+  float* x_s = sm + L.x_off;                // (kStages, BT, U, 4)
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bar_off);
+  const int n_it = L.hdk / kChunk;          // float4s a gate a thread
+  const uint32_t bytes = static_cast<uint32_t>(p.rows * hd * 4);
+
+  // this thread's slice of its unit's four columns of wr, once: float4
+  // (i, g) holds k = kChunk·i + 4s + 0..3 of gate g (zeros past hd)
+  if (p.live) {
+    const float* src = wr + static_cast<size_t>(p.head) * hd * G + p.u;
+    for (int i = 0; i < n_it; ++i) {
+      for (int g = 0; g < 4; ++g) {
+        float* dst =
+            reinterpret_cast<float*>(w_s + (4 * i + g) * L.nt + tid);
+        for (int e = 0; e < 4; ++e) {
+          const int k = kChunk * i + 4 * p.s + e;
+          if (k < hd)
+            cp_async4(dst + e, src + static_cast<size_t>(k) * G + g * hd);
+          else
+            dst[e] = 0.f;
+        }
+      }
+    }
+  }
+  cp_async_commit();
+
+  // the xp ring: step t's four gates of row s of this unit in slot
+  // t % kStages, one commit group a step (empty past S)
+  const size_t x_step = static_cast<size_t>(H) * G;      // xp, per t
+  const float* x_src = xp + static_cast<size_t>(p.b0 + p.s) * S * x_step +
+                       static_cast<size_t>(p.head) * G + p.u;
+  auto x_at = [&](int t) {
+    return x_s + (((t % kStages) * BT + p.s) * L.units + p.uu) * 4;
+  };
+  auto issue = [&](int t) {
+    if (p.owner && t < S) {
+      const float* src = x_src + t * x_step;
+      float* dst = x_at(t);
+      for (int g = 0; g < 4; ++g) cp_async4(dst + g, src + g * hd);
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < kStages - 1; ++t) issue(t);
+
+  // h: buffer 0 from h0, buffer 1, the padding and the rows past B zero
+  for (int idx = tid; idx < 2 * BT * L.hdk; idx += blockDim.x) {
+    const int r = (idx / L.hdk) % BT, k = idx % L.hdk;
+    h_s[idx] = idx < BT * L.hdk && r < p.rows && k < hd
+                   ? h0[(static_cast<size_t>(p.b0 + r) * H + p.head) * hd + k]
+                   : 0.f;
+  }
+  // the state of (row s, unit u), kept in registers
+  const size_t so = (static_cast<size_t>(p.b0 + p.s) * H + p.head) * hd +
+                    p.u;
+  float hr = 0.f, cr = 0.f, nr = 0.f, mr = 0.f;
+  if (p.owner) {
+    hr = h0[so];
+    cr = c0[so];
+    nr = n0[so];
+    mr = m0[so];
+  }
+  cp_async_wait<kStages - 1>();             // the wr slice has landed
+  exchange_init(full, bytes);
+  if (!p.warp_live) return;                 // nothing to send or compute
+
+  const size_t hs_row = static_cast<size_t>(S) * H * hd;   // hs, per b
+  const float4* wt = w_s + tid;
+  const uint32_t h_own = smem_u32(h_s + p.s * L.hdk + p.u);  // buffer 0
+  for (int t = 0; t < S; ++t) {
+    issue(t + kStages - 1);
+    exchange_wait(full, t, bytes);
+    const float* hc = h_s + (t & 1) * BT * L.hdk + 4 * p.s;
+    float acc[4][BT];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int r = 0; r < BT; ++r) acc[g][r] = 0.f;
+    if (p.live) {
+#pragma unroll 2
+      for (int i = 0; i < n_it; ++i) {
+        const float4* wi = wt + 4 * i * L.nt;
+        const float4 w[4] = {wi[0], wi[L.nt], wi[2 * L.nt], wi[3 * L.nt]};
+#pragma unroll
+        for (int r = 0; r < BT; ++r) {
+          const float4 h4 = *reinterpret_cast<const float4*>(
+              hc + r * L.hdk + kChunk * i);
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            acc[g][r] = __fmaf_rn(h4.x, w[g].x, acc[g][r]);
+            acc[g][r] = __fmaf_rn(h4.y, w[g].y, acc[g][r]);
+            acc[g][r] = __fmaf_rn(h4.z, w[g].z, acc[g][r]);
+            acc[g][r] = __fmaf_rn(h4.w, w[g].w, acc[g][r]);
+          }
+        }
+      }
+    }
+    // the slices of a column, pairwise in a fixed order; every slice's
+    // thread ends with the same bits
+#pragma unroll
+    for (int m = 1; m < kSplit; m <<= 1)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int r = 0; r < BT; ++r)
+          acc[g][r] = __fadd_rn(acc[g][r],
+                                __shfl_xor_sync(kFull, acc[g][r], m));
+    cp_async_wait<kStages - 1>();           // step t's xp has landed
+    if (p.owner) {
+      const float* x = x_at(t);
+      const float z = tanhf(__fadd_rn(x[0], pick(acc[0], p.s)));
+      const float log_i = __fadd_rn(x[1], pick(acc[1], p.s));
+      const float log_f = log_sigmoid(__fadd_rn(x[2], pick(acc[2], p.s)));
+      const float o = sigmoid(__fadd_rn(x[3], pick(acc[3], p.s)));
+      const float fm = __fadd_rn(log_f, mr);
+      const float m_new = fmaxf(fm, log_i);
+      const float i_p = expf(__fsub_rn(log_i, m_new));
+      const float f_p = expf(__fsub_rn(fm, m_new));
+      cr = __fadd_rn(__fmul_rn(f_p, cr), __fmul_rn(i_p, z));
+      nr = __fadd_rn(__fmul_rn(f_p, nr), i_p);
+      mr = m_new;
+      hr = __fdiv_rn(__fmul_rn(o, cr), fmaxf(fabsf(nr), 1.f));
+      const int nb = (t + 1) & 1;
+      const uint32_t a = h_own + nb * BT * L.hdk * 4;
+      const uint32_t bar = smem_u32(&full[nb]);
+      for (int q = 0; q < C; ++q) st_async(a, bar, q, hr);
+      hs[(p.b0 + p.s) * hs_row + (static_cast<size_t>(t) * H + p.head) * hd +
+         p.u] = hr;
+    }
+  }
+  if (S > 0)                  // the last step's h has reached this block
+    mbar_wait(&full[S & 1], ((S - 1) >> 1) & 1);
+
+  if (p.owner) {
+    hN[so] = hr;
+    cN[so] = cr;
+    nN[so] = nr;
+    mN[so] = mr;
+  }
+}
+
+// The same cluster shape doing only K8's exchange (st.async and the
+// mbarriers): each step every (row, unit) owner reads a unit of the next
+// block from the h buffer, adds one and sends it to every block of the
+// cluster; the other threads leave after the set-up, so every thread in
+// the loop sends.  Its time a step is the floor the recurrence allows K8;
+// out (B, H, hd) ends at S everywhere when every store arrived in its
+// step.
+template <int BT>
+__global__ void __launch_bounds__(kMaxThreads)
+cluster_probe_kernel(float* __restrict__ out, int B, int S, int H, int hd,
+                     int bt, int C) {
+  extern __shared__ float4 smem4[];
+  float* h_s = reinterpret_cast<float*>(smem4);
+  const Place p = place(B, hd, bt, BT, C);
+  const Layout& L = p.L;
+  uint64_t* full = reinterpret_cast<uint64_t*>(h_s + L.bar_off);
+  const uint32_t bytes = static_cast<uint32_t>(p.rows * hd * 4);
+  for (int idx = threadIdx.x; idx < 2 * BT * L.hdk; idx += blockDim.x)
+    h_s[idx] = 0.f;
+  exchange_init(full, bytes);
+  if (!p.owner) return;
+  const int peer = (p.u + L.units) % hd;
+  float v = 0.f;
+  for (int t = 0; t < S; ++t) {
+    exchange_wait(full, t, bytes);
+    v = __fadd_rn(h_s[((t & 1) * BT + p.s) * L.hdk + peer], 1.f);
+    const int nb = (t + 1) & 1;
+    const uint32_t a = smem_u32(h_s + (nb * BT + p.s) * L.hdk + p.u);
+    for (int q = 0; q < C; ++q) st_async(a, smem_u32(&full[nb]), q, v);
+  }
+  if (S > 0) mbar_wait(&full[S & 1], ((S - 1) >> 1) & 1);
+  out[(static_cast<size_t>(p.b0 + p.s) * H + p.head) * hd + p.u] = v;
+}
+
+int smem_bytes(int hd, int bt, int C) {
+  return static_cast<int>(sizeof(float)) *
+         layout(hd, bt_instance(bt), C).total;
+}
+
+// Whether a cluster of C blocks with this kernel and shared memory can be
+// placed on the current card (cudaOccupancyMaxActiveClusters >= 1), asked
+// once per (device, kernel, C, bytes); the kernel's dynamic shared-memory
+// limit is raised to the card's opt-in on first use.
+int placeable(const void* fn, int C, int threads, int smem) {
+  struct Seen { int dev; const void* fn; int C, threads, smem, rc; };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Seen& s : seen)
+    if (s.dev == dev && s.fn == fn && s.C == C && s.threads == threads &&
+        s.smem == smem)
+      return s.rc;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int rc = cudaSuccess;
+  if (smem > optin) {
+    rc = cudaErrorInvalidValue;
+  } else {
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, fn);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          optin - static_cast<int>(fa.sharedSizeBytes));
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(C, 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+    rc = err != cudaSuccess ? static_cast<int>(err)
+         : clusters < 1     ? cudaErrorLaunchOutOfResources
+                            : cudaSuccess;
+  }
+  seen.push_back({dev, fn, C, threads, smem, rc});
+  return rc;
+}
+
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), int tiles, int H, int hd,
+                   int BT, int C, cudaStream_t stream, Args... args) {
+  const Layout L = layout(hd, BT, C);
+  const int smem = static_cast<int>(sizeof(float)) * L.total;
+  int rc = placeable(reinterpret_cast<const void*>(kernel), C, L.nt, smem);
+  if (rc != cudaSuccess) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(C * tiles, H, 1);
+  cfg.blockDim = dim3(L.nt, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Every block of the cluster holds at least one unit and at most kMaxUnits.
+bool valid(int hd, int bt, int C) {
+  const int units = (hd + C - 1) / C;
+  return hd >= 1 && hd <= kMaxHeadDim && bt >= 1 && bt <= kMaxBT &&
+         (C == 1 || C == 2 || C == 4 || C == 8) && (C - 1) * units < hd &&
+         units <= kMaxUnits;
 }
 
 }  // namespace
 
 extern "C" {
 
+// Bytes of shared memory a block of K8 uses at (hd, bt, C): the numbers the
+// wrapper's plan (kernels/slstm_scan.py::smem_bytes) must give.  -1 for a
+// shape the kernel does not take.
+int mgg_slstm_smem_bytes(int hd, int bt, int C) {
+  return valid(hd, bt, C) ? smem_bytes(hd, bt, C) : -1;
+}
+
 // xp (B, S, H, 4·hd), wr (H, hd, 4·hd), h0/c0/n0/m0 (B, H, hd): fp32,
 // contiguous.  hs (B, S, H, hd), hN/cN/nN/mN (B, H, hd): fp32, contiguous,
-// allocated by the caller.
+// allocated by the caller.  C blocks a cluster.
 int mgg_slstm_scan(const float* xp, const float* wr, const float* h0,
                    const float* c0, const float* n0, const float* m0,
                    float* hs, float* hN, float* cN, float* nN, float* mN,
-                   int B, int S, int H, int hd, int bt, cudaStream_t stream) {
-  if (hd <= 0 || 4 * hd > kMaxThreads || bt < 1 || bt > kMaxBT || S < 0)
+                   int B, int S, int H, int hd, int bt, int C,
+                   cudaStream_t stream) {
+  if (!valid(hd, bt, C) || S < 0 || B < 0 || H < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0) return static_cast<int>(cudaGetLastError());
-  if (bt == 1)
-    return launch<1>(xp, wr, h0, c0, n0, m0, hs, hN, cN, nN, mN, B, S, H, hd,
-                     bt, stream);
-  if (bt == 2)
-    return launch<2>(xp, wr, h0, c0, n0, m0, hs, hN, cN, nN, mN, B, S, H, hd,
-                     bt, stream);
-  if (bt <= 4)
-    return launch<4>(xp, wr, h0, c0, n0, m0, hs, hN, cN, nN, mN, B, S, H, hd,
-                     bt, stream);
-  return launch<8>(xp, wr, h0, c0, n0, m0, hs, hN, cN, nN, mN, B, S, H, hd,
-                   bt, stream);
+  const int tiles = (B + bt - 1) / bt;
+#define MGG_SLSTM(BT)                                                       \
+  launch_cluster(slstm_cluster_kernel<BT>, tiles, H, hd, BT, C, stream, xp, \
+                 wr, h0, c0, n0, m0, hs, hN, cN, nN, mN, B, S, H, hd, bt, C)
+  switch (bt_instance(bt)) {
+    case 1: return MGG_SLSTM(1);
+    case 2: return MGG_SLSTM(2);
+    case 4: return MGG_SLSTM(4);
+    default: return MGG_SLSTM(8);
+  }
+#undef MGG_SLSTM
+}
+
+// K8's cluster shape at (B, H, hd, bt, C) running only its per-step
+// exchange of h for S steps; out (B, H, hd) fp32.
+int mgg_slstm_cluster_probe(float* out, int B, int S, int H, int hd, int bt,
+                            int C, cudaStream_t stream) {
+  if (!valid(hd, bt, C) || S < 0 || B < 0 || H < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H == 0) return static_cast<int>(cudaGetLastError());
+  const int tiles = (B + bt - 1) / bt;
+#define MGG_PROBE(BT)                                                     \
+  launch_cluster(cluster_probe_kernel<BT>, tiles, H, hd, BT, C, stream, out, \
+                 B, S, H, hd, bt, C)
+  switch (bt_instance(bt)) {
+    case 1: return MGG_PROBE(1);
+    case 2: return MGG_PROBE(2);
+    case 4: return MGG_PROBE(4);
+    default: return MGG_PROBE(8);
+  }
+#undef MGG_PROBE
 }
 
 }  // extern "C"

@@ -4,15 +4,18 @@ Counterpart of ``repro/kernels/slstm_scan.py``: :func:`slstm_scan` is K8,
 for ``slstm_scan_call`` — the sLSTM recurrence over a whole sequence with
 the four states kept on chip, in the model's head-major layout with the
 per-head ``wr (H, hd, 4·hd)`` (the TPU kernel's gate-major permutation and
-block-diagonal ``expand_blockdiag`` are not carried over).  It takes CUDA
-tensors only, checks them, allocates the outputs, launches on PyTorch's
-current stream, raises if the launch failed and adds one to its
-``launches`` count.  A tensor that needs a gradient is refused: the kernel
-has no backward, as the reference's has none.  The front door that routes
-a CPU tensor to the plain version is ``kernels/ops.py``.
+block-diagonal ``expand_blockdiag`` are not carried over).  The kernel runs
+one thread-block cluster per (row tile, head) that holds the head's ``wr``
+in its blocks' shared memory; :func:`plan` picks the cluster size.  The
+wrapper takes CUDA tensors only, checks them, allocates the outputs,
+launches on PyTorch's current stream, raises if the launch failed and adds
+one to its ``launches`` count.  A tensor that needs a gradient is refused:
+the kernel has no backward, as the reference's has none.  The front door
+that routes a CPU tensor to the plain version is ``kernels/ops.py``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -20,11 +23,72 @@ import torch
 from . import _build
 from .neighbor_agg import _raise_on, _stream
 
-__all__ = ["slstm_scan", "MAX_HEAD_DIM", "MAX_BT", "reset_launch_counts",
+__all__ = ["slstm_scan", "plan", "cluster_sizes", "smem_bytes",
+           "cluster_probe", "MAX_HEAD_DIM", "MAX_BT", "MAX_UNITS",
+           "CLUSTER_SIZES", "SMEM_LIMIT", "reset_launch_counts",
            "launch_counts"]
 
-MAX_HEAD_DIM = 256    # one thread a gate column: 4·hd <= 1024
-MAX_BT = 8            # batch rows a block
+MAX_HEAD_DIM = 256    # the kernel's instances: hd 1..256
+MAX_BT = 8            # batch rows a cluster
+CLUSTER_SIZES = (1, 2, 4, 8)   # the kernel's cluster sizes, smallest first
+SMEM_LIMIT = 232_448  # an H100 block's opt-in shared memory (227 KB)
+K_SPLIT = 8           # csrc kSplit: threads a unit (its k range split)
+MAX_UNITS = 48        # csrc kMaxUnits: units a block (384 threads)
+XP_STAGES = 4         # csrc kStages: the xp ring's slots
+UNITS_PER_BLOCK = 16  # the plan's aim: at most this many units a block
+
+
+def _bt_instance(bt: int) -> int:
+    """The kernel instance that runs ``bt`` rows: 1, 2, 4 or 8."""
+    return next(n for n in (1, 2, 4, 8) if bt <= n)
+
+
+def smem_bytes(hd: int, bt: int, cluster: int) -> int:
+    """Shared memory a block of K8 uses at (hd, bt, cluster): h twice, the
+    block's slice of wr and the xp ring, in fp32, with k padded to a
+    multiple of 4·K_SPLIT, and two mbarriers (the kernel's ``layout``;
+    ``mgg_slstm_smem_bytes`` gives the same number)."""
+    bt_i = _bt_instance(bt)
+    units = -(-hd // cluster)
+    threads = -(-K_SPLIT * units // 32) * 32
+    hdk = -(-hd // (4 * K_SPLIT)) * 4 * K_SPLIT
+    floats = (2 * bt_i * hdk + hdk // (4 * K_SPLIT) * 16 * threads
+              + XP_STAGES * bt_i * 4 * units + 4)
+    return 4 * floats
+
+
+def cluster_sizes(hd: int, bt: int) -> list:
+    """The cluster sizes K8 can run at (hd, bt): every block holds at least
+    one unit (the kernel's exchange of h needs every block to send) and at
+    most ``MAX_UNITS``, and fits ``SMEM_LIMIT``."""
+    return [c for c in CLUSTER_SIZES
+            if (c - 1) * -(-hd // c) < hd and -(-hd // c) <= MAX_UNITS
+            and smem_bytes(hd, bt, c) <= SMEM_LIMIT]
+
+
+@functools.lru_cache(maxsize=None)
+def plan(hd: int, bt: int) -> Tuple[int, int]:
+    """(cluster size, shared-memory bytes a block) for head_dim ``hd`` at
+    ``bt`` rows a cluster: of :func:`cluster_sizes` of two blocks or more,
+    the smallest that leaves a block at most ``UNITS_PER_BLOCK`` units,
+    else the largest; a cluster of one block only where no larger one
+    gives every block a unit (hd 1).  A block's step is its share of the
+    product out of shared memory, so fewer units a block is faster
+    (PERF.md §6 times 2, 4 and 8 blocks at hd 32 to 256).  Raises
+    ValueError when no size fits."""
+    if hd < 1 or not 1 <= bt <= MAX_BT:
+        raise ValueError(f"sLSTM scan: head_dim {hd} or bt {bt} out of range")
+    fits = cluster_sizes(hd, bt)
+    if not fits:
+        c = CLUSTER_SIZES[-1]
+        raise ValueError(
+            f"sLSTM scan: head_dim {hd} at bt {bt} fits no portable cluster "
+            f"({c} blocks hold {-(-hd // c)} units of at most {MAX_UNITS} "
+            f"and need {smem_bytes(hd, bt, c)} bytes of shared memory a "
+            f"block, the limit is {SMEM_LIMIT})")
+    fits = [c for c in fits if c > 1] or fits
+    c = next((c for c in fits if -(-hd // c) <= UNITS_PER_BLOCK), fits[-1])
+    return c, smem_bytes(hd, bt, c)
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -49,37 +113,63 @@ def slstm_scan(xp: torch.Tensor, wr: torch.Tensor,
     ``reshape(B, S, H, 4·hd)``, each head ``[z | i | f | o]``) with the
     recurrent weights wr ``(H, hd, 4·hd)`` fp32, from ``state`` h/c/n/m
     ``(B, H, hd)`` fp32 → (hs ``(B, S, H, hd)`` fp32, the states after the
-    last step).  ``bt`` batch rows share a block (and its reads of wr); the
-    result does not depend on it."""
+    last step).  ``bt`` batch rows share a cluster (and its copy of wr);
+    the result does not depend on it."""
     if xp.device.type != "cuda":
         raise ValueError(f"CUDA kernel called on a {xp.device} tensor")
     if wr.dim() != 3 or xp.dim() != 3:
         raise ValueError(f"xp {tuple(xp.shape)} and wr {tuple(wr.shape)}: "
                          "expected (B, S, 4·D) and (H, hd, 4·hd)")
-    heads, hd = wr.shape[0], wr.shape[1]
-    b, s = xp.shape[0], xp.shape[1]
+    hd = wr.shape[1]
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd} not in 1..{MAX_HEAD_DIM}")
     if not 1 <= bt <= MAX_BT:
         raise ValueError(f"bt {bt} not in 1..{MAX_BT}")
+    bt = min(bt, max(xp.shape[0], 1))
+    return _launch(xp, wr, state, bt, plan(hd, bt)[0])
+
+
+def _launch(xp, wr, state, bt: int, cluster: int):
+    """One launch of K8 at ``cluster`` blocks a cluster (the plan's, or
+    another portable size that fits, to time one against the other)."""
+    heads, hd = wr.shape[0], wr.shape[1]
+    b, s = xp.shape[0], xp.shape[1]
     dev = xp.device
     _check("xp", xp, (b, s, heads * 4 * hd), dev)
     _check("wr", wr, (heads, hd, 4 * hd), dev)
     for k in ("h", "c", "n", "m"):
         _check(f"state[{k!r}]", state[k], (b, heads, hd), dev)
     hs = torch.empty((b, s, heads, hd), dtype=torch.float32, device=dev)
-    new = {k: torch.empty((b, heads, hd), dtype=torch.float32, device=dev)
-           for k in ("h", "c", "n", "m")}
+    new = dict(zip("hcnm", torch.empty((4, b, heads, hd),
+                                       dtype=torch.float32, device=dev)))
     rc = _build.library("slstm_scan").mgg_slstm_scan(
         xp.data_ptr(), wr.data_ptr(), *(state[k].data_ptr() for k in "hcnm"),
         hs.data_ptr(), *(new[k].data_ptr() for k in "hcnm"), b, s, heads, hd,
-        min(bt, max(b, 1)), _stream(dev))
-    _raise_on(rc, "slstm_scan")
+        bt, cluster, _stream(dev))
+    if rc:
+        placed = "; no such cluster fits on this card" if rc == 701 else ""
+        _raise_on(rc, f"slstm_scan (a cluster of {cluster} blocks, "
+                      f"{smem_bytes(hd, bt, cluster)} bytes of shared "
+                      f"memory each{placed})")
     slstm_scan.launches += 1
     return hs, new
 
 
 slstm_scan.launches = 0
+
+
+def cluster_probe(b: int, s: int, heads: int, hd: int, bt: int,
+                  cluster: int, device) -> torch.Tensor:
+    """K8's cluster shape at these sizes doing only its per-step exchange
+    of h through distributed shared memory (st.async stores onto
+    mbarriers), S times: the floor a step of K8 can reach.  Returns the
+    ``(B, H, hd)`` values it carried, S everywhere when every store
+    arrived in its step.  A measurement probe: not a K8 launch."""
+    out = torch.zeros((b, heads, hd), dtype=torch.float32, device=device)
+    rc = _build.library("slstm_scan").mgg_slstm_cluster_probe(
+        out.data_ptr(), b, s, heads, hd, bt, cluster, _stream(out.device))
+    _raise_on(rc, "slstm cluster probe")
+    return out
 
 
 def reset_launch_counts() -> None:

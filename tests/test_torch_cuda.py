@@ -502,11 +502,14 @@ def test_lm_forward_with_flash_on_card_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
 
 
-# K8: (B, S, H, hd): one step, odd rows and steps, hd 8 to 256 (one
-# thread a gate column: up to 1024), the dynamic shared-memory opt-in (bt 8
-# at hd 256 is 64 KB)
+# K8: (B, S, H, hd): one step, odd rows and steps; hd 1 (one unit: a
+# cluster of one block), 3 (its last block short), 8, 16, 64 (a cluster of
+# 4), 100 (of 8, not a multiple of it, the last warp of its last block with
+# no unit), 192 and 256; B 9 at bt 8 (two row tiles); the decode shape
+# (B 4, S 1)
 SLSTM_SHAPES = [(1, 1, 1, 8), (3, 7, 2, 16), (8, 256, 4, 64),
-                (2, 300, 4, 192), (9, 33, 1, 256)]
+                (2, 300, 4, 192), (9, 33, 1, 256), (2, 9, 2, 1),
+                (2, 9, 3, 3), (3, 50, 2, 100), (4, 1, 4, 192)]
 
 
 def _slstm_inputs(rng, b, s, h, hd, device):
@@ -541,7 +544,7 @@ def test_slstm_scan_matches_plain(cuda, b, s, h, hd):
     assert _same(got, ops.slstm_scan(xp, wr, st))        # two launches
 
 
-@pytest.mark.parametrize("hd", [16, 192])
+@pytest.mark.parametrize("hd", [16, 100, 192, 256])
 def test_slstm_scan_bitwise_invariants(cuda, hd):
     """A row's result does not depend on B, bt or the other rows; one
     launch over S equals two with the state carried."""
@@ -562,6 +565,57 @@ def test_slstm_scan_bitwise_invariants(cuda, hd):
         assert _same((torch.cat([h1, h2], dim=1), st2), whole), cut
 
 
+@pytest.mark.parametrize("hd", [100, 192])
+def test_slstm_scan_every_cluster_size_gives_the_same_bits(cuda, hd):
+    """Each gate column's product runs in one block in a fixed order, so
+    the result does not depend on the cluster size (at hd 100 a cluster of
+    8 leaves its last block short)."""
+    b, s, h = 3, 30, 2
+    xp, wr, st = _slstm_inputs(np.random.default_rng(hd + 1), b, s, h, hd,
+                               cuda)
+    want = k8.slstm_scan(xp, wr, st)
+    sizes = k8.cluster_sizes(hd, b)
+    assert k8.plan(hd, b)[0] in sizes and len(sizes) >= 2
+    for c in sizes:
+        assert _same(k8._launch(xp, wr, st, b, c), want), c
+
+
+def test_slstm_plan_is_the_kernels_layout(cuda):
+    """The wrapper's shared memory a block is the kernel's own, for every
+    shape and cluster size the kernel takes, and the kernel refuses the
+    others (a block with no unit or more than MAX_UNITS; at these shapes
+    the shared-memory limit excludes no size the units allow); the plan
+    fits this card's opt-in limit."""
+    from repro_torch.kernels import _build
+    lib = _build.library("slstm_scan")
+    optin = torch.cuda.get_device_properties(cuda) \
+        .shared_memory_per_block_optin
+    for hd in range(1, k8.MAX_HEAD_DIM + 1):
+        for bt in range(1, k8.MAX_BT + 1):
+            for c in k8.CLUSTER_SIZES:
+                want = k8.smem_bytes(hd, bt, c) \
+                    if c in k8.cluster_sizes(hd, bt) else -1
+                assert lib.mgg_slstm_smem_bytes(hd, bt, c) == want, \
+                    (hd, bt, c)
+            assert k8.plan(hd, bt)[1] <= optin
+    assert lib.mgg_slstm_smem_bytes(257, 1, 8) == -1
+    assert lib.mgg_slstm_smem_bytes(8, 1, 3) == -1
+    assert lib.mgg_slstm_smem_bytes(1, 1, 2) == -1     # an empty block
+    assert lib.mgg_slstm_smem_bytes(49, 1, 8) == -1
+
+
+def test_slstm_cluster_probe_carries_every_store(cuda):
+    """The probe's exchange of h alone, by K8's st.async stores and
+    mbarriers: after S steps every value is S, so no block read a buffer
+    before its peers wrote it."""
+    for b, s, h, hd, c in ((2, 64, 4, 192, 4), (2, 64, 4, 192, 8),
+                           (9, 5, 1, 3, 2), (3, 1, 2, 100, 8),
+                           (3, 300, 2, 100, 8), (2, 64, 2, 1, 1)):
+        out = k8.cluster_probe(b, s, h, hd, min(b, 8), c, cuda)
+        assert out.shape == (b, h, hd)
+        assert bool((out == s).all()), (b, s, h, hd, c)
+
+
 def test_slstm_scan_refuses_what_it_does_not_take(cuda):
     xp, wr, st = _slstm_inputs(np.random.default_rng(0), 1, 3, 1, 8, cuda)
     with pytest.raises(ValueError, match="forward only"):
@@ -570,6 +624,9 @@ def test_slstm_scan_refuses_what_it_does_not_take(cuda):
         k8.slstm_scan(xp.cpu(), wr.cpu(), {k: v.cpu() for k, v in st.items()})
     with pytest.raises(TypeError, match="float32"):
         k8.slstm_scan(xp.double(), wr, st)
+    one = _slstm_inputs(np.random.default_rng(0), 2, 3, 1, 1, cuda)
+    with pytest.raises(RuntimeError, match="a cluster of 2 blocks"):
+        k8._launch(*one, 2, 2)          # its second block holds no unit
     with pytest.raises(ValueError, match="head_dim"):
         z = torch.zeros(1, 3, 4 * 260, device=cuda)
         k8.slstm_scan(z, torch.zeros(1, 260, 1040, device=cuda),

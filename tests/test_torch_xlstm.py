@@ -178,6 +178,69 @@ def test_k8_wrapper_refuses_cpu_tensors():
     assert all(torch.equal(got_st[k], want_st[k]) for k in "hcnm")
 
 
+@pytest.mark.parametrize("bt", range(1, k8.MAX_BT + 1))
+def test_k8_launch_plan_fits_every_shape(bt):
+    """K8's launch plan for every head_dim 1..256 at this bt: a portable
+    cluster (2, 4 or 8 blocks; one block at hd 1) whose blocks fit an
+    H100's 227 KB of shared memory, hold the block's slice of wr (hd ×
+    4·ceil(hd / C) fp32) and h twice, and at least one and at most 48 units
+    (384 threads); the smallest that leaves a block at most 16 units, else
+    8."""
+    limit = 227 * 1024
+    for hd in range(1, k8.MAX_HEAD_DIM + 1):
+        c, nbytes = k8.plan(hd, bt)
+        units = -(-hd // c)
+        assert c in (2, 4, 8) or (hd, c) == (1, 1), (hd, c)
+        assert nbytes <= limit and (c - 1) * units < hd, (hd, c, nbytes)
+        assert nbytes == k8.smem_bytes(hd, bt, c)
+        assert nbytes >= 4 * (hd * 4 * units + 2 * bt * hd)
+        assert units <= 48 and c in k8.cluster_sizes(hd, bt)
+        assert units <= 16 or c == 8, (hd, c)
+        assert all(-(-hd // small) > 16 for small in (2, 4, 8)
+                   if small < c), (hd, c)
+    assert k8.plan(192, bt)[0] == 8          # xlstm-125m: 24 units a block
+    assert k8.plan(64, bt)[0] == 4
+    assert k8.plan(32, bt)[0] == 2
+    assert k8.plan(256, bt)[0] == 8          # 262 KB of wr at 4 blocks
+    assert k8.cluster_sizes(192, bt) == [4, 8]
+    assert k8.cluster_sizes(256, bt) == [8]
+
+
+@pytest.mark.parametrize("hd,bt", [(320, 8), (400, 1), (1024, 4)])
+def test_k8_launch_plan_raises_where_no_cluster_fits(hd, bt):
+    assert k8.cluster_sizes(hd, bt) == []
+    with pytest.raises(ValueError, match="fits no portable cluster"):
+        k8.plan(hd, bt)
+
+
+def test_k8_launch_plan_follows_the_limit_and_refuses_bad_bt():
+    """A size whose blocks exceed the shared-memory limit is not offered
+    (hd 256 at 4 blocks: 262 KB of wr a block); bt outside 1..8 raises."""
+    assert k8.plan(192, 2) == (8, 79_888)
+    for bt in range(1, k8.MAX_BT + 1):
+        assert k8.smem_bytes(256, bt, 4) > k8.SMEM_LIMIT
+        assert k8.smem_bytes(256, bt, 8) <= k8.SMEM_LIMIT
+        assert k8.cluster_sizes(256, bt) == [8]
+    for bt in (0, 9):
+        with pytest.raises(ValueError, match="out of range"):
+            k8.plan(64, bt)
+
+
+@pytest.mark.parametrize("hd,sizes,planned", [
+    (1, [1], 1), (6, [1, 2], 2), (9, [1, 2], 2), (49, [2, 4], 4),
+    (100, [4, 8], 8)])
+def test_k8_every_block_of_a_cluster_holds_a_unit(hd, sizes, planned):
+    """K8's exchange of h needs every block of the cluster to send, so no
+    size that leaves a block with no unit is offered: hd 6 and 9 at 4 or 8
+    blocks, 49 at 8; a head of one unit runs in a cluster of one block.
+    One block is offered to hd 48 and below but planned only at hd 1."""
+    for bt in (1, 8):
+        assert k8.cluster_sizes(hd, bt) == sizes
+        assert k8.plan(hd, bt)[0] == planned
+        for c in sizes:
+            assert (c - 1) * -(-hd // c) < hd
+
+
 # ---------------------------------------------------------------------------
 # the mixers
 # ---------------------------------------------------------------------------
