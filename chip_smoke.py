@@ -13,7 +13,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
 2. every kernel against its plain PyTorch version on the card over a
    sweep of shapes (rtol/atol 1e-5; K3 over a hub, K5 and K6 bitwise; K7
    fp32 rtol = atol 2e-5, bf16 1e-2 and each row's rms difference within
-   2e-2 of the row's rms; K8 rtol = atol 1e-4 over hd
+   2e-2 of the row's rms; K1, K2 and K6 also at ps = 40 and at 300,000
+   partitions, more than one grid of K1 holds; K8 rtol = atol 1e-4
+   over hd
    8/16/64/192, H 1/2/4,
    B 1/3/8, S 1/7/256/4096 from a random state), and two launches bitwise
    equal; for K8 also a row alone == the row in its batch at any ``bt``,
@@ -30,9 +32,11 @@ Phases, each of which passes or ends the run with a non-zero exit:
    and the plain-version aggregations at rtol/atol 1e-5;
 4. the serving launcher at a small scale;
 5. K1–K3 timings at the serving shapes (CUDA events), beside the plain
-   versions, one PyTorch library call and the memory-rate bound; K1 and
-   K2 held against their plain versions on every ring group of those
-   shapes at rtol/atol 1e-5, K3 bitwise; each group's longest segment
+   versions, one PyTorch library call and the memory-rate bound; K1
+   bitwise its plain version on every ring group of those shapes, K2
+   within rtol/atol 1e-5, K3 bitwise; K1 timed group by group beside each
+   group's partitions, masked-in slots and distinct rows, and its bytes
+   split into rows, index and output; each group's longest segment
    and K3's longest serial walk after its hub chunks, and K3 timed with
    the hubs cut at other chunk lengths;
 6. full-graph training at full width: GCN (hidden 16, 2 layers) on the
@@ -61,8 +65,10 @@ Phases, each of which passes or ends the run with a non-zero exit:
    k = 24 (lr 2e-2, 2 warmup steps) with the launch counts read around
    them, step 0's gradients held against the plain-version path (rtol
    1e-4) and bitwise equal across two runs; a Zipf trace served at
-   k = 24, served == offline bitwise (full and cached passes); K6 timed
-   at layer 1's aggregation, ``torch.topk`` per compress, the rotation
+   k = 24, served == offline bitwise (full and cached passes); K6 held
+   bitwise on every group of layer 1's aggregation and timed there, whole
+   and group by group, with its bytes split, and K1 held bitwise and timed
+   on the same groups' dense input; ``torch.topk`` per compress, the rotation
    copies of one aggregation at k = 96, 48, 24 and dense, and the step
    time at k = 24 and dense;
 11. dense-LM inference at full width, after the GNN phases' device state
@@ -201,6 +207,9 @@ LOGIT_TOL = 1e-4    # batched against solo logits, each step (fp32)
 BF16_RMS_RATIO = 1.5
 # K8 sweep: head_dim, heads, batch rows, steps (each combination)
 SLSTM_SWEEP = ((8, 16, 64, 192), (1, 2, 4), (1, 3, 8), (1, 7, 256, 4096))
+# K1 and K6 sweeps: more partitions than one grid of K1 holds (what fits
+# the card at once), so each of its warps walks several
+GRID_P = 300_000
 
 
 def fail(msg):
@@ -278,8 +287,10 @@ def main():
     gen = np.random.default_rng(0)
     n_cases, worst = 0, 0.0
     for d in (1, 16, 100, 130, 602):
-        for ps in (1, 8, 16):
-            for p in (1, 37, 1000):            # 37, 1000: not multiples of pb
+        for ps in (1, 8, 16, 40):      # 40: K1 takes 8 slots a batch
+            # 37, 1000: not multiples of pb; 300,000: more partitions than
+            # one grid of K1 holds, so its warps walk several
+            for p in (1, 37, 1000, GRID_P):
                 for all_masked in (False, True):
                     t = 3000
                     buf = torch.from_numpy(gen.normal(size=(t, d)).astype(
@@ -360,7 +371,7 @@ def main():
     for d in (1, 13, 96, 130, 600):      # K6: every register-batch path
         for k in sorted({1, max(1, d // 4), d}):
             for id_dtype in (torch.int16, torch.int32):
-                for p, ps in ((1, 1), (37, 8), (1000, 8)):
+                for p, ps in ((1, 1), (37, 8), (1000, 8), (GRID_P, 40)):
                     t = 3000
                     x = torch.from_numpy(gen.normal(size=(t, d)).astype(
                         np.float32)).to(dev)
@@ -384,6 +395,9 @@ def main():
                           f"sparse gather-sum D={d} k={k} {id_dtype} P={p}"
                           " not bitwise its plain version")
                     n_cases += 1
+    # the sweeps' last cases hold GBs that no later phase may keep
+    del buf, x, vals, idx, nbrs, mask, want, got, again
+    torch.cuda.empty_cache()
     flash_cases, flash_err, flash_row = sweep_flash(torch, ops, ref, dev, gen)
     n_cases += flash_cases
     slstm_cases, slstm_err = sweep_slstm(torch, ops, ref, K, dev, gen)
@@ -617,6 +631,18 @@ def profile_pass(torch, fn, reps=3):
                 device_ms_by_kernel=dict(top))
 
 
+def time_by_group(torch, calls, groups):
+    """Each group's launch timed alone (CUDA events) beside its work: its
+    partitions, masked-in slots and distinct rows gathered."""
+    rows = []
+    for call, grp in zip(calls, groups):
+        ms, n = _time(torch, call), grp.num_partitions
+        rows.append(dict(partitions=n, masked_in_slots=int(grp.mask.sum()),
+                         distinct_rows=int(grp.grad.rows.numel()), ms=ms,
+                         ns_per_partition=ms * 1e6 / n))
+    return rows
+
+
 def segment_walks(grp):
     """A group's longest segment and the longest serial walk of K3's
     threads after chunking: the longest chunk (pass 1) plus the longest
@@ -706,11 +732,17 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
             for o, s, t in zip(outs, srt, tgt):
                 o.index_add_(0, t, s)
 
-        # each kernel held to its plain version on every group
-        err_k1 = max(held(neighbor_agg.gather_sum_pipelined(b, g.nbrs, g.mask),
-                          ref.neighbor_gather_sum_ref(b, g.nbrs, g.mask),
-                          "gather_sum_pipelined at the main path's shapes")
-                     for b, g in groups)
+        # each kernel held to its plain version on every group, K1 bitwise
+        err_k1, bitwise_k1 = 0.0, True
+        for i, (b, g) in enumerate(groups):
+            got = neighbor_agg.gather_sum_pipelined(b, g.nbrs, g.mask)
+            want = ref.neighbor_gather_sum_ref(b, g.nbrs, g.mask)
+            err_k1 = max(err_k1, held(got, want, "gather_sum_pipelined at "
+                                                  "the main path's shapes"))
+            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            bitwise_k1 = bitwise_k1 and same
+            check(same, f"gather_sum_pipelined, group {i} of the main path: "
+                  "not bitwise its plain version")
         err_k2 = max(held(neighbor_agg.gather_sum_blocked(b, g.nbrs, g.mask,
                                                           pb=4),
                           ref.neighbor_gather_sum_ref(b, g.nbrs, g.mask),
@@ -747,6 +779,10 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
                          for c, ch in alt.items()}
         t_k3_by_chunk[SEG_CHUNK] = t_k3
         t_plain_s = _time(torch, plain_seg, reps=2, warmup=1)
+        k1_groups = time_by_group(torch, [
+            lambda b=b, g=g: neighbor_agg.gather_sum_pipelined(b, g.nbrs,
+                                                               g.mask)
+            for b, g in groups], [g for _, g in groups])
 
     def row(name, ms, plain_ms, lib_ms, lib, nbytes, err):
         return dict(name=name, route="cuda", source=SOURCE[name],
@@ -756,8 +792,12 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
                     bytes=nbytes, groups=len(groups), partitions=n_p,
                     valid_slots=valid, distinct_rows=distinct, width=d)
 
-    return [row("gather_sum_pipelined", t_k1, t_plain_g, t_lib_g,
-                "embedding_bag", gather_bytes, err_k1),
+    return [dict(row("gather_sum_pipelined", t_k1, t_plain_g, t_lib_g,
+                     "embedding_bag", gather_bytes, err_k1),
+                 bitwise_plain=bitwise_k1, by_group=k1_groups,
+                 bytes_split=dict(rows=distinct * d * 4,
+                                  index=n_p * ps * (4 + 1),
+                                  output=n_p * d * 4)),
             row("gather_sum_blocked", t_k2, t_plain_g, t_lib_g,
                 "embedding_bag", gather_bytes, err_k2),
             dict(row("segment_add_ordered", t_k3, t_plain_s, t_lib_s,
@@ -891,7 +931,9 @@ def train_full_graph(torch, C, K, g, ring, dev, ncls, rate, launches):
         loss, grads = value_and_grad(loss_fn(eng), p)
         adamw_update(grads, opt, p, ocfg)
 
-    step_ms = _time(torch, one_step, reps=5, warmup=1)
+    # the step is host-bound: after a single warm-up, five reps can read
+    # far above its steady state
+    step_ms = _time(torch, one_step, reps=10, warmup=3)
     breakdown = profile_pass(torch, one_step, reps=2)
     say("train_step_time", step_ms=step_ms, **breakdown)
     return time_scatter(torch, K, arrays, eng.plan, rate, dev)
@@ -1264,7 +1306,8 @@ def time_sparse_gather_sum(torch, C, K, z, k, arrays, plan, rate):
     """Time one aggregation's worth of K6 at layer 1 of the fig9e model:
     every group of the plan on its compressed input (each remote step on
     its chunk's tile rotated as the ring rotates it), held bitwise to the
-    plain version group by group."""
+    plain version group by group; K1 on the dense input of the same
+    groups (the dense ring's gather-sum at D = 96) held and timed too."""
     import torch.nn.functional as F
 
     ref = K.ref
@@ -1272,22 +1315,37 @@ def time_sparse_gather_sum(torch, C, K, z, k, arrays, plan, rate):
     d = z.shape[1]
     vals, idx = C.topk_activation(z, k)
     idx = idx.to(C.wire_index_dtype(d))
-    vt, it = (t.view(n_dev, dist, tile_rows, k) for t in (vals, idx))
+    vt, it, zt = (t.view(n_dev, dist, tile_rows, -1) for t in (vals, idx, z))
     groups = [(vals, idx, grp) for grp in arrays.local_steps]
+    dense = [z for _ in arrays.local_steps]
     for s, grp in enumerate(arrays.remote_steps):
         kk, c = divmod(s, dist)
-        groups.append((*(torch.roll(t[:, c], kk + 1, 0).reshape(-1, k)
-                         for t in (vt, it)), grp))
+        v, i, zz = (torch.roll(t[:, c], kk + 1, 0).reshape(-1, t.shape[-1])
+                    for t in (vt, it, zt))
+        groups.append((v, i, grp))
+        dense.append(zz)
     if arrays.local is not None:
         groups.append((vals, idx, arrays.local))
-    groups = [gr for gr in groups if gr[2].num_partitions]
-    err = 0.0
-    for v, i, grp in groups:
+        dense.append(z)
+    keep = [j for j, gr in enumerate(groups) if gr[2].num_partitions]
+    groups, dense = [groups[j] for j in keep], [dense[j] for j in keep]
+    err, bitwise = 0.0, {"k6": True, "k1": True}
+    for j, (v, i, grp) in enumerate(groups):
         got = K.neighbor_agg.sparse_gather_sum(v, i, grp.nbrs, grp.mask, d)
         want = ref.sparse_gather_sum_ref(v, i, grp.nbrs, grp.mask, d)
-        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-              "sparse_gather_sum at the fig9e shapes != its plain version")
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        bitwise["k6"] = bitwise["k6"] and same
+        check(same, f"sparse_gather_sum, fig9e group {j}: not bitwise its "
+              "plain version")
         err = max(err, (got - want).abs().max().item())
+        got = K.neighbor_agg.gather_sum_pipelined(dense[j], grp.nbrs,
+                                                  grp.mask)
+        want = ref.neighbor_gather_sum_ref(dense[j], grp.nbrs, grp.mask)
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        bitwise["k1"] = bitwise["k1"] and same
+        check(same, f"gather_sum_pipelined at D = {d}, fig9e group {j}: "
+              "not bitwise its plain version")
+    del got, want
     nb_long = [grp.nbrs.long() for _, _, grp in groups]
     weights = [grp.mask.float() for _, _, grp in groups]
 
@@ -1304,9 +1362,18 @@ def time_sparse_gather_sum(torch, C, K, z, k, arrays, plan, rate):
             F.embedding_bag(nb, C.topk_decompress(v, i, d), mode="sum",
                             per_sample_weights=w)
 
+    def k1():
+        for zz, (_, _, grp) in zip(dense, groups):
+            K.neighbor_agg.gather_sum_pipelined(zz, grp.nbrs, grp.mask)
+
     t_plain = _time(torch, plain, reps=2, warmup=1)
     t_k6 = _time(torch, k6)
     t_comp = _time(torch, composite)
+    t_k1 = _time(torch, k1)
+    k6_groups = time_by_group(torch, [
+        lambda v=v, i=i, grp=grp: K.neighbor_agg.sparse_gather_sum(
+            v, i, grp.nbrs, grp.mask, d) for v, i, grp in groups],
+        [grp for _, _, grp in groups])
     valid = sum(int(grp.mask.sum()) for _, _, grp in groups)
     n_p = sum(grp.num_partitions for _, _, grp in groups)
     ps = groups[0][2].nbrs.shape[1]
@@ -1325,7 +1392,14 @@ def time_sparse_gather_sum(torch, C, K, z, k, arrays, plan, rate):
                 composite="topk_decompress + embedding_bag (two calls)",
                 bytes=nbytes, groups=len(groups), partitions=n_p,
                 valid_slots=valid, distinct_rows=distinct, width=d, k=k,
-                id_dtype=str(idx.dtype))
+                id_dtype=str(idx.dtype), bitwise_plain=bitwise["k6"],
+                by_group=k6_groups,
+                bytes_split=dict(rows=distinct * k * (4 + id_bytes),
+                                 index=n_p * ps * (4 + 1),
+                                 output=n_p * d * 4),
+                dense_gather_sum_ms=t_k1,
+                dense_gather_sum_bitwise=bitwise["k1"],
+                dense_gather_sum="K1 on the dense (P, 96) input, same groups")
 
 
 def time_scatter(torch, K, arrays, plan, rate, dev):

@@ -15,21 +15,33 @@
 // K1/K2 compute out[p] = sum_j mask[p, j] * buf[nbrs[p, j]] in fp32, the
 // slots summed in order j = 0 .. ps-1 (masked slots are skipped: they add 0).
 //
-// What bounds them: bytes.  Each valid slot reads one D-wide row at a
-// data-dependent address (a gather), plus the partition's ids and mask, and
-// each partition writes one row: no arithmetic to speak of, so the bound is
-// (valid_slots * D * 4 + P * ps * 5 + P * D * 4) bytes over the card's
-// memory rate.  At the slice's width (D = 16) a row is 64 bytes, two 32-byte
-// sectors, so the gather is latency-bound long before it is rate-bound: the
-// designs keep many independent row loads in flight.
+// What bounds them: bytes.  Each distinct gathered row is read once at a
+// data-dependent address, each partition reads its ids and mask and writes
+// one row: (distinct_rows * D * 4 + P * ps * 5 + P * D * 4) bytes over the
+// card's memory rate, no arithmetic to speak of.  The work is per
+// partition, not per row: in the products serving plan (D = 16, ps = 8) a
+// partition holds 2.6 live slots of 8, carries 40 bytes of index and
+// writes a 64-byte row -- 0.230 GB of index and 0.368 GB of output beside
+// 0.312 GB of rows.
 //
-// K1's design: a group of `tpp` threads (a power of two, <= 32) owns one
-// partition, so at D = 16 one warp covers two partitions.  Each thread owns
-// up to kVPT columns of a column chunk.  While it adds slot j, the next
-// slot's row is already in flight into shared memory through cp.async
-// (double buffer) -- the counterpart of the row DMA that Pallas
-// double-buffers from the BlockSpec index map.  Each thread reads back only
-// the words it copied itself, so no block barrier is needed.
+// K1's design: a group of G threads (the next power of two >= D / V, at
+// most 32) owns a partition, each thread V columns of a column chunk of
+// G * V: V = 4 (one float4) where D % 4 == 0 and buf and out sit on 16
+// bytes, else V = 1.  At D = 16 that is 4 threads, so a warp holds 8
+// partitions side by side; D > 32 * V loops over chunks.  A warp walks
+// the partitions grid-stride (the grid is what fits the card at once) as
+// a chain of steps (partition, chunk, batch of kSlots = 8 slots): a step
+// issues every live slot's row into registers (masked slots load
+// nothing), loads the next step's ids and mask, and then adds the rows in
+// slot order.  So a warp keeps 8 partitions' index and live rows in
+// flight, where the first K1 (a cp.async double buffer, two partitions a
+// warp, each thread one word a slot) waited on eight serial index round
+// trips a partition: with no row loaded and none written it still took
+// 1.64 of its 1.98 ms.  Measured at the serving shapes (builds with parts
+// removed, not kept with the source): 0.457 ms an aggregation; 0.271 with
+// no rows loaded, 0.349 with no row written, 0.20 with neither; 0.517
+// with one step a warp and no walk.  The adds are K2's and the plain
+// version's, in the same order from +0: the bits are theirs.
 //
 // K2's design: one block owns pb partitions (the paper's warps-per-block
 // knob), one warp per partition; the block stages its partitions' ids and
@@ -82,91 +94,117 @@
 namespace {
 
 constexpr int kThreads = 256;  // K1 / K3 block size
-constexpr int kVPT = 4;        // K1: columns per thread per column chunk
+constexpr int kSlots = 8;      // K1: slots a register batch
 constexpr int kSegBatch = 32;  // K3/K4: partial words loaded ahead of adds
 
-__device__ __forceinline__ void cp_async_4(float* smem_dst,
-                                           const float* gmem_src) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-               "l"(gmem_src)
-               : "memory");
-}
+// V columns a thread, as one float4 where V = 4 (K1, K3).
+template <int V>
+struct Cols;
+template <>
+struct Cols<1> {
+  using T = float;
+  static __device__ __forceinline__ T zero() { return 0.0f; }
+  static __device__ __forceinline__ void add(T& a, T b) { a += b; }
+};
+template <>
+struct Cols<4> {
+  using T = float4;
+  static __device__ __forceinline__ T zero() {
+    return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  static __device__ __forceinline__ void add(T& a, T b) {
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  }
+};
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
+// K1: slots j0 .. j0 + kSlots - 1 of partition p, their ids and a bit a
+// live slot (none past ps, none for p >= P).
+struct SlotBatch {
+  int id[kSlots];
+  unsigned live;
+};
 
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__global__ void gather_sum_pipelined_kernel(const float* __restrict__ buf,
-                                            const int* __restrict__ nbrs,
-                                            const uint8_t* __restrict__ mask,
-                                            float* __restrict__ out,
-                                            long long P, int ps, int D,
-                                            int tpp) {
-  // stage[(b * kVPT + v) * blockDim.x + threadIdx.x]: buffer b, column v of
-  // this thread -- consecutive threads on consecutive words.
-  extern __shared__ float stage[];
-  const int lane = threadIdx.x & (tpp - 1);
-  const long long p =
-      static_cast<long long>(blockIdx.x) * (blockDim.x / tpp) +
-      threadIdx.x / tpp;
-  const bool active = p < P;
-  const int* nb = nbrs + (active ? p : 0) * ps;
-  const uint8_t* mk = mask + (active ? p : 0) * ps;
-  const int chunk = tpp * kVPT;
-  const int stride = blockDim.x;
-  float* mine = stage + threadIdx.x;
-
-  for (int c0 = 0; c0 < D; c0 += chunk) {
-    float acc[kVPT];
+__device__ __forceinline__ SlotBatch load_slots(
+    const int* __restrict__ nbrs, const uint8_t* __restrict__ mask,
+    long long p, long long P, int ps, int j0) {
+  SlotBatch b;
+  b.live = 0;
 #pragma unroll
-    for (int v = 0; v < kVPT; ++v) acc[v] = 0.0f;
-
-    // Issue slot j's row (this thread's columns) into buffer j & 1.
-    auto issue = [&](int j) {
-      if (!active || !mk[j]) return;
-      const float* row = buf + static_cast<size_t>(nb[j]) * D;
-      float* dst = mine + (j & 1) * kVPT * stride;
-#pragma unroll
-      for (int v = 0; v < kVPT; ++v) {
-        const int col = c0 + lane + v * tpp;
-        if (col < D) cp_async_4(dst + v * stride, row + col);
-      }
-    };
-
-    issue(0);
-    cp_async_commit();
-    for (int j = 0; j < ps; ++j) {
-      if (j + 1 < ps) issue(j + 1);
-      cp_async_commit();   // possibly empty: keeps the group count uniform
-      cp_async_wait_one(); // slot j has landed
-      if (active && mk[j]) {
-        const float* src = mine + (j & 1) * kVPT * stride;
-#pragma unroll
-        for (int v = 0; v < kVPT; ++v) {
-          if (c0 + lane + v * tpp < D) acc[v] += src[v * stride];
-        }
-      }
-      // The next issue overwrites this buffer: order the reads above
-      // before it.
-      __syncwarp();
+  for (int u = 0; u < kSlots; ++u) {
+    b.id[u] = 0;
+    if (p < P && j0 + u < ps) {
+      b.id[u] = nbrs[p * ps + j0 + u];
+      if (mask[p * ps + j0 + u]) b.live |= 1u << u;
     }
-    cp_async_wait_all();
-    if (active) {
+  }
+  return b;
+}
+
+// A group of G threads (a power of two, <= 32) owns a partition, each
+// thread V columns of a column chunk of G * V; a warp holds 32 / G
+// partitions side by side and walks the partitions grid-stride.  Its walk
+// is a chain of steps (partition, column chunk, batch of kSlots slots):
+// a step issues every live slot's row into registers, loads the next
+// step's ids and mask, then adds the rows in slot order.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    gather_sum_pipelined_kernel(const float* __restrict__ buf,
+                                const int* __restrict__ nbrs,
+                                const uint8_t* __restrict__ mask,
+                                float* __restrict__ out, long long P, int ps,
+                                int D, int G) {
+  using T = typename Cols<V>::T;
+  const int lane = threadIdx.x % 32;
+  const int sub = lane / G;  // this thread's partition within the warp
+  const int col = (lane % G) * V;
+  const int chunk = G * V;
+  const long long ppw = 32 / G;
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+  const long long stride = static_cast<long long>(gridDim.x) *
+                           (blockDim.x / 32) * ppw;
+  long long p = warp * ppw + sub;
+  int j0 = 0, c0 = 0;
+  SlotBatch cur = load_slots(nbrs, mask, p, P, ps, 0);
+  T acc = Cols<V>::zero();
+  while (p - sub < P) {  // the warp's first partition: uniform
+    const int c = c0 + col;
+    const unsigned live = c < D ? cur.live : 0u;
+    T v[kSlots];
 #pragma unroll
-      for (int v = 0; v < kVPT; ++v) {
-        const int col = c0 + lane + v * tpp;
-        if (col < D) out[p * D + col] = acc[v];
+    for (int u = 0; u < kSlots; ++u) {
+      v[u] = Cols<V>::zero();
+      if ((live >> u) & 1u)
+        v[u] = *reinterpret_cast<const T*>(
+            buf + static_cast<size_t>(cur.id[u]) * D + c);
+    }
+    // the next step: the next batch, else the next chunk, else partition
+    int nj = j0 + kSlots, nc = c0;
+    long long np = p;
+    const bool done = nj >= ps;
+    if (done) {
+      nj = 0;
+      nc = c0 + chunk;
+      if (nc >= D) {
+        nc = 0;
+        np = p + stride;
       }
     }
+    const SlotBatch next = load_slots(nbrs, mask, np, P, ps, nj);
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u)
+      if ((live >> u) & 1u) Cols<V>::add(acc, v[u]);
+    if (done) {
+      if (p < P && c < D) *reinterpret_cast<T*>(out + p * D + c) = acc;
+      acc = Cols<V>::zero();
+    }
+    cur = next;
+    j0 = nj;
+    c0 = nc;
+    p = np;
   }
 }
 
@@ -262,29 +300,6 @@ __global__ void ordered_segment_sum_kernel(float* __restrict__ out,
   }
   *dst = acc;
 }
-
-// K3: V columns a thread, as one float4 where V = 4.
-template <int V>
-struct Cols;
-template <>
-struct Cols<1> {
-  using T = float;
-  static __device__ __forceinline__ T zero() { return 0.0f; }
-  static __device__ __forceinline__ void add(T& a, T b) { a += b; }
-};
-template <>
-struct Cols<4> {
-  using T = float4;
-  static __device__ __forceinline__ T zero() {
-    return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
-  static __device__ __forceinline__ void add(T& a, T b) {
-    a.x += b.x;
-    a.y += b.y;
-    a.z += b.z;
-    a.w += b.w;
-  }
-};
 
 // acc += src[id(k)] (columns c .. c + V - 1) for k = k0 .. k1 - 1 in k
 // order, id(k) = order[k] (or k without an order); the rows of a batch are
@@ -419,10 +434,39 @@ int launch_segments(float* out, const float* partial, const int* order,
   return static_cast<int>(cudaGetLastError());
 }
 
-int threads_per_partition(int D) {
-  int t = 1;
-  while (t < D && t < 32) t *= 2;
-  return t;
+// K1: threads a partition, the next power of two >= ceil(D / V), <= 32.
+int group_threads(int D, int V) {
+  const int nv = (D + V - 1) / V;
+  int g = 1;
+  while (g < nv && g < 32) g *= 2;
+  return g;
+}
+
+// K1: as many blocks as fit the card at once (the walk is grid-stride),
+// no more than the partitions need.
+template <int V>
+int launch_pipelined(const float* buf, const int* nbrs, const uint8_t* mask,
+                     float* out, long long P, int ps, int D,
+                     cudaStream_t stream) {
+  auto kernel = gather_sum_pipelined_kernel<V>;
+  static int per_sm = 0;  // resident blocks an SM: the same on every H100
+  if (per_sm == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = group_threads(D, V);
+  const long long per_block = (kThreads / 32) * (32 / G);
+  const long long need = (P + per_block - 1) / per_block;
+  const long long fit = static_cast<long long>(per_sm) * sms;
+  const unsigned grid = static_cast<unsigned>(need < fit ? need : fit);
+  kernel<<<grid, kThreads, 0, stream>>>(buf, nbrs, mask, out, P, ps, D, G);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -432,15 +476,11 @@ extern "C" {
 int mgg_gather_sum_pipelined(const float* buf, const int* nbrs,
                              const uint8_t* mask, float* out, long long P,
                              int ps, int D, void* stream) {
-  if (P == 0) return static_cast<int>(cudaGetLastError());
-  const int tpp = threads_per_partition(D);
-  const long long per_block = kThreads / tpp;
-  const unsigned grid = static_cast<unsigned>((P + per_block - 1) / per_block);
-  const size_t smem = 2 * kVPT * kThreads * sizeof(float);
-  gather_sum_pipelined_kernel<<<grid, kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      buf, nbrs, mask, out, P, ps, D, tpp);
-  return static_cast<int>(cudaGetLastError());
+  if (P == 0 || D == 0) return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  if (D % 4 == 0 && aligned16(buf) && aligned16(out))
+    return launch_pipelined<4>(buf, nbrs, mask, out, P, ps, D, s);
+  return launch_pipelined<1>(buf, nbrs, mask, out, P, ps, D, s);
 }
 
 int mgg_gather_sum_blocked(const float* buf, const int* nbrs,

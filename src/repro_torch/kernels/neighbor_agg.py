@@ -195,8 +195,9 @@ def scatter_sum_ordered(dbuf: torch.Tensor, g: torch.Tensor,
     return dbuf
 
 
-# K6 keeps each D-wide fp32 accumulator in one block's shared memory
-SPARSE_MAX_WIDTH = 227 * 1024 // 4
+# K6 keeps each D-wide fp32 accumulator in one block's shared memory,
+# beside its list of 32 live slots (two words each)
+SPARSE_MAX_WIDTH = 227 * 1024 // 4 - 64
 ID_BYTES = {torch.int16: 2, torch.int32: 4}
 
 

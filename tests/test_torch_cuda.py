@@ -60,6 +60,57 @@ def test_gather_sum_matches_plain(cuda, p, ps, d, pb):
     assert torch.equal(got, ops.neighbor_gather_sum(buf, nbrs, mask, pb=pb))
 
 
+def _bits(t):
+    return t.view(torch.int32)
+
+
+def _k1_held_bitwise(buf, nbrs, mask):
+    """K1 bitwise equal to K2 (``pb=4``) and to the plain version, one
+    launch."""
+    want = ref.neighbor_gather_sum_ref(buf, nbrs, mask)
+    before = neighbor_agg.gather_sum_pipelined.launches
+    got = neighbor_agg.gather_sum_pipelined(buf, nbrs, mask)
+    assert neighbor_agg.gather_sum_pipelined.launches == before + 1
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got), _bits(
+        neighbor_agg.gather_sum_blocked(buf, nbrs, mask, pb=4)))
+    return got
+
+
+@pytest.mark.parametrize("d", [1, 13, 16, 96, 100, 130])
+@pytest.mark.parametrize("ps", [1, 8, 16, 40])
+def test_gather_sum_pipelined_bitwise_equals_blocked_and_plain(cuda, d, ps):
+    """K1's slots added in order from +0, masked ones skipped: the bits of
+    K2 and of the plain version, over one and several register batches of
+    slots, V = 4 and V = 1 columns, one and several column chunks, and
+    all-masked partitions (every fifth)."""
+    buf, nbrs, mask = _inputs(1001, ps, d, cuda, seed=d * 41 + ps)
+    mask[1::5] = False
+    got = _k1_held_bitwise(buf, nbrs, mask)
+    assert not got[1::5].any()
+
+
+def test_gather_sum_pipelined_walks_many_partitions(cuda):
+    """300,000 partitions at D = 16: more than one grid of K1 holds, so
+    every warp walks several."""
+    buf, nbrs, mask = _inputs(300_000, 8, 16, cuda, t=50_000, seed=3)
+    mask[1::5] = False
+    _k1_held_bitwise(buf, nbrs, mask)
+
+
+def test_gather_sum_pipelined_reads_an_unaligned_buffer(cuda):
+    """A ``buf`` whose base is 4 bytes past a 16-byte boundary (a view one
+    element into its storage) takes the one-column-a-thread path."""
+    base, nbrs, mask = _inputs(5000, 8, 16, cuda, seed=9)
+    flat = torch.empty(base.numel() + 1, device=cuda)
+    buf = flat[1:].view_as(base)
+    buf.copy_(base)
+    assert buf.data_ptr() % 16 == 4 and buf.is_contiguous()
+    got = _k1_held_bitwise(buf, nbrs, mask)
+    assert torch.equal(got, neighbor_agg.gather_sum_pipelined(base, nbrs,
+                                                              mask))
+
+
 def test_segment_add_matches_sequential_loop(cuda):
     rng = np.random.default_rng(5)
     tgt = np.concatenate([np.sort(rng.integers(0, 50, 400)),
@@ -279,6 +330,18 @@ def test_sparse_gather_sum_bitwise_equals_plain(cuda, id_dtype, d, kind):
     assert torch.equal(got, ops.sparse_neighbor_gather_sum(
         values, idx, nbrs, mask, d_feat=d))
     assert not got[1::7].any()                  # all-masked partitions
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int16, torch.int32])
+def test_sparse_gather_sum_at_many_partitions_of_40_slots(cuda, id_dtype):
+    """300,000 partitions of 40 slots at the fig9e width (D = 96, k = 24):
+    one partition a warp, in two windows of 32 slots."""
+    rng = np.random.default_rng(40)
+    values, idx, nbrs, mask = _sparse_case(rng, 50_000, 96, 24, 300_000,
+                                           40, id_dtype, cuda)
+    want = ref.sparse_gather_sum_ref(values, idx, nbrs, mask, 96)
+    got = ops.sparse_neighbor_gather_sum(values, idx, nbrs, mask, d_feat=96)
+    assert torch.equal(_bits(got), _bits(want))
 
 
 @pytest.mark.parametrize("id_dtype,d", [(torch.int16, 20000),
