@@ -11,7 +11,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
    HGMMA (wgmma) and UTMALDG (TMA load) instructions, whose counts it
    prints;
 2. every kernel against its plain PyTorch version on the card over a
-   sweep of shapes (rtol/atol 1e-5; K3 over a hub, K5 and K6 bitwise; K7
+   sweep of shapes (rtol/atol 1e-5; K1, K2, K5 and K6 bitwise, K3 and K4
+   over a hub bitwise; K7
    fp32 rtol = atol 2e-5, bf16 1e-2 and each row's rms difference within
    2e-2 of the row's rms; K1, K2 and K6 also at ps = 40 and at 300,000
    partitions, more than one grid of K1 holds; K8 rtol = atol 1e-4
@@ -28,13 +29,14 @@ Phases, each of which passes or ends the run with a non-zero exit:
    the kernels' launch counts read around it; every request of the trace
    answered; served logits bitwise equal to the offline forward (full and
    cached passes), and a sample held against the plain-version path at
-   rtol 2e-4; the ``pb=4`` aggregation (K2) held against the ``pb=None``
-   and the plain-version aggregations at rtol/atol 1e-5;
+   rtol 2e-4; the ``pb=4`` aggregation (K2) bitwise the ``pb=None`` one
+   and held against the plain-version aggregation at rtol/atol 1e-5;
 4. the serving launcher at a small scale;
 5. K1–K3 timings at the serving shapes (CUDA events), beside the plain
    versions, one PyTorch library call and the memory-rate bound; K1
    bitwise its plain version on every ring group of those shapes, K2
-   within rtol/atol 1e-5, K3 bitwise; K1 timed group by group beside each
+   (``pb=4``) bitwise its plain version and K1, K3 bitwise; K2 timed at
+   ``pb`` 1, 2, 4 and 8; K1 timed group by group beside each
    group's partitions, masked-in slots and distinct rows, and its bytes
    split into rows, index and output; each group's longest segment
    and K3's longest serial walk after its hub chunks, and K3 timed with
@@ -45,7 +47,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
    around them; step 0's gradients held against the plain-version path
    (rtol 1e-4), run twice bitwise equal, and a fused step against the
    unfused one (rtol 2e-4); step time by CUDA events, a torch.profiler
-   breakdown of one step, and K4 timed at the backward's shapes;
+   breakdown of one step, and K4 held bitwise its plain version on every
+   group of the backward's shapes (D = 16) and timed there, also with the
+   hubs cut at chunk lengths 64 to 1024;
 7. GIN, SAGE and GAT: one training step each on a reduced products
    stand-in (``REDUCED_SCALE``: 122,880 nodes, the models' own widths),
    gradients held against the plain-version path (rtol 1e-4) and, for
@@ -70,7 +74,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
    and group by group, with its bytes split, and K1 held bitwise and timed
    on the same groups' dense input; ``torch.topk`` per compress, the rotation
    copies of one aggregation at k = 96, 48, 24 and dense, and the step
-   time at k = 24 and dense;
+   time at k = 24 and dense; K4 held bitwise and timed on every group of
+   this plan at D = 96, as in phase 6;
 11. dense-LM inference at full width, after the GNN phases' device state
    is freed: mistral-nemo-12b (40 layers, d_model 5120, 32/8 heads,
    head_dim 128, vocab 131,072, fp32 parameters drawn on the card from a
@@ -308,6 +313,10 @@ def main():
                         worst = max(worst, held(
                             got, want,
                             f"gather-sum D={d} ps={ps} P={p} pb={pb}"))
+                        check(torch.equal(got.view(torch.int32),
+                                          want.view(torch.int32)),
+                              f"gather-sum D={d} ps={ps} P={p} pb={pb}: "
+                              "not bitwise its plain version")
                         check(torch.equal(got, again),
                               f"gather-sum not bitwise stable D={d} pb={pb}")
                         n_cases += 1
@@ -350,6 +359,8 @@ def main():
             got = ops.scatter_sum_ordered(base.clone(), *args)
             again = ops.scatter_sum_ordered(base.clone(), *args)
             worst = max(worst, held(got, want, f"scatter-sum D={d} P={p}"))
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"scatter-sum D={d} P={p}: not bitwise its plain version")
             check(torch.equal(got, again), f"scatter-sum not bitwise D={d}")
             check(torch.equal(got[-1], base[-1]),
                   f"scatter-sum D={d}: the sentinel row got a gradient")
@@ -403,7 +414,7 @@ def main():
     slstm_cases, slstm_err = sweep_slstm(torch, ops, ref, K, dev, gen)
     n_cases += slstm_cases
     say("kernels_vs_plain", cases=n_cases, max_abs_err=worst,
-        tolerance="rtol 1e-5 atol 1e-5 (K5, K6: bitwise)",
+        tolerance="rtol 1e-5 atol 1e-5; K1-K6 bitwise",
         flash_cases=flash_cases, flash_max_abs_err=flash_err,
         flash_bf16_max_row_rms_ratio=flash_row,
         flash_tolerance="fp32 rtol 2e-5 atol 2e-5, bf16 rtol 1e-2 atol 1e-2 "
@@ -492,17 +503,21 @@ def main():
     check(np.allclose(cached.logits, plain[rows.to(dev)].cpu().numpy(),
                       rtol=2e-4, atol=1e-5), "served != plain path")
     with torch.inference_mode():      # K2's aggregation, on the same arrays
+        h_k1 = mgg_aggregate(h0, eng.plan, ring, arrays=lay0)
         err_pb = max(
-            held(h_pb, mgg_aggregate(h0, eng.plan, ring, arrays=lay0),
-                 "pb=4 aggregation against pb=None"),
+            held(h_pb, h_k1, "pb=4 aggregation against pb=None"),
             held(h_pb, mgg_aggregate(h0, eng.plan, ring, use_kernel=False,
                                      arrays=lay0),
                  "pb=4 aggregation against the plain path"))
+        check(torch.equal(h_pb, h_k1),
+              "pb=4 aggregation not bitwise the pb=None one")
+        del h_k1
     say("main_path_checked", served_equals_offline="bitwise (full, cached)",
         plain_max_abs_err=float((offline[sample] - plain[sample]).abs()
                                 .max()),
         tolerance_plain="rtol 2e-4 atol 1e-5", pb4_max_abs_err=err_pb,
-        tolerance_pb4="rtol 1e-5 atol 1e-5")
+        tolerance_pb4="rtol 1e-5 atol 1e-5 against the plain path, "
+                      "bitwise the pb=None aggregation")
 
     # launches of one full forward pass
     K.reset_launch_counts()
@@ -534,12 +549,17 @@ def main():
     del srv, eng, lay0, offline, plain, h0, h_pb, h1
 
     # -- 6.-9. training ----------------------------------------------------
-    kernels.append(train_full_graph(torch, C, K, g, ring, dev, ncls, rate,
-                                    launches))
+    k4 = train_full_graph(torch, C, K, g, ring, dev, ncls, rate, launches)
+    kernels.append(k4)
     train_other_models(torch, C, K, dev, ncls)
     kernels.append(train_sampled(torch, C, K, g, dev, ncls, rate, launches))
     train_launcher(dev)
-    kernels.append(sparse_ring(torch, C, K, g, ring, dev, rate, launches))
+    k6, k4_fig9e = sparse_ring(torch, C, K, g, ring, dev, rate, launches)
+    kernels.append(k6)
+    # K4 at the fig9e plan's width too: bitwise on every group of both
+    k4["fig9e"] = {k: v for k, v in k4_fig9e.items()
+                   if k not in ("name", "route", "source", "replaces")}
+    k4["bitwise_plain"] = k4["bitwise_plain"] and k4_fig9e["bitwise_plain"]
 
     # -- 11. dense-LM inference: the GNN phases' device state goes first ----
     del params, results, ring, apply, init
@@ -666,7 +686,7 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
     products plan: 7 remote ring steps + 7 interleaved local slices, D=16,
     the width both GCN layers aggregate at) with its real layer-0 input."""
     import torch.nn.functional as F
-    from repro_torch.kernels.ops import SEG_CHUNK, SegmentChunks
+    from repro_torch.kernels.ops import SegmentChunks, chunk_length
 
     with torch.inference_mode():
         dinv = torch.rsqrt(eng.deg)[:, None]
@@ -702,9 +722,9 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
             for b, g in groups:
                 neighbor_agg.gather_sum_pipelined(b, g.nbrs, g.mask)
 
-        def k2():
+        def k2(pb=4):
             for b, g in groups:
-                neighbor_agg.gather_sum_blocked(b, g.nbrs, g.mask, pb=4)
+                neighbor_agg.gather_sum_blocked(b, g.nbrs, g.mask, pb=pb)
 
         def plain_gather():
             for b, g in groups:
@@ -743,11 +763,19 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
             bitwise_k1 = bitwise_k1 and same
             check(same, f"gather_sum_pipelined, group {i} of the main path: "
                   "not bitwise its plain version")
-        err_k2 = max(held(neighbor_agg.gather_sum_blocked(b, g.nbrs, g.mask,
-                                                          pb=4),
-                          ref.neighbor_gather_sum_ref(b, g.nbrs, g.mask),
-                          "gather_sum_blocked at the main path's shapes")
-                     for b, g in groups)
+        # K2 at pb = 4 bitwise its plain version and K1 on every group
+        err_k2, bitwise_k2 = 0.0, True
+        for i, (b, g) in enumerate(groups):
+            got = neighbor_agg.gather_sum_blocked(b, g.nbrs, g.mask, pb=4)
+            want = ref.neighbor_gather_sum_ref(b, g.nbrs, g.mask)
+            err_k2 = max(err_k2, held(got, want, "gather_sum_blocked at "
+                                                  "the main path's shapes"))
+            same = torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)) and torch.equal(
+                got, neighbor_agg.gather_sum_pipelined(b, g.nbrs, g.mask))
+            bitwise_k2 = bitwise_k2 and same
+            check(same, f"gather_sum_blocked, group {i} of the main path: "
+                  "not bitwise its plain version and K1")
         # K3 bitwise its plain version on every group, hub chunks and all;
         # the error and the bitwise flag are read from these comparisons
         err_k3, bitwise_k3 = 0.0, True
@@ -762,22 +790,30 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
                   "not bitwise its plain version")
         walks = [segment_walks(g) for _, g in groups]
         # the chunk length on the card: K3's time with each group's hubs
-        # cut at other lengths (the index is a function of seg_start)
+        # cut at other lengths (the index is a function of seg_start) than
+        # the one the rule keeps for this plan's longest segment
+        kept = chunk_length(max(w[0] for w in walks))
         alt = {c: [SegmentChunks.build(g.seg_start.cpu().numpy(), h.device,
                                        chunk=c) for _, g in groups]
-               for c in (32, 128, 256)}
+               for c in (32, 64, 128, 256) if c != kept}
 
         # plain and library calls around the kernels: plain, kernel,
         # kernel, plain in one process on one card
         t_plain_g = _time(torch, plain_gather, reps=5)
         t_k1 = _time(torch, k1)
         t_k2 = _time(torch, k2)
+        t_k2_by_pb = {pb: _time(torch, lambda pb=pb: k2(pb))
+                      for pb in (1, 2, 8)}
+        t_k2_by_pb[4] = t_k2
         t_lib_g = _time(torch, lib_gather)
-        t_k3 = _time(torch, k3)
         t_lib_s = _time(torch, lib_seg)
+        # the kept chunk length timed before and after the others, which
+        # run between: its time is the mean of its two readings
+        t_k3_runs = [_time(torch, k3)]
         t_k3_by_chunk = {c: _time(torch, lambda ch=ch: k3(ch))
                          for c, ch in alt.items()}
-        t_k3_by_chunk[SEG_CHUNK] = t_k3
+        t_k3_runs.append(_time(torch, k3))
+        t_k3 = t_k3_by_chunk[kept] = sum(t_k3_runs) / 2
         t_plain_s = _time(torch, plain_seg, reps=2, warmup=1)
         k1_groups = time_by_group(torch, [
             lambda b=b, g=g: neighbor_agg.gather_sum_pipelined(b, g.nbrs,
@@ -798,11 +834,13 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
                  bytes_split=dict(rows=distinct * d * 4,
                                   index=n_p * ps * (4 + 1),
                                   output=n_p * d * 4)),
-            row("gather_sum_blocked", t_k2, t_plain_g, t_lib_g,
-                "embedding_bag", gather_bytes, err_k2),
+            dict(row("gather_sum_blocked", t_k2, t_plain_g, t_lib_g,
+                     "embedding_bag", gather_bytes, err_k2),
+                 pb=4, bitwise_plain=bitwise_k2,
+                 ms_by_pb=dict(sorted(t_k2_by_pb.items()))),
             dict(row("segment_add_ordered", t_k3, t_plain_s, t_lib_s,
                      "index_add_", seg_bytes, err_k3),
-                 bitwise_plain=bitwise_k3, chunk_len=SEG_CHUNK,
+                 bitwise_plain=bitwise_k3, chunk_len=kept, ms_runs=t_k3_runs,
                  ms_by_chunk_len=dict(sorted(t_k3_by_chunk.items())),
                  hub_chunks=sum(g.chunks.num_chunks for _, g in groups
                                 if g.chunks is not None),
@@ -936,7 +974,7 @@ def train_full_graph(torch, C, K, g, ring, dev, ncls, rate, launches):
     step_ms = _time(torch, one_step, reps=10, warmup=3)
     breakdown = profile_pass(torch, one_step, reps=2)
     say("train_step_time", step_ms=step_ms, **breakdown)
-    return time_scatter(torch, K, arrays, eng.plan, rate, dev)
+    return time_scatter(torch, K, arrays, eng.plan, rate, dev, 16)
 
 
 def train_other_models(torch, C, K, dev, ncls):
@@ -1264,12 +1302,13 @@ def sparse_ring(torch, C, K, g, ring, dev, rate, launches):
         rot_ms = {str(kk): time_rotations(torch, ring, plan, d, kk, dev)
                   for kk in SPARSE_KS}
         rot_ms["dense"] = time_rotations(torch, ring, plan, d, None, dev)
+    k4 = time_scatter(torch, K, arrays, plan, rate, dev, d)
     say("sparse_wire", topk_ms=topk_ms, topk_shape=list(z.shape),
         rotation_ms_per_aggregation=rot_ms,
         rotations_per_aggregation=plan.dist * (plan.n_dev - 1),
         wire_bytes={str(kk): C.sparse_collective_bytes(plan, d, kk)
                     for kk in SPARSE_KS}, dense_wire_bytes=dense_wire)
-    return k6
+    return k6, k4
 
 
 def time_rotations(torch, ring, plan, d, k, dev):
@@ -1402,11 +1441,12 @@ def time_sparse_gather_sum(torch, C, K, z, k, arrays, plan, rate):
                 dense_gather_sum="K1 on the dense (P, 96) input, same groups")
 
 
-def time_scatter(torch, K, arrays, plan, rate, dev):
-    """Time one backward aggregation's worth of K4 (every group of the
-    training plan, D = 16, the width both GCN layers' gradients carry)."""
-    ref = K.ref
-    d, rows = 16, plan.padded_nodes
+def time_scatter(torch, K, arrays, plan, rate, dev, d):
+    """Time one backward aggregation's worth of K4 (every group of a
+    training plan at width ``d``), held bitwise to its plain version group
+    by group, and timed again with the hubs cut at other chunk lengths."""
+    ref, ops = K.ref, K.ops
+    rows = plan.padded_nodes
     tile_total = plan.n_dev * plan.tile_rows
     gen = torch.Generator(device=dev).manual_seed(0)
     g = torch.randn((rows, d), generator=gen, device=dev)
@@ -1414,17 +1454,28 @@ def time_scatter(torch, K, arrays, plan, rate, dev):
              [(rows, grp) for grp in arrays.local_steps] + \
              ([(rows, arrays.local)] if arrays.local is not None else [])
     groups = [(n, grp.grad) for n, grp in groups if grp.grad.num_slots]
+    err, bitwise = 0.0, True
+    for i, (n, ix) in enumerate(groups):
+        base = torch.randn((n, d), generator=gen, device=dev)
+        got = K.neighbor_agg.scatter_sum_ordered(base.clone(), g, ix)
+        want = ref.scatter_sum_ordered_ref(base.clone(), g, ix)
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        err = max(err, (got - want).abs().max().item())
+        bitwise = bitwise and same
+        check(same, f"scatter_sum_ordered at D = {d}, group {i}: not "
+              "bitwise its plain version")
+    del base, got, want
     outs = [torch.zeros((n, d), device=dev) for n, _ in groups]
-    err = max(held(K.neighbor_agg.scatter_sum_ordered(
-        torch.zeros((n, d), device=dev), g, ix),
-        ref.scatter_sum_ordered_ref(torch.zeros((n, d), device=dev), g, ix),
-        "scatter_sum_ordered at the training shapes") for n, ix in groups)
     slot_rows = [ix.rows.long().repeat_interleave(
         (ix.start[1:] - ix.start[:-1]).long()) for _, ix in groups]
     g_slots = [g.index_select(0, ix.src.long()) for _, ix in groups]
+    # the same index with its hubs cut at other chunk lengths
+    alt = {c: [dataclasses.replace(ix, chunks=ops.SegmentChunks.build(
+        ix.start.cpu().numpy(), dev, chunk=c)) for _, ix in groups]
+        for c in (64, 128, 256, 512, 1024)}
 
-    def k4():
-        for o, (_, ix) in zip(outs, groups):
+    def k4(index=None):
+        for o, ix in zip(outs, index or [ix for _, ix in groups]):
             K.neighbor_agg.scatter_sum_ordered(o, g, ix)
 
     def plain():
@@ -1439,6 +1490,12 @@ def time_scatter(torch, K, arrays, plan, rate, dev):
         t_plain = _time(torch, plain, reps=2, warmup=1)
         t_k4 = _time(torch, k4)
         t_lib = _time(torch, lib)
+        by_chunk = {c: _time(torch, lambda ix=ix: k4(ix))
+                    for c, ix in alt.items()}
+    del g_slots, slot_rows, outs
+    chunks = [ix.chunks for _, ix in groups]
+    lens = [ix.start[1:] - ix.start[:-1] for _, ix in groups]
+    longest = [int(x.max()) for x in lens]
     slots = sum(ix.num_slots for _, ix in groups)
     segs = sum(int(ix.rows.numel()) for _, ix in groups)
     distinct_g = sum(int(torch.unique(ix.src).numel()) for _, ix in groups)
@@ -1451,9 +1508,14 @@ def time_scatter(torch, K, arrays, plan, rate, dev):
                 ms=t_k4, plain_ms=t_plain, bound_ms=nbytes / rate * 1e3,
                 bound_by="bytes", library_ms=t_lib, library="index_add_",
                 bytes=nbytes, groups=len(groups), masked_slots=slots,
-                segments=segs, chunks=sum(ix.num_chunks for _, ix in groups),
-                longest_segment=max(int((ix.start[1:] - ix.start[:-1]).max())
-                                    for _, ix in groups), width=d)
+                segments=segs, longest_segment=max(longest), width=d,
+                bitwise_plain=bitwise,
+                chunk_len=ops.chunk_length(max(longest)),
+                chunk_len_by_group=[0 if ch is None else ch.chunk
+                                    for ch in chunks],
+                hubs=sum(int(ch.hubs.numel()) for ch in chunks if ch),
+                hub_chunks=sum(ch.num_chunks for ch in chunks if ch),
+                ms_by_chunk_len=dict(sorted(by_chunk.items())))
 
 
 def time_gather_rows(torch, K, tiers, ids, rate, dev):

@@ -112,9 +112,10 @@ class WorkGroup:
     stacked ring tiles or the whole table); ``order``/``seg_rows``/
     ``seg_start`` drive the ordered segment add into the flat output, and
     ``chunks`` cuts its hub segments into fixed-order chunks (None when no
-    segment is longer than ``ops.SEG_CHUNK``); ``grad`` is the transposed
-    index whose K4 scatter-sum carries the output's gradient back to the
-    rows gathered from.
+    segment is longer than ``ops.chunk_length`` of the longest); ``grad``
+    is the transposed index, with hub chunks of its own, whose K4
+    scatter-sum carries the output's gradient back to the rows gathered
+    from.
     """
 
     nbrs: torch.Tensor       # (P, ps) int32

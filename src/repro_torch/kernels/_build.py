@@ -78,10 +78,6 @@ _SIGNATURES = {
     # n_hubs, chunk_start, chunk_end, n_chunks, chunk_len, sums, stream
     "mgg_segment_add_ordered": [_P, _P, _P, _P, _P, _L, _I, _P, _P, _L, _P,
                                 _P, _L, _I, _P, _P],
-    # dbuf, g, src, seg_rows, seg_start, n_seg, chunk_start, row_chunks,
-    # chunk_sums, n_chunks, D, stream
-    "mgg_scatter_sum_ordered": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _L, _I,
-                                _P],
     # src, idx, out, B, T, D, stream
     "mgg_gather_rows": [_P, _P, _P, _L, _L, _I, _P],
     # values, idx, nbrs, mask, out, P, ps, k, D, id_bytes, stream

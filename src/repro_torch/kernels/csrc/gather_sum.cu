@@ -10,7 +10,8 @@
 // K4 scatter_sum_ordered   has no Pallas counterpart either: it replaces
 //                          the gather-sum's backward, the masked scatter-add
 //                          ``zeros.at[nbrs].add(g * mask)`` of
-//                          repro/kernels/ops.py (_gather_sum_bwd).
+//                          repro/kernels/ops.py (_gather_sum_bwd); it runs
+//                          K3's kernels on a transposed index.
 //
 // K1/K2 compute out[p] = sum_j mask[p, j] * buf[nbrs[p, j]] in fp32, the
 // slots summed in order j = 0 .. ps-1 (masked slots are skipped: they add 0).
@@ -45,46 +46,66 @@
 //
 // K2's design: one block owns pb partitions (the paper's warps-per-block
 // knob), one warp per partition; the block stages its partitions' ids and
-// mask in shared memory once and each lane loops over the slots for its
-// columns.  P need not be a multiple of pb.
+// mask in shared memory once.  P need not be a multiple of pb.  What
+// bounds it: K1's bytes; what sets its time is the partitions in flight,
+// one a warp (64 an SM at pb >= 2), times each one's life: the index round
+// trip, the rows' round trip and its instructions, all paid by one warp
+// for 2.6 live rows (about 2 us a partition at the serving shapes).  A
+// lane owns a column (32 a chunk) and loads the rows of kSlots slots into
+// registers before it adds the live ones in slot order from +0, where its
+// first design walked the slots one load and add at a time (1.59 ms an
+// aggregation).  Splitting the lanes between slots and float4 columns (8
+// slots by 4 lanes at D = 16), with each row passed to its column's lane
+// by shuffles, measured slower (2.07-2.69 ms), as did a persistent walk
+// over tiles two deep (2.84-3.06 ms): they spend more instructions a
+// partition.  The adds are K1's and the plain version's, so K2 == K1 ==
+// plain, bitwise.
 //
 // K3's design: targets are sorted only up to their padding, and a row with
 // degree > ps owns several partitions, so a plain scatter-add needs atomics
 // and its bits change from run to run.  The host builds, once per plan, a
-// stable argsort of each target array plus segment offsets; here a thread
-// owns one (destination row, group of V columns) and adds that row's
-// partials in partition order.  One owner per output word: deterministic,
-// no atomics.  It moves (P * D * 4 + P * 4 + S * 8 + 2 * S * D * 4) bytes
-// for P partials into S rows.  Two things set its time: the bytes, read as
-// 16-byte float4 (V = 4, four threads a 64-byte row at D = 16) wherever D
-// % 4 == 0; and the longest serial walk, a hub row's (8,123 partials in the
-// products serving plan).  So the host also cuts every segment longer than
-// a chunk length C (ops.SEG_CHUNK) into chunks of C partials: pass 1 sums
-// each hub chunk in partition order into a scratch row, pass 2 runs every
-// segment, a hub adding its chunk sums in chunk order, any other its
-// partials as without chunks (same bits, no scratch).  The longest walk
-// drops from L to C + ceil(L / C); the association is fixed by the index,
-// and the plain version takes the same two passes, bitwise.
+// stable argsort of each target array plus segment offsets; each
+// destination row adds its partials in partition order onto its old value.
+// One owner per output word: deterministic, no atomics.  It moves (P * D *
+// 4 + P * 4 + S * 8 + 2 * S * D * 4) bytes for P partials into S rows,
+// read as 16-byte float4 (V = 4) wherever D % 4 == 0.  Its time is set by
+// the bytes and by the longest serial walk, a hub row's (8,123 partials in
+// the products serving plan).  So the host cuts every segment longer than
+// a chunk length C (ops.chunk_length: the largest power of two not above
+// sqrt(L / 8) for the longest segment L, at least 64) into chunks of C:
+// pass 1 sums each hub chunk in partition order into a scratch row, pass 2
+// adds a hub's chunk sums in chunk order and any other segment's partials
+// as without chunks.  The walk drops from L to C + ceil(L / C); the
+// association is fixed by the index, and the plain version takes the same
+// two passes, bitwise.  Every walk of more than kShortLen entries is made
+// by a whole warp (warp_walk): lanes split into S slots by G column
+// groups, a lane has kWalk rows in flight while the next ids load, and
+// the adds run in order through shuffles.  Three launches: pass 1, a warp
+// a chunk; the long segments (a warp reads 32 segments' offsets and walks
+// each long one in turn); the short ones, at most kShortLanes lanes each,
+// a batch of rows in flight, so that this launch, which holds most of the
+// work, keeps its registers few and the card full.
+//
 // K4 computes dbuf[r] += sum of g[src(k)] over the masked slots k whose
 // neighbor id is r: the transpose of K1/K2.  A CUDA scatter-add of the
 // slots would need atomics (and its bits would change from run to run), so
-// the host builds, once per plan, the transposed index: the masked slots
-// sorted stably by neighbor row (segment offsets per distinct row) and, per
-// slot, the row of g it reads -- in the ring that is the slot's target row
-// tgt[p], composed on the host, so the backward never materialises the
-// per-partition gradient.  That is K3's problem with a gather index in
-// front, so K4 runs the ordered segment-sum kernel that K3 ran before it
-// took its own (ordered_segment_sum_kernel, reading g[src[k]]): one thread
-// owns one (row, column).  What bounds it: bytes, (G * D * 4 + K * 4 + S * 8 +
-// 2 * S * D * 4) for K masked slots reading G distinct rows of g into S
-// rows.  Its tail is the longest segment: a hub neighbor is named by
-// ~1e5 slots of one ring step, where K3's longest segment is ps times
-// shorter.  So when a segment is longer than the host's chunk (256 slots),
-// K4 runs two passes of the kernel: each chunk's slots summed in slot
-// order into a scratch row (pass 1, identity rows), then each row's chunk
-// sums added in chunk order (pass 2, identity order).  The association is
-// fixed by the index, so the bits are the same from run to run, and the
-// plain version takes the same two passes.
+// the host builds, once per plan, the transposed index (ops.GradIndex):
+// the masked slots sorted stably by neighbor row (segment offsets per
+// distinct row) and, per slot, the row of g it reads -- in the ring that
+// is the slot's target row tgt[p], composed on the host, so the backward
+// never materialises the per-partition gradient.  That is K3's problem
+// with g in place of the partials and src as the order, and K4 runs K3's
+// pair on it (mgg_segment_add_ordered) with the index's own hub chunks.
+// What bounds it: bytes, (G * D * 4 + K * 4 + S * 8 + 2 * S * D * 4) for K
+// masked slots reading G distinct rows of g into S rows.  Its tail is the
+// longest walk: a hub neighbor is named by up to 173,973 slots of one ring
+// step in the products training plan, about 20 times K3's longest
+// segment, so its chunks are longer (128 there against K3's 64, by the
+// same rule).  Its
+// first design ran one thread a (row, column) on scalar floats and cut
+// every row into chunks of 256 once any row was longer, with a zeroed
+// scratch of chunk sums for all of them: 3.05 ms an aggregation, 1.95 of
+// them in pass 1's serial 256-slot walks.
 //
 // Every launch runs on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
@@ -95,9 +116,13 @@ namespace {
 
 constexpr int kThreads = 256;  // K1 / K3 block size
 constexpr int kSlots = 8;      // K1: slots a register batch
-constexpr int kSegBatch = 32;  // K3/K4: partial words loaded ahead of adds
+constexpr int kSegBatch = 16;  // K3/K4: words a lane loads ahead of adds
+constexpr int kWalk = 8;       // K3/K4 warp walk: rows a lane has in flight
+constexpr int kShortLen = 16;  // K3/K4: a segment of at most this many
+                               // entries (and no hub) is short
+constexpr int kShortLanes = 8; // K3/K4: lanes a short segment, at most
 
-// V columns a thread, as one float4 where V = 4 (K1, K3).
+// V columns a thread, as one float4 where V = 4 (K1-K4).
 template <int V>
 struct Cols;
 template <>
@@ -105,6 +130,9 @@ struct Cols<1> {
   using T = float;
   static __device__ __forceinline__ T zero() { return 0.0f; }
   static __device__ __forceinline__ void add(T& a, T b) { a += b; }
+  static __device__ __forceinline__ T shfl(T a, int lane) {
+    return __shfl_sync(0xffffffffu, a, lane);
+  }
 };
 template <>
 struct Cols<4> {
@@ -118,7 +146,26 @@ struct Cols<4> {
     a.z += b.z;
     a.w += b.w;
   }
+  static __device__ __forceinline__ T shfl(T a, int lane) {
+    return make_float4(__shfl_sync(0xffffffffu, a.x, lane),
+                       __shfl_sync(0xffffffffu, a.y, lane),
+                       __shfl_sync(0xffffffffu, a.z, lane),
+                       __shfl_sync(0xffffffffu, a.w, lane));
+  }
 };
+
+bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The lanes that share a row (K1-K4): the next power of two >= ceil(D /
+// V), at most 32.
+int group_threads(int D, int V) {
+  const int nv = (D + V - 1) / V;
+  int g = 1;
+  while (g < nv && g < 32) g *= 2;
+  return g;
+}
 
 // K1: slots j0 .. j0 + kSlots - 1 of partition p, their ids and a bit a
 // live slot (none past ps, none for p >= P).
@@ -208,6 +255,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K2: one block owns pb partitions, one warp each, and stages their ids
+// and mask in shared memory once.  A lane owns a column of the partition
+// (32 columns a chunk); each step loads the rows of kSlots slots into
+// registers (masked slots load nothing), then adds the live ones in slot
+// order from +0.
 __global__ void gather_sum_blocked_kernel(const float* __restrict__ buf,
                                           const int* __restrict__ nbrs,
                                           const uint8_t* __restrict__ mask,
@@ -224,87 +276,34 @@ __global__ void gather_sum_blocked_kernel(const float* __restrict__ buf,
     s_msk[i] = ok ? static_cast<int>(mask[p0 * ps + i]) : 0;
   }
   __syncthreads();
-  const int w = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long long p = p0 + w;
+  const long long p = p0 + threadIdx.x / 32;
   if (p >= P) return;
-  const int* my_nbr = s_nbr + w * ps;
-  const int* my_msk = s_msk + w * ps;
-  for (int c = lane; c < D; c += 32) {
+  const int* my_nbr = s_nbr + (threadIdx.x / 32) * ps;
+  const int* my_msk = s_msk + (threadIdx.x / 32) * ps;
+  for (int c = threadIdx.x % 32; c < D; c += 32) {
     float acc = 0.0f;
-    for (int j = 0; j < ps; ++j) {
-      if (my_msk[j]) acc += buf[static_cast<size_t>(my_nbr[j]) * D + c];
+    for (int j0 = 0; j0 < ps; j0 += kSlots) {
+      float v[kSlots];
+      unsigned live = 0;
+#pragma unroll
+      for (int u = 0; u < kSlots; ++u) {
+        v[u] = 0.0f;
+        if (j0 + u < ps && my_msk[j0 + u]) {
+          live |= 1u << u;
+          v[u] = buf[static_cast<size_t>(my_nbr[j0 + u]) * D + c];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSlots; ++u)
+        if ((live >> u) & 1u) acc += v[u];
     }
     out[p * D + c] = acc;
   }
 }
 
-// out[seg_rows[s]] += sum over k in segment s of partial[order[k]], added in
-// k order (K4).  Without kRows the row is s, without kOrder the partial is
-// k (K4's two passes); K4's one pass takes both.
-template <bool kOrder, bool kRows>
-__global__ void ordered_segment_sum_kernel(float* __restrict__ out,
-                                          const float* __restrict__ partial,
-                                          const int* __restrict__ order,
-                                          const int* __restrict__ seg_rows,
-                                          const int* __restrict__ seg_start,
-                                          long long n_seg, int D) {
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n_seg * D) return;
-  const long long s = t / D;
-  const int c = static_cast<int>(t - s * D);
-  long long row = s;
-  if constexpr (kRows) row = seg_rows[s];
-  float* dst = out + static_cast<size_t>(row) * D + c;
-  float acc = *dst;
-  const int end = seg_start[s + 1];
-  int k = seg_start[s];
-  // A hub row owns thousands of partitions in one step.  Loading kSegBatch
-  // partials before adding them keeps that many loads in flight instead of
-  // one, and the next batch's ids load while this batch's rows are in
-  // flight; the adds still run in partition order, so the bits do not change.
-  if (k + kSegBatch <= end) {
-    int ids[kSegBatch];
-#pragma unroll
-    for (int u = 0; u < kSegBatch; ++u) {
-      if constexpr (kOrder) {
-        ids[u] = order[k + u];
-      } else {
-        ids[u] = k + u;
-      }
-    }
-    for (; k + kSegBatch <= end; k += kSegBatch) {
-      float v[kSegBatch];
-#pragma unroll
-      for (int u = 0; u < kSegBatch; ++u) {
-        v[u] = partial[static_cast<size_t>(ids[u]) * D + c];
-      }
-      const int next = k + kSegBatch;
-#pragma unroll
-      for (int u = 0; u < kSegBatch; ++u) {
-        if constexpr (kOrder) {
-          ids[u] = next + u < end ? order[next + u] : 0;
-        } else {
-          ids[u] = next + u;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kSegBatch; ++u) acc += v[u];
-    }
-  }
-  for (; k < end; ++k) {
-    long long id = k;
-    if constexpr (kOrder) id = order[k];
-    acc += partial[static_cast<size_t>(id) * D + c];
-  }
-  *dst = acc;
-}
-
-// acc += src[id(k)] (columns c .. c + V - 1) for k = k0 .. k1 - 1 in k
-// order, id(k) = order[k] (or k without an order); the rows of a batch are
-// in flight together.
-template <int V, bool kOrder>
+// acc += src[order[k]] (columns c .. c + V - 1) for k = k0 .. k1 - 1 in k
+// order; the rows of a batch are in flight together.
+template <int V>
 __device__ __forceinline__ void add_rows(typename Cols<V>::T& acc,
                                          const float* __restrict__ src,
                                          const int* __restrict__ order,
@@ -312,8 +311,8 @@ __device__ __forceinline__ void add_rows(typename Cols<V>::T& acc,
   using T = typename Cols<V>::T;
   constexpr int kB = kSegBatch / V;
   auto row = [&](int k) {
-    const long long id = kOrder ? order[k] : k;
-    return *reinterpret_cast<const T*>(src + static_cast<size_t>(id) * D + c);
+    return *reinterpret_cast<const T*>(
+        src + static_cast<size_t>(order[k]) * D + c);
   };
   int k = k0;
   for (; k + kB <= k1; k += kB) {
@@ -326,71 +325,169 @@ __device__ __forceinline__ void add_rows(typename Cols<V>::T& acc,
   for (; k < k1; ++k) Cols<V>::add(acc, row(k));
 }
 
-// K3 pass 1: sums[ch] = sum of partial[order[k]] over chunk ch, from zero.
-template <int V>
-__global__ void segment_chunk_sum_kernel(float* __restrict__ sums,
-                                         const float* __restrict__ partial,
-                                         const int* __restrict__ order,
-                                         const int* __restrict__ chunk_start,
-                                         const int* __restrict__ chunk_end,
-                                         long long n_chunks, int D) {
-  const int nv = D / V;
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n_chunks * nv) return;
-  const long long ch = t / nv;
-  const int c = static_cast<int>(t - ch * nv) * V;
-  typename Cols<V>::T acc = Cols<V>::zero();
-  add_rows<V, true>(acc, partial, order, chunk_start[ch], chunk_end[ch], D,
-                    c);
-  *reinterpret_cast<typename Cols<V>::T*>(sums + ch * D + c) = acc;
-}
-
-// K3 pass 2 (or the only pass): out[seg_rows[s]] += each partial of
-// segment s in order, or, for a hub (a segment longer than chunk_len found
-// in hubs), its chunk sums in chunk order.
-template <int V>
-__global__ void segment_add_kernel(float* __restrict__ out,
-                                   const float* __restrict__ partial,
-                                   const int* __restrict__ order,
-                                   const int* __restrict__ seg_rows,
-                                   const int* __restrict__ seg_start,
-                                   long long n_seg, int D,
-                                   const float* __restrict__ sums,
-                                   const int* __restrict__ hubs,
-                                   const int* __restrict__ hub_chunks,
-                                   int n_hubs, int chunk_len) {
+// The whole warp adds src[id(k)] (id(k) = order[k], or k without an
+// order) for k = k0 .. k1 - 1 onto acc in k order, columns c .. c + V - 1
+// of each lane: the lanes are S = 32 / G slots by G column groups, and
+// every lane of a column group returns the same sum.  A step loads kWalk
+// rows a lane (kWalk * S entries) while the next step's ids load, then
+// adds the rows in k order, each taken from its lane by a shuffle.
+// k0, k1 and G are the same on every lane.
+template <int V, bool kOrder>
+__device__ __forceinline__ typename Cols<V>::T warp_walk(
+    typename Cols<V>::T acc, const float* __restrict__ src,
+    const int* __restrict__ order, int k0, int k1, int D, int c, int G) {
   using T = typename Cols<V>::T;
-  const int nv = D / V;
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n_seg * nv) return;
-  const int s = static_cast<int>(t / nv);
-  const int c = static_cast<int>(t - static_cast<long long>(s) * nv) * V;
-  T* dst = reinterpret_cast<T*>(out + static_cast<size_t>(seg_rows[s]) * D +
-                                c);
-  T acc = *dst;
-  const int k0 = seg_start[s], k1 = seg_start[s + 1];
-  int hub = -1;
-  if (k1 - k0 > chunk_len && n_hubs > 0) {  // find s among the hubs
-    int lo = 0, hi = n_hubs;
-    while (lo < hi) {
-      const int mid = (lo + hi) / 2;
-      if (hubs[mid] < s) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
+  const int lane = threadIdx.x % 32;
+  const int S = 32 / G, u = lane / G, cg = lane % G;
+  const int step = kWalk * S;
+  auto id_at = [&](int k) { return k < k1 ? (kOrder ? order[k] : k) : -1; };
+  int id[kWalk];
+#pragma unroll
+  for (int r = 0; r < kWalk; ++r) id[r] = id_at(k0 + r * S + u);
+  for (int k = k0; k < k1; k += step) {
+    T v[kWalk];
+#pragma unroll
+    for (int r = 0; r < kWalk; ++r) {
+      v[r] = Cols<V>::zero();
+      if (id[r] >= 0 && c < D)
+        v[r] = *reinterpret_cast<const T*>(
+            src + static_cast<size_t>(id[r]) * D + c);
+    }
+#pragma unroll
+    for (int r = 0; r < kWalk; ++r) id[r] = id_at(k + step + r * S + u);
+#pragma unroll
+    for (int r = 0; r < kWalk; ++r) {
+      if (k + r * S >= k1) break;
+      for (int x = 0; x < S; ++x) {
+        const T row = Cols<V>::shfl(v[r], x * G + cg);
+        if (k + r * S + x < k1) Cols<V>::add(acc, row);
       }
     }
-    if (lo < n_hubs && hubs[lo] == s) hub = lo;
   }
-  if (hub >= 0) {
-    add_rows<V, false>(acc, sums, nullptr, hub_chunks[hub],
-                       hub_chunks[hub + 1], D, c);
-  } else {
-    add_rows<V, true>(acc, partial, order, k0, k1, D, c);
+  return acc;
+}
+
+// K3 pass 1: sums[ch] = sum of partial[order[k]] over chunk ch, from zero;
+// a warp a chunk.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    segment_chunk_sum_kernel(float* __restrict__ sums,
+                             const float* __restrict__ partial,
+                             const int* __restrict__ order,
+                             const int* __restrict__ chunk_start,
+                             const int* __restrict__ chunk_end,
+                             long long n_chunks, int D, int G) {
+  using T = typename Cols<V>::T;
+  const long long ch =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+  if (ch >= n_chunks) return;  // warp-uniform
+  const int lane = threadIdx.x % 32;
+  const int k0 = chunk_start[ch], k1 = chunk_end[ch];
+  for (int c0 = 0; c0 < D; c0 += G * V) {
+    const int c = c0 + (lane % G) * V;
+    const T acc = warp_walk<V, true>(Cols<V>::zero(), partial, order, k0, k1,
+                                     D, c, G);
+    if (lane < G && c < D) *reinterpret_cast<T*>(sums + ch * D + c) = acc;
   }
-  *dst = acc;
+}
+
+// K3 pass 2: a segment walked by the whole warp (warp_walk) rather than by
+// its own lanes: longer than kShortLen entries, or a hub.
+__device__ __forceinline__ bool long_segment(int len, int n_hubs,
+                                             int chunk_len) {
+  return len > kShortLen || (n_hubs > 0 && len > chunk_len);
+}
+
+// K3 pass 2 (or the only pass), long segments: out[seg_rows[s]] += each
+// partial of segment s in order, or, for a hub (a segment longer than
+// chunk_len found in hubs), its chunk sums in chunk order.  A warp reads
+// the offsets of 32 segments, one a lane, and walks each long one of them
+// in turn with all its lanes.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    segment_long_kernel(float* __restrict__ out,
+                        const float* __restrict__ partial,
+                        const int* __restrict__ order,
+                        const int* __restrict__ seg_rows,
+                        const int* __restrict__ seg_start, long long n_seg,
+                        int D, const float* __restrict__ sums,
+                        const int* __restrict__ hubs,
+                        const int* __restrict__ hub_chunks, int n_hubs,
+                        int chunk_len, int G) {
+  using T = typename Cols<V>::T;
+  const int lane = threadIdx.x % 32;
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32 *
+      32;
+  if (first >= n_seg) return;  // warp-uniform
+  const long long s = first + lane;
+  int k0 = 0, k1 = 0;
+  if (s < n_seg) {
+    k0 = seg_start[s];
+    k1 = seg_start[s + 1];
+  }
+  unsigned todo = __ballot_sync(
+      0xffffffffu, s < n_seg && long_segment(k1 - k0, n_hubs, chunk_len));
+  const int u = lane / G, cg = lane % G;
+  while (todo) {
+    const int lead = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const long long sl = first + lead;
+    const int a = __shfl_sync(0xffffffffu, k0, lead);
+    const int b = __shfl_sync(0xffffffffu, k1, lead);
+    int hub = -1;
+    if (b - a > chunk_len && n_hubs > 0) {  // find sl among the hubs
+      int lo = 0, hi = n_hubs;
+      while (lo < hi) {
+        const int mid = (lo + hi) / 2;
+        if (hubs[mid] < sl) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      if (lo < n_hubs && hubs[lo] == sl) hub = lo;
+    }
+    float* row = out + static_cast<size_t>(seg_rows[sl]) * D;
+    for (int c0 = 0; c0 < D; c0 += G * V) {
+      const int c = c0 + cg * V;
+      T acc = c < D ? *reinterpret_cast<const T*>(row + c) : Cols<V>::zero();
+      if (hub >= 0) {
+        acc = warp_walk<V, false>(acc, sums, nullptr, hub_chunks[hub],
+                                  hub_chunks[hub + 1], D, c, G);
+      } else {
+        acc = warp_walk<V, true>(acc, partial, order, a, b, D, c, G);
+      }
+      if (u == 0 && c < D) *reinterpret_cast<T*>(row + c) = acc;
+    }
+  }
+}
+
+// K3 pass 2 (or the only pass), short segments: a group of G lanes
+// (at most kShortLanes) adds segment s's partials onto out[seg_rows[s]] in
+// order, kSegBatch / V rows at a time, looping over column chunks.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    segment_short_kernel(float* __restrict__ out,
+                         const float* __restrict__ partial,
+                         const int* __restrict__ order,
+                         const int* __restrict__ seg_rows,
+                         const int* __restrict__ seg_start, long long n_seg,
+                         int D, int n_hubs, int chunk_len, int G) {
+  using T = typename Cols<V>::T;
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long s = t / G;
+  if (s >= n_seg) return;
+  const int k0 = seg_start[s], k1 = seg_start[s + 1];
+  if (long_segment(k1 - k0, n_hubs, chunk_len)) return;
+  float* row = out + static_cast<size_t>(seg_rows[s]) * D;
+  for (int c = static_cast<int>(t % G) * V; c < D; c += G * V) {
+    T* dst = reinterpret_cast<T*>(row + c);
+    T acc = *dst;
+    add_rows<V>(acc, partial, order, k0, k1, D, c);
+    *dst = acc;
+  }
 }
 
 template <int V>
@@ -401,45 +498,32 @@ int launch_segment_add(float* out, const float* partial, const int* order,
                        const int* chunk_start, const int* chunk_end,
                        long long n_chunks, int chunk_len, float* sums,
                        cudaStream_t stream) {
-  const int nv = D / V;
+  const int G = group_threads(D, V);
+  const long long per_block = kThreads / 32;  // warps a block
   if (n_chunks > 0) {
-    const long long work = n_chunks * nv;
     segment_chunk_sum_kernel<V>
-        <<<static_cast<unsigned>((work + kThreads - 1) / kThreads), kThreads,
-           0, stream>>>(sums, partial, order, chunk_start, chunk_end,
-                        n_chunks, D);
+        <<<static_cast<unsigned>((n_chunks + per_block - 1) / per_block),
+           kThreads, 0, stream>>>(sums, partial, order, chunk_start,
+                                  chunk_end, n_chunks, D, G);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const long long work = n_seg * nv;
-  segment_add_kernel<V>
-      <<<static_cast<unsigned>((work + kThreads - 1) / kThreads), kThreads, 0,
-         stream>>>(out, partial, order, seg_rows, seg_start, n_seg, D, sums,
-                   hubs, hub_chunks, static_cast<int>(n_hubs), chunk_len);
+  const long long warps = (n_seg + 31) / 32;
+  segment_long_kernel<V>
+      <<<static_cast<unsigned>((warps + per_block - 1) / per_block),
+         kThreads, 0, stream>>>(out, partial, order, seg_rows, seg_start,
+                                n_seg, D, sums, hubs, hub_chunks,
+                                static_cast<int>(n_hubs), chunk_len, G);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int g_short = G < kShortLanes ? G : kShortLanes;
+  const long long threads = n_seg * g_short;
+  segment_short_kernel<V>
+      <<<static_cast<unsigned>((threads + kThreads - 1) / kThreads),
+         kThreads, 0, stream>>>(out, partial, order, seg_rows, seg_start,
+                                n_seg, D, static_cast<int>(n_hubs),
+                                chunk_len, g_short);
   return static_cast<int>(cudaGetLastError());
-}
-
-bool aligned16(const void* p) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-template <bool kOrder, bool kRows>
-int launch_segments(float* out, const float* partial, const int* order,
-                    const int* seg_rows, const int* seg_start, long long n_seg,
-                    int D, cudaStream_t stream) {
-  const long long work = n_seg * D;
-  const unsigned grid = static_cast<unsigned>((work + kThreads - 1) / kThreads);
-  ordered_segment_sum_kernel<kOrder, kRows><<<grid, kThreads, 0, stream>>>(
-      out, partial, order, seg_rows, seg_start, n_seg, D);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K1: threads a partition, the next power of two >= ceil(D / V), <= 32.
-int group_threads(int D, int V) {
-  const int nv = (D + V - 1) / V;
-  int g = 1;
-  while (g < nv && g < 32) g *= 2;
-  return g;
 }
 
 // K1: as many blocks as fit the card at once (the walk is grid-stride),
@@ -486,7 +570,7 @@ int mgg_gather_sum_pipelined(const float* buf, const int* nbrs,
 int mgg_gather_sum_blocked(const float* buf, const int* nbrs,
                            const uint8_t* mask, float* out, long long P,
                            int ps, int D, int pb, void* stream) {
-  if (P == 0) return static_cast<int>(cudaGetLastError());
+  if (P == 0 || D == 0) return static_cast<int>(cudaGetLastError());
   const unsigned grid = static_cast<unsigned>((P + pb - 1) / pb);
   const size_t smem = 2 * static_cast<size_t>(pb) * ps * sizeof(int);
   gather_sum_blocked_kernel<<<grid, pb * 32, smem,
@@ -517,28 +601,6 @@ int mgg_segment_add_ordered(float* out, const float* partial, const int* order,
                                n_seg, D, hubs, hub_chunks, n_hubs,
                                chunk_start, chunk_end, n_chunks, chunk_len,
                                sums, s);
-}
-
-// chunk_start == nullptr: one pass over the segments.  Otherwise two:
-// chunk_sums (n_chunks, D), zeroed by the caller, receives each chunk's sum
-// (chunks delimited by chunk_start in src), then row seg_rows[s] receives
-// its chunks row_chunks[s] .. row_chunks[s + 1] - 1 in order.
-int mgg_scatter_sum_ordered(float* dbuf, const float* g, const int* src,
-                            const int* seg_rows, const int* seg_start,
-                            long long n_seg, const int* chunk_start,
-                            const int* row_chunks, float* chunk_sums,
-                            long long n_chunks, int D, void* stream) {
-  if (n_seg == 0 || D == 0) return static_cast<int>(cudaGetLastError());
-  auto s = static_cast<cudaStream_t>(stream);
-  if (chunk_start == nullptr) {
-    return launch_segments<true, true>(dbuf, g, src, seg_rows, seg_start,
-                                       n_seg, D, s);
-  }
-  const int rc = launch_segments<true, false>(chunk_sums, g, src, nullptr,
-                                              chunk_start, n_chunks, D, s);
-  if (rc != 0) return rc;
-  return launch_segments<false, true>(dbuf, chunk_sums, nullptr, seg_rows,
-                                      row_chunks, n_seg, D, s);
 }
 
 }  // extern "C"

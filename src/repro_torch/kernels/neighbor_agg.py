@@ -11,7 +11,7 @@ Counterpart of ``repro/kernels/neighbor_agg.py``:
   rows take two passes over fixed-order chunks;
 * :func:`scatter_sum_ordered` — K4, the gather-sum's backward (the masked
   scatter-add of ``repro/kernels/ops.py::_gather_sum_bwd``), deterministic
-  through a transposed index built on the host;
+  through a transposed index built on the host, on K3's kernels;
 * :func:`sparse_gather_sum` — K6, for ``sparse_gather_sum_call``: the
   gather-sum over top-k compressed rows (``csrc/sparse_gather_sum.cu``).
 
@@ -109,44 +109,31 @@ def gather_sum_blocked(buf: torch.Tensor, nbrs: torch.Tensor,
     return out
 
 
-def _check_segments(out, vals, idx, seg_rows, seg_start, names):
-    """Checks shared by K3 and K4: ``out[seg_rows[s]] += Σ vals[idx[k]]``."""
+def _segment_add(out, vals, order, seg_rows, seg_start, chunks, name):
+    """Launch ``mgg_segment_add_ordered`` (K3's pair, K4's too):
+    ``out[seg_rows[s]] += Σ vals[order[k]]`` over segment ``s`` in order, a
+    hub of ``chunks`` through a scratch of its chunk sums."""
     if out.device.type != "cuda":
         raise ValueError(f"CUDA kernel called on a {out.device} tensor")
-    dev = out.device
-    _check(names[0], out, torch.float32, 2, dev)
-    _check(names[1], vals, torch.float32, 2, dev)
-    for name, t in ((names[2], idx), ("seg_rows", seg_rows),
+    dev, d = out.device, out.shape[1]
+    _check("out", out, torch.float32, 2, dev)
+    _check("vals", vals, torch.float32, 2, dev)
+    for what, t in (("order", order), ("seg_rows", seg_rows),
                     ("seg_start", seg_start)):
-        _check(name, t, torch.int32, 1, dev)
-    if vals.shape[1] != out.shape[1]:
-        raise ValueError(f"{names[1]} {tuple(vals.shape)} does not match "
-                         f"{names[0]} {tuple(out.shape)}")
+        _check(what, t, torch.int32, 1, dev)
+    if vals.shape[1] != d:
+        raise ValueError(f"vals {tuple(vals.shape)} does not match out "
+                         f"{tuple(out.shape)}")
     if seg_start.shape[0] != seg_rows.shape[0] + 1:
         raise ValueError("seg_start must have one more entry than seg_rows")
-
-
-def segment_add_ordered(out: torch.Tensor, partial: torch.Tensor,
-                        order: torch.Tensor, seg_rows: torch.Tensor,
-                        seg_start: torch.Tensor, chunks=None) -> torch.Tensor:
-    """K3, in place: ``out[seg_rows[s]] += Σ partial[order[k]]`` over
-    segment ``s``, in partition order — one owner per output word; with
-    ``chunks`` (an ``ops.SegmentChunks``) a hub row adds its chunk sums in
-    chunk order, summed first into a scratch the wrapper allocates."""
-    _check_segments(out, partial, order, seg_rows, seg_start,
-                    ("out", "partial", "order"))
-    if order.shape[0] != partial.shape[0]:
-        raise ValueError(f"order {tuple(order.shape)} does not match "
-                         f"partial {tuple(partial.shape)}")
-    dev, d = out.device, out.shape[1]
     hubs = hub_chunks = start = end = sums = None
     n_hubs = n_chunks = chunk_len = 0
     if chunks is not None:
         hubs, hub_chunks = chunks.hubs, chunks.hub_chunks
         start, end = chunks.chunk_start, chunks.chunk_end
-        for name, t in (("hubs", hubs), ("hub_chunks", hub_chunks),
+        for what, t in (("hubs", hubs), ("hub_chunks", hub_chunks),
                         ("chunk_start", start), ("chunk_end", end)):
-            _check(name, t, torch.int32, 1, dev)
+            _check(what, t, torch.int32, 1, dev)
         if hub_chunks.shape[0] != hubs.shape[0] + 1 \
                 or end.shape != start.shape:
             raise ValueError("hub_chunks must have one entry per hub and one "
@@ -156,11 +143,25 @@ def segment_add_ordered(out: torch.Tensor, partial: torch.Tensor,
         sums = torch.empty((n_chunks, d), dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = _build.library().mgg_segment_add_ordered(
-        out.data_ptr(), partial.data_ptr(), order.data_ptr(),
+        out.data_ptr(), vals.data_ptr(), order.data_ptr(),
         seg_rows.data_ptr(), seg_start.data_ptr(), seg_rows.shape[0], d,
         ptr(hubs), ptr(hub_chunks), n_hubs, ptr(start), ptr(end), n_chunks,
         chunk_len, ptr(sums), _stream(dev))
-    _raise_on(rc, "segment_add_ordered")
+    _raise_on(rc, name)
+
+
+def segment_add_ordered(out: torch.Tensor, partial: torch.Tensor,
+                        order: torch.Tensor, seg_rows: torch.Tensor,
+                        seg_start: torch.Tensor, chunks=None) -> torch.Tensor:
+    """K3, in place: ``out[seg_rows[s]] += Σ partial[order[k]]`` over
+    segment ``s``, in partition order — one owner per output word; with
+    ``chunks`` (an ``ops.SegmentChunks``) a hub row adds its chunk sums in
+    chunk order, summed first into a scratch the wrapper allocates."""
+    if order.shape[0] != partial.shape[0]:
+        raise ValueError(f"order {tuple(order.shape)} does not match "
+                         f"partial {tuple(partial.shape)}")
+    _segment_add(out, partial, order, seg_rows, seg_start, chunks,
+                 "segment_add_ordered")
     segment_add_ordered.launches += 1
     return out
 
@@ -169,28 +170,10 @@ def scatter_sum_ordered(dbuf: torch.Tensor, g: torch.Tensor,
                         index) -> torch.Tensor:
     """K4, in place: ``dbuf[rows[s]] += Σ g[src[k]]`` over the masked slots
     of segment ``s`` of ``index`` (a ``GradIndex``) in its fixed order —
-    one owner per output word, no atomics; an index cut into chunks runs
-    the kernel's two passes through a zeroed scratch of chunk sums."""
-    _check_segments(dbuf, g, index.src, index.rows, index.start,
-                    ("dbuf", "g", "src"))
-    dev, d = dbuf.device, dbuf.shape[1]
-    chunked = index.chunk_start is not None
-    if chunked:
-        for name, t in (("chunk_start", index.chunk_start),
-                        ("row_chunks", index.row_chunks)):
-            _check(name, t, torch.int32, 1, dev)
-        if index.row_chunks.shape != index.start.shape:
-            raise ValueError("row_chunks must have one entry per segment "
-                             "and one more")
-    n_chunks = index.chunk_start.shape[0] - 1 if chunked else 0
-    sums = torch.zeros((n_chunks, d), dtype=torch.float32, device=dev)
-    ptr = lambda t: t.data_ptr() if chunked else None
-    rc = _build.library().mgg_scatter_sum_ordered(
-        dbuf.data_ptr(), g.data_ptr(), index.src.data_ptr(),
-        index.rows.data_ptr(), index.start.data_ptr(), index.rows.shape[0],
-        ptr(index.chunk_start), ptr(index.row_chunks), ptr(sums), n_chunks,
-        d, _stream(dev))
-    _raise_on(rc, "scatter_sum_ordered")
+    K3's kernels with ``src`` as the order and the index's hub chunks:
+    one owner per output word, no atomics."""
+    _segment_add(dbuf, g, index.src, index.rows, index.start, index.chunks,
+                 "scatter_sum_ordered")
     scatter_sum_ordered.launches += 1
     return dbuf
 

@@ -11,7 +11,11 @@ The reference's ``jax.custom_vjp`` around the gather-sum
 (``repro/kernels/ops.py:45-85``) is :class:`_GatherSum`, an
 ``autograd.Function``: K1/K2 forward, K4 backward.  Its backward is the
 masked scatter-add ``dbuf[nbrs[p, j]] += g[p]``; to add without atomics,
-it reads a :class:`GradIndex` built on the host once per plan or block.
+it reads a :class:`GradIndex` built on the host once per plan or block,
+which is the ring's ordered segment add (K3) over a transposed index: K4
+runs K3's kernels on it, hub rows cut into the fixed-order chunks of a
+:class:`SegmentChunks` whose length :func:`chunk_length` takes from the
+index.
 The sparse gather-sum over top-k compressed rows (K6 forward) has the
 same backward followed by a column gather at the ids
 (:func:`sparse_gather_sum_grad`, the reference's ``ops.py:112-120``),
@@ -31,20 +35,16 @@ from . import flash_attention as _flash
 from . import neighbor_agg, ref, rows
 from . import slstm_scan as _slstm
 
-__all__ = ["GradIndex", "GRAD_CHUNK", "SegmentChunks", "SEG_CHUNK",
+__all__ = ["GradIndex", "SegmentChunks", "SEG_CHUNK", "chunk_length",
            "neighbor_gather_sum",
            "sparse_neighbor_gather_sum", "sparse_gather_sum_grad",
            "segment_add_ordered",
            "scatter_sum_ordered", "gather_rows", "flash_attention",
            "slstm_scan"]
 
-# Longest run of slots one thread adds in a row: a longer segment (a hub
-# neighbor) is cut into chunks of this many slots, summed in two passes.
-GRAD_CHUNK = 256
-# The same for the ring's ordered segment add (K3): a target row with more
-# partials than this (a hub) has them summed in chunks of this many, then
-# the chunk sums in order.  Near the square root of the serving plan's
-# longest segment (8,123 partials), so both passes walk about as far.
+# The least chunk length of the ordered segment adds (K3, K4): a segment
+# with more entries than its index's chunk length (a hub) has them summed
+# in chunks of that many, then the chunk sums in order (chunk_length).
 SEG_CHUNK = 64
 
 
@@ -64,6 +64,78 @@ def _segments(keys_sorted: np.ndarray):
     return keys_sorted[starts], np.append(starts, keys_sorted.size)
 
 
+def chunk_length(longest: int) -> int:
+    """The chunk length of an index whose longest segment holds ``longest``
+    entries: the largest power of two not above ``sqrt(longest / 8)``,
+    never below :data:`SEG_CHUNK`.  A hub's two walks are then a chunk and
+    its run of chunk sums.  Pass 1 walks a chunk with an index lookup an
+    entry and has only as many warps as chunks, so a chunk shorter than
+    the square root pays: on the products training plans this rule beat
+    every uniform length from 64 to 1024 and the square root (PERF.md §6).
+    64 up to 131,071 entries (every segment of the ring's segment add on
+    the products plans), 128 for the backward's neighbor hubs of up to
+    173,973 slots there.  A function of the index alone."""
+    chunk = SEG_CHUNK
+    while 8 * (2 * chunk) ** 2 <= longest:
+        chunk *= 2
+    return chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentChunks:
+    """The hub chunks of one ordered segment add (K3, and K4 on its
+    transposed index).
+
+    A segment (a target row's run in the stable order of the partitions,
+    or a neighbor row's run of masked slots) longer than ``chunk`` entries
+    is a hub; its run is cut into chunks of ``chunk`` entries from its
+    start, the last one shorter.  Pass 1 sums each chunk's entries in
+    order (from zero); pass 2 adds each hub's chunk sums in chunk order
+    onto its row, while every other segment adds its entries in order, as
+    without chunks.  The association is a function of the index alone:
+    the same bits on the card and in the plain version, from run to run.
+    """
+
+    hubs: torch.Tensor         # (H,) int32: hub segment ids, ascending
+    hub_chunks: torch.Tensor   # (H + 1,) int32: each hub's chunks
+    chunk_start: torch.Tensor  # (C,) int32: offsets into the order
+    chunk_end: torch.Tensor    # (C,) int32
+    chunk: int
+
+    @property
+    def num_chunks(self) -> int:
+        return int(self.chunk_start.shape[0])
+
+    @staticmethod
+    def build(seg_start: np.ndarray, device="cpu",
+              chunk: Optional[int] = None) -> Optional["SegmentChunks"]:
+        """The hub chunks of the segments ``seg_start`` delimits, cut at
+        ``chunk`` (by default :func:`chunk_length` of the longest segment),
+        or None when no segment is longer than that."""
+        seg_start = np.asarray(seg_start, np.int64)
+        lens = np.diff(seg_start)
+        if chunk is None:
+            chunk = chunk_length(int(lens.max(initial=0)))
+        hubs = np.flatnonzero(lens > chunk)
+        if hubs.size == 0:
+            return None
+        per_hub = -(-lens[hubs] // chunk)
+        hub_chunks = np.zeros(hubs.size + 1, np.int64)
+        np.cumsum(per_hub, out=hub_chunks[1:])
+        owner = np.repeat(np.arange(hubs.size), per_hub)
+        start = seg_start[hubs][owner] + chunk * (
+            np.arange(hub_chunks[-1]) - hub_chunks[owner])
+        end = np.minimum(start + chunk, seg_start[hubs + 1][owner])
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+                device)
+
+        return SegmentChunks(hubs=t(hubs), hub_chunks=t(hub_chunks),
+                             chunk_start=t(start), chunk_end=t(end),
+                             chunk=int(chunk))
+
+
 @dataclasses.dataclass(frozen=True)
 class GradIndex:
     """The transposed index of one gather-sum, for its backward (K4).
@@ -76,28 +148,23 @@ class GradIndex:
     the two, so the backward never forms the per-partition gradient).
     Masked slots are not in it: they get and leak no gradient.
 
-    When a segment is longer than :data:`GRAD_CHUNK` slots, every segment
-    is cut into chunks of at most that many (``chunk_start``, offsets into
-    ``src``; ``row_chunks``, each row's chunks): the backward sums each
-    chunk in slot order, then adds each row's chunk sums in chunk order.
-    That association is a function of the index alone, so the sums are
-    the same bits from run to run, on the card and in the plain version.
+    That is K3's index with ``src`` as its order, and K4 runs K3's kernels
+    on it: ``chunks`` cuts the hub rows (a neighbor named by more slots
+    than :func:`chunk_length` of the longest row) into fixed-order chunks,
+    each summed in slot order, then a hub's chunk sums added in chunk
+    order; every other row adds its slots in slot order.  The association
+    is a function of the index alone, so the sums are the same bits from
+    run to run, on the card and in the plain version.
     """
 
     src: torch.Tensor    # (K,) int32
     rows: torch.Tensor   # (S,) int32, ascending
     start: torch.Tensor  # (S + 1,) int32
-    chunk_start: Optional[torch.Tensor] = None  # (C + 1,) int32
-    row_chunks: Optional[torch.Tensor] = None   # (S + 1,) int32
+    chunks: Optional[SegmentChunks] = None
 
     @property
     def num_slots(self) -> int:
         return int(self.src.shape[0])
-
-    @property
-    def num_chunks(self) -> int:
-        return 0 if self.chunk_start is None \
-            else int(self.chunk_start.shape[0]) - 1
 
     @staticmethod
     def build(nbrs: np.ndarray, mask: np.ndarray,
@@ -117,71 +184,9 @@ class GradIndex:
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
                 device)
 
-        chunks = {}
-        lens = np.diff(seg_start)
-        if lens.size and lens.max() > GRAD_CHUNK:
-            per_row = -(-lens // GRAD_CHUNK)
-            row_chunks = np.zeros(lens.size + 1, np.int64)
-            np.cumsum(per_row, out=row_chunks[1:])
-            owner = np.repeat(np.arange(lens.size), per_row)
-            j = np.arange(row_chunks[-1]) - row_chunks[owner]
-            chunks = dict(
-                chunk_start=t(np.append(seg_start[owner] + GRAD_CHUNK * j,
-                                        seg_start[-1])),
-                row_chunks=t(row_chunks))
         return GradIndex(src=t(src[order]), rows=t(seg_rows),
-                         start=t(seg_start), **chunks)
-
-
-@dataclasses.dataclass(frozen=True)
-class SegmentChunks:
-    """The hub chunks of one ordered segment add (K3).
-
-    A segment (a target row's run in the stable order of the partitions)
-    longer than ``chunk`` partials is a hub; its run is cut into chunks of
-    ``chunk`` partials from its start, the last one shorter.  Pass 1 sums
-    each chunk's partials in partition order (from zero); pass 2 adds each
-    hub's chunk sums in chunk order onto its row, while every other
-    segment adds its partials in partition order, as without chunks.  The
-    association is a function of the index alone: the same bits on the
-    card and in the plain version, from run to run.
-    """
-
-    hubs: torch.Tensor         # (H,) int32: hub segment ids, ascending
-    hub_chunks: torch.Tensor   # (H + 1,) int32: each hub's chunks
-    chunk_start: torch.Tensor  # (C,) int32: offsets into the order
-    chunk_end: torch.Tensor    # (C,) int32
-    chunk: int
-
-    @property
-    def num_chunks(self) -> int:
-        return int(self.chunk_start.shape[0])
-
-    @staticmethod
-    def build(seg_start: np.ndarray, device="cpu",
-              chunk: int = SEG_CHUNK) -> Optional["SegmentChunks"]:
-        """The hub chunks of the segments ``seg_start`` delimits, or None
-        when no segment is longer than ``chunk``."""
-        seg_start = np.asarray(seg_start, np.int64)
-        lens = np.diff(seg_start)
-        hubs = np.flatnonzero(lens > chunk)
-        if hubs.size == 0:
-            return None
-        per_hub = -(-lens[hubs] // chunk)
-        hub_chunks = np.zeros(hubs.size + 1, np.int64)
-        np.cumsum(per_hub, out=hub_chunks[1:])
-        owner = np.repeat(np.arange(hubs.size), per_hub)
-        start = seg_start[hubs][owner] + chunk * (
-            np.arange(hub_chunks[-1]) - hub_chunks[owner])
-        end = np.minimum(start + chunk, seg_start[hubs + 1][owner])
-
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
-                device)
-
-        return SegmentChunks(hubs=t(hubs), hub_chunks=t(hub_chunks),
-                             chunk_start=t(start), chunk_end=t(end),
-                             chunk=int(chunk))
+                         start=t(seg_start),
+                         chunks=SegmentChunks.build(seg_start, device))
 
 
 class _GatherSum(torch.autograd.Function):

@@ -123,18 +123,10 @@ def scatter_sum_ordered_ref(dbuf: torch.Tensor, g: torch.Tensor,
     ``k`` of segment ``s`` of ``index`` (a
     :class:`~repro_torch.kernels.ops.GradIndex`) — the gather-sum's
     backward (the reference's ``zeros.at[nbrs].add(g · mask)``) with the
-    order of its adds fixed: slot order, or, for an index cut into chunks,
-    each chunk in slot order and then each row's chunk sums in order."""
-    if index.chunk_start is None:
-        return segment_add_ordered_ref(dbuf, g, index.src, index.rows,
-                                       index.start)
-    n = index.chunk_start.shape[0] - 1
-    ids = torch.arange(n, dtype=torch.int32, device=dbuf.device)
-    sums = torch.zeros((n, dbuf.shape[1]), dtype=torch.float32,
-                       device=dbuf.device)
-    segment_add_ordered_ref(sums, g, index.src, ids, index.chunk_start)
-    return segment_add_ordered_ref(dbuf, sums, ids, index.rows,
-                                   index.row_chunks)
+    order of its adds fixed: :func:`segment_add_ordered_ref` with ``src``
+    as the order and the index's hub chunks."""
+    return segment_add_ordered_ref(dbuf, g, index.src, index.rows,
+                                   index.start, index.chunks)
 
 
 def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

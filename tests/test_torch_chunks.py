@@ -40,14 +40,27 @@ def _targets(rng, hub=5003):
     return tgt
 
 
-def test_chunk_index_cuts_exactly_the_segments_longer_than_the_chunk():
+def _chunk_index(kind, tgt):
+    """K3's index of a group whose partitions target ``tgt``, or K4's
+    transposed index of a gather-sum whose one slot a partition names
+    ``tgt``: the same segments either way.  Returns (seg_rows, seg_start,
+    chunks)."""
+    if kind == "segment_add":
+        grp = _group(tgt)
+        return grp.seg_rows, grp.seg_start, grp.chunks
+    idx = ops.GradIndex.build(tgt[:, None], np.ones((tgt.size, 1), bool))
+    return idx.rows, idx.start, idx.chunks
+
+
+@pytest.mark.parametrize("kind", ["segment_add", "scatter_sum"])
+def test_chunk_index_cuts_exactly_the_segments_longer_than_the_chunk(kind):
     tgt = _targets(np.random.default_rng(0))
-    grp = _group(tgt)
-    seg_start = grp.seg_start.numpy()
+    seg_rows, seg_start, ch = _chunk_index(kind, tgt)
+    seg_start = seg_start.numpy()
     lens = np.diff(seg_start)
-    ch = grp.chunks
+    assert ch.chunk == ops.chunk_length(int(lens.max())) == C
     np.testing.assert_array_equal(ch.hubs.numpy(), np.flatnonzero(lens > C))
-    assert set(grp.seg_rows.numpy()[ch.hubs.numpy()]) == {0, 9}
+    assert set(seg_rows.numpy()[ch.hubs.numpy()]) == {0, 9}
     hc, start, end = (t.numpy() for t in (ch.hub_chunks, ch.chunk_start,
                                           ch.chunk_end))
     for h, s in enumerate(ch.hubs.numpy()):
@@ -61,6 +74,21 @@ def test_chunk_index_cuts_exactly_the_segments_longer_than_the_chunk():
     assert (end - start).max() <= C
     assert np.diff(hc).max() == -(-lens.max() // C)
     assert ops.SegmentChunks.build(np.arange(0, 10 * C + 1, C)) is None
+
+
+@pytest.mark.parametrize("longest,chunk", [
+    (0, C), (1, C), (C, C), (8123, 64), (131_071, 64), (131_072, 128),
+    (173_973, 128), (1 << 19, 256), (1 << 23, 1024)])
+def test_chunk_length_is_a_power_of_two_below_the_root_of_an_eighth(longest,
+                                                                   chunk):
+    """The chunk length is a function of the index's longest segment L
+    alone: the largest power of two not above sqrt(L / 8), never below
+    SEG_CHUNK; segments longer than it are hubs."""
+    assert ops.chunk_length(longest) == chunk
+    lens = np.array([longest, 3, 0])
+    ch = ops.SegmentChunks.build(np.concatenate([[0], np.cumsum(lens)]))
+    assert (ch is None) == (longest <= chunk)
+    assert ch is None or ch.chunk == chunk
 
 
 @pytest.mark.parametrize("d", [16, 5])
@@ -105,14 +133,19 @@ def test_plain_two_passes_bitwise_equal_an_explicit_loop(d):
 
 
 def _hub_graph(n=2000, hub_degree=1200, seed=4):
-    """A sparse random graph whose node 0 has ``hub_degree`` in-neighbors:
-    at ``ps`` slots a partition it owns more than C partitions."""
+    """A sparse random graph whose node 0 has ``hub_degree`` in-neighbors
+    (at ``ps`` slots a partition it owns more than C partitions: a hub of
+    the ring's segment add) and whose node 1 is an in-neighbor of
+    ``hub_degree`` nodes (named by that many slots: a hub of the
+    backward's scatter-sum)."""
     rng = np.random.default_rng(seed)
-    dst = np.concatenate([rng.integers(0, n, 4 * n), np.zeros(hub_degree,
-                                                              np.int64)])
+    fans = rng.choice(np.arange(2, n), hub_degree, replace=False)
+    dst = np.concatenate([rng.integers(0, n, 4 * n),
+                          np.zeros(hub_degree, np.int64), fans])
     src = np.concatenate([rng.integers(0, n, 4 * n),
                           rng.choice(np.arange(1, n), hub_degree,
-                                     replace=False)])
+                                     replace=False),
+                          np.ones(hub_degree, np.int64)])
     key = np.unique(dst * n + src)
     dst, src = key // n, key % n
     indptr = np.zeros(n + 1, np.int64)
@@ -123,6 +156,8 @@ def _hub_graph(n=2000, hub_degree=1200, seed=4):
 @pytest.mark.parametrize("ps,d,fused", [(8, 16, False), (4, 23, False),
                                         (8, 16, True)])
 def test_one_shard_ring_with_a_hub_matches_reference(ps, d, fused):
+    """The ring's output, and its ``x`` gradient (the backward's K4 over a
+    neighbor hub), against the reference's ring and its VJP."""
     indptr, indices, n = _hub_graph()
     assert np.diff(indptr)[0] > C * ps
     rg, tg = RC.CSRGraph(indptr, indices, n), TC.CSRGraph(indptr, indices, n)
@@ -131,20 +166,31 @@ def test_one_shard_ring_with_a_hub_matches_reference(ps, d, fused):
     w = rng.normal(size=(d, 9)).astype(np.float32) if fused else None
 
     rplan = RC.build_plan(rg, 1, ps=ps, dist=1)
-    ring = jax.jit(lambda xx, ww: RC.mgg_aggregate(xx, rplan,
-                                                   flat_ring_mesh(1),
-                                                   update_w=ww))
-    want = np.asarray(ring(jnp.asarray(RC.pad_embeddings(rplan, x)),
-                           None if w is None else jnp.asarray(w)))
+
+    def ring_and_vjp(xx, ww, gg):
+        out, vjp = jax.vjp(lambda a: RC.mgg_aggregate(
+            a, rplan, flat_ring_mesh(1), update_w=ww), xx)
+        return out, vjp(gg)[0]
+
+    xpad = RC.pad_embeddings(rplan, x)
+    cot = rng.normal(size=(xpad.shape[0], d if w is None else 9)).astype(
+        np.float32)
+    want, want_dx = (np.asarray(a) for a in jax.jit(ring_and_vjp)(
+        jnp.asarray(xpad), None if w is None else jnp.asarray(w),
+        jnp.asarray(cot)))
 
     tplan = TC.build_plan(tg, 1, ps=ps, dist=1)
     arrays = plan_device_arrays(tplan, device="cpu")
     assert arrays.local.chunks is not None     # the hub takes two passes
-    got = TC.mgg_aggregate(
-        torch.from_numpy(TC.pad_embeddings(tplan, x)), tplan,
-        VirtualRing(1, "cpu"), arrays=arrays,
-        update_w=None if w is None else torch.from_numpy(w)).numpy()
+    assert arrays.local.grad.chunks is not None    # so does the backward's
+    xt = torch.from_numpy(TC.pad_embeddings(tplan, x)).requires_grad_(True)
+    out = TC.mgg_aggregate(
+        xt, tplan, VirtualRing(1, "cpu"), arrays=arrays,
+        update_w=None if w is None else torch.from_numpy(w))
+    (dx,) = torch.autograd.grad(out, xt, torch.from_numpy(cot))
+    got = out.detach().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dx.numpy(), want_dx, rtol=1e-5, atol=1e-5)
     if not fused:
         oracle = TC.reference_aggregate(indptr, indices, x)
         np.testing.assert_allclose(TC.unpad_embeddings(tplan, got), oracle,

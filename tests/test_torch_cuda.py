@@ -90,6 +90,45 @@ def test_gather_sum_pipelined_bitwise_equals_blocked_and_plain(cuda, d, ps):
     assert not got[1::5].any()
 
 
+@pytest.mark.parametrize("d", [1, 16, 100, 130])
+@pytest.mark.parametrize("pb", [1, 4, 32])
+@pytest.mark.parametrize("ps", [1, 8, 40, 100])
+def test_gather_sum_blocked_bitwise_equals_pipelined_and_plain(cuda, d, pb,
+                                                               ps):
+    """K2's warp keeps a batch of 8 of its partition's slots in flight,
+    a lane a column, and adds them in slot order from +0, masked slots
+    skipped: the bits of K1 and of the plain version, at P = 1001 (not a
+    multiple of pb), with every fifth partition all masked; ps = 40 and
+    100 take several batches, D = 100 and 130 several column chunks."""
+    buf, nbrs, mask = _inputs(1001, ps, d, cuda, seed=d * 7 + ps + pb)
+    mask[1::5] = False
+    want = ref.neighbor_gather_sum_ref(buf, nbrs, mask)
+    before = neighbor_agg.gather_sum_blocked.launches
+    got = neighbor_agg.gather_sum_blocked(buf, nbrs, mask, pb=pb)
+    assert neighbor_agg.gather_sum_blocked.launches == before + 1
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got), _bits(
+        neighbor_agg.gather_sum_pipelined(buf, nbrs, mask)))
+    assert not got[1::5].any()
+
+
+def test_gather_sum_blocked_at_the_largest_block_that_fits(cuda):
+    """pb = 32 partitions of ps = 192 slots fill the 48 KB of index that
+    ``blocked_fits`` allows (24 batches of slots a partition); then
+    300,000 partitions at pb = 4, 75,000 blocks."""
+    assert neighbor_agg.blocked_fits(32, 192)
+    assert not neighbor_agg.blocked_fits(32, 193)
+    buf, nbrs, mask = _inputs(20_000, 192, 16, cuda, t=5000, seed=4)
+    mask[1::5] = False
+    want = ref.neighbor_gather_sum_ref(buf, nbrs, mask)
+    got = neighbor_agg.gather_sum_blocked(buf, nbrs, mask, pb=32)
+    assert torch.equal(_bits(got), _bits(want))
+    buf, nbrs, mask = _inputs(300_000, 8, 16, cuda, t=50_000, seed=5)
+    got = neighbor_agg.gather_sum_blocked(buf, nbrs, mask, pb=4)
+    assert torch.equal(_bits(got), _bits(
+        neighbor_agg.gather_sum_pipelined(buf, nbrs, mask)))
+
+
 def test_gather_sum_pipelined_walks_many_partitions(cuda):
     """300,000 partitions at D = 16: more than one grid of K1 holds, so
     every warp walks several."""
@@ -194,15 +233,20 @@ def test_served_logits_bitwise_match_offline_on_card(cuda):
 
 @pytest.mark.parametrize("p,ps,d", SHAPES)
 def test_scatter_sum_matches_plain_and_is_deterministic(cuda, p, ps, d):
-    """Includes a hub row named by more than GRAD_CHUNK slots at P=1001
-    (the two-pass path) and short segments elsewhere (one pass)."""
+    """K4 runs K3's pair on the transposed index: bitwise its plain
+    version, one launch.  At P=1001 a hub row named by more slots than
+    the index's chunk length takes the two passes (chunk sums, then the
+    sums in order), short rows one."""
     rng = np.random.default_rng(p + d)
     nbrs = rng.integers(0, 400, (p, ps))
     nbrs[: p // 2, 0] = 3                            # a hub row
     mask = rng.random((p, ps)) < 0.7
     tgt = rng.integers(0, 60, p)
     idx = ops.GradIndex.build(nbrs, mask, tgt, cuda)
-    assert (idx.chunk_start is not None) == (p == 1001)
+    assert (idx.chunks is not None) == (p == 1001)
+    if idx.chunks is not None:
+        lens = (idx.start[1:] - idx.start[:-1]).cpu()
+        assert int(lens.max()) > idx.chunks.chunk
     g = torch.from_numpy(rng.normal(size=(60, d)).astype(np.float32)).to(
         cuda)
     base = torch.from_numpy(rng.normal(size=(400, d)).astype(np.float32))
@@ -211,7 +255,7 @@ def test_scatter_sum_matches_plain_and_is_deterministic(cuda, p, ps, d):
     before = neighbor_agg.scatter_sum_ordered.launches
     got = ops.scatter_sum_ordered(base.to(cuda), *args)
     assert neighbor_agg.scatter_sum_ordered.launches == before + 1
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(got, ops.scatter_sum_ordered(base.to(cuda), *args))
 
 

@@ -150,33 +150,47 @@ def test_scatter_sum_bitwise_equals_sequential_loop():
                 want[nbrs[p, j]] += g[tgt[p]]
     idx = ops.GradIndex.build(nbrs, mask, tgt)
     assert idx.num_slots == int(mask.sum())
-    assert idx.chunk_start is None            # no segment is cut
+    assert idx.chunks is None                 # no segment is cut
     got = torch.zeros(30, 7)
     ops.scatter_sum_ordered(got, torch.from_numpy(g), idx)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_scatter_sum_cuts_hub_segments_into_fixed_chunks():
-    """A neighbor named by more than GRAD_CHUNK slots is summed chunk by
-    chunk (each in slot order), then the chunk sums in order: bitwise that
-    loop, and within fp32 rounding of the plain sum."""
-    n_slots, chunk = 3 * ops.GRAD_CHUNK + 17, ops.GRAD_CHUNK
+    """Only a hub row (a neighbor named by more slots than the index's
+    chunk length C) is summed chunk by chunk, each chunk in slot order from
+    zero, then the chunk sums in order onto the row; a row of exactly C
+    slots, and every shorter one, adds its slots in slot order.  Bitwise
+    that loop, and within fp32 rounding of the plain sum."""
     rng = np.random.default_rng(3)
-    nbrs = np.where(rng.random((n_slots, 1)) < 0.9, 4,
-                    rng.integers(0, 9, (n_slots, 1)))
+    c = ops.chunk_length(3 * ops.SEG_CHUNK + 17)
+    # row 4 a hub of 3C + 17 slots, row 6 exactly C, row 7 C + 1 (a hub
+    # whose last chunk holds one slot), rows 0..3 and 8 short; shuffled
+    nbrs = np.concatenate([np.full(3 * c + 17, 4), np.full(c, 6),
+                           np.full(c + 1, 7), rng.integers(0, 4, 40),
+                           np.full(5, 8)])
+    rng.shuffle(nbrs)
+    nbrs = nbrs[:, None]
+    n_slots = nbrs.shape[0]
     mask = np.ones_like(nbrs, bool)
     g = (rng.normal(size=(n_slots, 5)) * 1e3).astype(np.float32)
     idx = ops.GradIndex.build(nbrs, mask)
-    assert idx.num_chunks > idx.rows.shape[0]
+    assert idx.chunks is not None and idx.chunks.chunk == c
+    np.testing.assert_array_equal(idx.rows.numpy()[idx.chunks.hubs.numpy()],
+                                  [4, 7])
     dbuf0 = rng.normal(size=(9, 5)).astype(np.float32)
     want = dbuf0.copy()
     for r in range(9):
         slots = np.flatnonzero(nbrs[:, 0] == r)
-        for lo in range(0, slots.size, chunk):
-            part = np.zeros(5, np.float32)
-            for k in slots[lo:lo + chunk]:
-                part += g[k]
-            want[r] += part
+        if slots.size > c:          # a hub: chunk sums from zero, in order
+            for lo in range(0, slots.size, c):
+                part = np.zeros(5, np.float32)
+                for k in slots[lo:lo + c]:
+                    part += g[k]
+                want[r] += part
+        else:                       # slot by slot onto the row
+            for k in slots:
+                want[r] += g[k]
     got = torch.from_numpy(dbuf0.copy())
     ops.scatter_sum_ordered(got, torch.from_numpy(g), idx)
     np.testing.assert_array_equal(got.numpy(), want)
