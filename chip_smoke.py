@@ -76,6 +76,26 @@ Phases, each of which passes or ends the run with a non-zero exit:
    copies of one aggregation at k = 96, 48, 24 and dense, and the step
    time at k = 24 and dense; K4 held bitwise and timed on every group of
    this plan at D = 96, as in phase 6;
+13. the online tuner on the card, after phase 10 and on its graph and
+   ring: (a) GCN 16 x 2 full-graph training under ``DynamicGNNEngine``
+   (``H100_SXM``, budget 12, a window of 1 + 3 steps; ps 4/8/16/32 x
+   dist 1/2/4 x pb 0 (K1)/4/8 (K2)) with the launch counts read around
+   the search; each move's config, steps, rebuild seconds and whether K2
+   launched, each probe's measured ms and model error, the committed
+   config; (b) from the commit step, a static engine at the committed
+   config gives the same losses and parameters bitwise for 3 steps, and
+   the step time (CUDA events, 10 reps after 3) at the default ``ps=16,
+   dist=2`` and at the committed config, there with pb 0 (K1), 4 and 8
+   (K2); (c) a per-layer engine whose
+   layers carry one config equals the single-plan engine bitwise (logits
+   and one step's gradients), then a per-layer search (budget 16); (d)
+   the device bytes the tuned engine held within 10 % of what a fresh
+   static engine adds; (e) GCN serving of two Zipf phases with a hot-set
+   rotation through a ``DynamicGNNEngine`` (ps 4/8/16 x dist 1/2 x pb
+   0/4): at least one retune, and served == offline bitwise (full and
+   cached passes) after it.  The per-layer search and (e) run on the
+   reduced stand-in (``TUNER_SCALE``): at full size a move's rebuild
+   takes 5-7 s, and each retune's search makes several;
 11. dense-LM inference at full width, after the GNN phases' device state
    is freed: mistral-nemo-12b (40 layers, d_model 5120, 32/8 heads,
    head_dim 128, vocab 131,072, fp32 parameters drawn on the card from a
@@ -183,6 +203,11 @@ PATH_KERNELS = {
                "scatter_sum_ordered", "sparse_gather_sum"),
     "sparse_serving": ("gather_sum_pipelined", "segment_add_ordered",
                        "sparse_gather_sum"),
+    # phase 13: the tuner's search over GCN training steps (K2 with pb set)
+    "tuner": ("gather_sum_pipelined", "gather_sum_blocked",
+              "segment_add_ordered", "scatter_sum_ordered"),
+    # phase 13 (e): serving with drift retuning
+    "tuner_serving": ("gather_sum_pipelined", "segment_add_ordered"),
     # the LM's cache-less forward with use_flash_attention (bf16 compute)
     "lm_forward": ("flash_attention",),
     # xlstm-125m: the cache-less forward (bf16 compute), then the launcher
@@ -215,6 +240,11 @@ SLSTM_SWEEP = ((8, 16, 64, 192), (1, 2, 4), (1, 3, 8), (1, 7, 256, 4096))
 # K1 and K6 sweeps: more partitions than one grid of K1 holds (what fits
 # the card at once), so each of its warps walks several
 GRID_P = 300_000
+# phase 13: the tuner's spaces (pb 0 is K1, pb 4 and 8 K2), its budget of
+# measurements, and the scale of its per-layer search and serving run
+TUNER_PS, TUNER_DIST, TUNER_PB = (4, 8, 16, 32), (1, 2, 4), (0, 4, 8)
+TUNER_BUDGET = 12
+TUNER_SCALE = REDUCED_SCALE
 
 
 def fail(msg):
@@ -560,6 +590,7 @@ def main():
     k4["fig9e"] = {k: v for k, v in k4_fig9e.items()
                    if k not in ("name", "route", "source", "replaces")}
     k4["bitwise_plain"] = k4["bitwise_plain"] and k4_fig9e["bitwise_plain"]
+    tuner_on_card(torch, C, K, g, ring, dev, ncls, launches)
 
     # -- 11. dense-LM inference: the GNN phases' device state goes first ----
     del params, results, ring, apply, init
@@ -1568,6 +1599,404 @@ def time_gather_rows(torch, K, tiers, ids, rate, dev):
                 bound_by="bytes", library_ms=t_lib, library="index_select",
                 bytes=nbytes, rows=int(ids.size), hot_rows=int(hot.sum()),
                 cold_rows=n_cold, width=d)
+
+
+# ---------------------------------------------------------------------------
+# the online tuner on the card (phase 13)
+# ---------------------------------------------------------------------------
+
+def _gcn_step(C, value_and_grad, adamw_update, ocfg):
+    """One full-graph GCN AdamW step on ``eng`` over padded ``tables``."""
+    def step(eng, tables, p, opt):
+        xp, yp, mp = tables
+        loss, grads = value_and_grad(lambda q: C.masked_cross_entropy(
+            C.gcn_apply(q, eng, xp), yp, mp), p)
+        p, opt, _ = adamw_update(grads, opt, p, ocfg)
+        return p, opt, loss
+    return step
+
+
+def _held_to_plain(torch, K, eng, xs, what):
+    """Each layer's GCN aggregation on ``eng`` (the kernels) held to the
+    plain path on the same plan and arrays (rtol/atol 1e-5) and, where a
+    layer runs K2, bitwise to K1 on that plan: the check of each config a
+    tuner runs K1 or K2 at.  Returns the largest difference and the
+    launches the check made, which the path's counts leave out."""
+    before = K.launch_counts()
+    plain = dataclasses.replace(eng, use_kernel=False)
+    on_k1 = dataclasses.replace(eng, layer_plans=[
+        dataclasses.replace(lp, pb=None) for lp in eng.layer_plans])
+    err = 0.0
+    with torch.inference_mode():
+        for i, x in enumerate(xs):
+            got = eng.gcn_norm_aggregate(x, layer=i)
+            err = max(err, held(got, plain.gcn_norm_aggregate(x, layer=i),
+                                f"{what}, layer {i}"))
+            if eng.layer_plan(i).pb:
+                check(torch.equal(got, on_k1.gcn_norm_aggregate(x, layer=i)),
+                      f"{what}, layer {i}: K2 not bitwise K1")
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    return err, {k: after[k] - before[k] for k in after}
+
+
+def _layer_inputs(widths, table):
+    """One input a layer at the widths the GCN aggregates: the padded
+    feature table's leading columns."""
+    return [table[:, :w].contiguous() for w in widths]
+
+
+def tuner_on_card(torch, C, K, g, ring, dev, ncls, launches):
+    """Phase 13: the online tuner driving K1/K2 on the card."""
+    import gc
+
+    from repro_torch.core.autotune import H100_SXM
+    from repro_torch.runtime import DynamicGNNEngine, ProfileConfig
+    from repro_torch.train import (AdamWConfig, adamw_init, adamw_update,
+                                   graph_features, value_and_grad)
+    from repro_torch.train.tree import tree_map
+
+    t_phase = time.perf_counter()
+    d_in = 100
+    x, y, train_mask = graph_features(g.num_nodes, d_in, ncls, seed=0)
+    params = C.gcn_init(torch.Generator().manual_seed(0), d_in, ncls,
+                        hidden=16, num_layers=2, device=dev)
+    opt = adamw_init(params)
+    ocfg = AdamWConfig(lr=5e-3, warmup_steps=5, total_steps=200,
+                       weight_decay=0.0)
+    step = _gcn_step(C, value_and_grad, adamw_update, ocfg)
+    cache = os.path.join(ROOT, "build", "tuner", "phase13.json")
+    if os.path.exists(cache):
+        os.remove(cache)          # the search starts cold in every run
+    torch.cuda.synchronize()
+    widths = C.aggregation_widths("gcn", params)
+    # each config the search runs is held to the plain path on its plan;
+    # those launches are not the path's
+    excluded = {}
+
+    def hold(eng, tables, what):
+        err, made = _held_to_plain(torch, K, eng,
+                                   _layer_inputs(widths, tables[0]), what)
+        for k, n in made.items():
+            excluded[k] = excluded.get(k, 0) + n
+        return err
+
+    def path_counts():
+        return {k: n - excluded.get(k, 0)
+                for k, n in K.launch_counts().items()}
+
+    k2 = lambda: path_counts()["gather_sum_blocked"]
+
+    # -- (a) the global search over training steps --------------------------
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    dyn = DynamicGNNEngine.build(
+        g, ring, d_feat=d_in, ps_space=TUNER_PS, dist_space=TUNER_DIST,
+        pb_space=TUNER_PB, use_kernel=True, hw=H100_SXM,
+        budget=TUNER_BUDGET, window=ProfileConfig(warmup=1, iters=3),
+        cache_path=cache)
+    tables = _tables(torch, C, dyn, x, y, train_mask, dev)
+    moves = []
+    build_s = time.perf_counter() - t0
+    cur = dict(config=dyn.config, build_s=build_s,
+               plain_max_abs_err=hold(dyn.engine, tables, dyn.config),
+               steps=0, k2=k2())
+    t_search, n_steps = time.perf_counter(), 0
+    while not dyn.committed:
+        check(n_steps < 40 * TUNER_BUDGET, "the tuner's search never closed")
+        t0 = time.perf_counter()
+        params, opt, _ = step(dyn, tables, params, opt)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_steps += 1
+        cur["steps"] += 1
+        t0 = time.perf_counter()
+        moved = dyn.observe_step(dt)
+        if moved:
+            tables = None            # the old layout's tables go first
+            tables = _tables(torch, C, dyn, x, y, train_mask, dev)
+        if moved or dyn.committed:
+            build_s = time.perf_counter() - t0
+            cur["k2_launched"] = k2() > cur.pop("k2")
+            moves.append(cur)
+            cur = dict(config=dyn.config, build_s=build_s,
+                       plain_max_abs_err=(hold(dyn.engine, tables, dyn.config)
+                                          if moved else
+                                          moves[-1]["plain_max_abs_err"]),
+                       steps=0, k2=k2())
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t_search
+    commit_build_s = cur["build_s"]      # the committed config's rebuild
+    launches["tuner"] = counts = path_counts()
+    check(all(counts[k] > 0 for k in PATH_KERNELS["tuner"]),
+          f"a kernel of the tuner's path never launched: {counts}")
+    committed = dyn.config
+    probes = [dict(config=ev["config"], ms=ev["latency"] * 1e3,
+                   model_error=dyn._model_error(ev))
+              for ev in dyn.audit if ev["event"] == "probe"]
+    check(len(probes) == dyn.tuner.measured <= TUNER_BUDGET
+          and all(np.isfinite(pr["ms"]) and pr["ms"] > 0 for pr in probes),
+          f"bad probes: {probes}")
+    for mv, pr in zip(moves, probes):   # a move's window is its probe
+        check(mv["config"] == pr["config"], f"{mv} measured as {pr}")
+        mv["ms"] = pr["ms"]
+    say("tuner_search", spaces=dict(ps=TUNER_PS, dist=TUNER_DIST,
+                                    pb=TUNER_PB),
+        budget=TUNER_BUDGET, window="warmup 1, iters 3, median",
+        held_to_plain="each config's aggregations, rtol/atol 1e-5; K2 "
+                      "bitwise K1 on the same plan",
+        hw=H100_SXM.name, moves=moves, probes=probes, committed=committed,
+        commit_step=n_steps, commit_build_s=commit_build_s,
+        search_s=round(search_s, 3),
+        events=[ev["event"] for ev in dyn.audit if ev["event"] != "probe"],
+        launches=counts)
+
+    # -- (d) memory and (b) dynamic == static from the commit step ----------
+    # the bytes a fresh static engine at the committed config adds, and
+    # the bytes dropping the tuned engine frees: equal unless tuner moves
+    # left plan arrays behind
+    tables = None
+    part = dyn.partition
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    static = C.GNNEngine.build(g, ring, ps=committed["ps"],
+                               dist=committed["dist"],
+                               pb=committed["pb"] or None, partition=part)
+    static_build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem_static = torch.cuda.memory_allocated() - mem_before
+    runs = []
+    for eng in (dyn, static):
+        q, o = tree_map(torch.clone, params), tree_map(torch.clone, opt)
+        tb = _tables(torch, C, eng, x, y, train_mask, dev)
+        losses = []
+        for _ in range(3):
+            q, o, loss = step(eng, tb, q, o)
+            losses.append(loss)
+        runs.append((losses, q))
+        del tb, q, o
+    check(all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+          and _bitwise(torch, runs[0][1], runs[1][1]),
+          "the tuned engine and a static one at its config differ")
+    del runs, eng
+    torch.cuda.synchronize()
+    mem_both = torch.cuda.memory_allocated()
+    del dyn
+    gc.collect()       # the tuner's audit sink refers back to the engine
+    torch.cuda.synchronize()
+    mem_dyn = mem_both - torch.cuda.memory_allocated()
+    check(abs(mem_dyn - mem_static) <= 0.1 * mem_static,
+          f"the tuned engine held {mem_dyn} bytes, a static one adds "
+          f"{mem_static}: tuner moves leaked plan arrays")
+
+    # step time at the default config and the committed one (CUDA events)
+    # and, at the committed (ps, dist), K1 (pb 0) against K2 (pb 4, 8),
+    # each held to the plain path first
+    tb = _tables(torch, C, static, x, y, train_mask, dev)
+    step_ms_by_pb, plain_err_by_pb = {}, {}
+    for pb in TUNER_PB:
+        e = dataclasses.replace(static, layer_plans=[
+            dataclasses.replace(lp, pb=pb or None)
+            for lp in static.layer_plans])
+        plain_err_by_pb[pb], _ = _held_to_plain(
+            torch, K, e, _layer_inputs(widths, tb[0]), f"committed plan, "
+            f"pb {pb}")
+        step_ms_by_pb[pb] = _time(torch, lambda: step(e, tb, params, opt),
+                                  reps=10, warmup=3)
+    committed_ms = step_ms_by_pb[committed["pb"]]
+    default = dict(ps=16, dist=2, pb=0)
+    if committed == default:
+        default_ms = committed_ms
+    else:
+        dflt = C.GNNEngine.build(g, ring, ps=16, dist=2, partition=part)
+        tbd = _tables(torch, C, dflt, x, y, train_mask, dev)
+        default_ms = _time(torch, lambda: step(dflt, tbd, params, opt),
+                           reps=10, warmup=3)
+        del dflt, tbd
+    say("tuner_committed", committed=committed, default=default,
+        dynamic_equals_static="bitwise, 3 AdamW steps from the commit "
+                              "step (losses and parameters)",
+        default_step_ms=default_ms, committed_step_ms=committed_ms,
+        step_ms_by_pb=step_ms_by_pb, plain_max_abs_err_by_pb=plain_err_by_pb,
+        engine_bytes_tuned=mem_dyn, engine_bytes_static=mem_static,
+        memory_tolerance="within 10 %",
+        static_build_s=round(static_build_s, 3))
+
+    # -- (c) per-layer == single-plan, bitwise; a per-layer search -----------
+    per = C.GNNEngine.build(g, ring, layer_configs=[dict(
+        ps=committed["ps"], dist=committed["dist"],
+        pb=committed["pb"] or None)] * 2, partition=part)
+    check(per.ring_arrays[0] is per.ring_arrays[1],
+          "layers of one config hold two plans")
+    xp = tb[0]
+    got = []
+    for eng in (static, per):
+        with torch.inference_mode():
+            logits = C.gcn_apply(params, eng, xp)
+        _, grads = value_and_grad(lambda q: C.masked_cross_entropy(
+            C.gcn_apply(q, eng, tb[0]), tb[1], tb[2]), params)
+        got.append((logits, grads))
+    check(torch.equal(got[0][0], got[1][0])
+          and _bitwise(torch, got[0][1], got[1][1]),
+          "per-layer engine != single-plan engine")
+    del per, got, tb, xp, static
+    per_layer = tuner_per_layer(torch, C, K, dev, ncls, H100_SXM)
+
+    # -- (e) serving with drift retuning ------------------------------------
+    serving = tuner_serving(torch, C, K, dev, ncls, H100_SXM, launches)
+    torch.cuda.synchronize()
+    say("tuner_done", per_layer_equals_single_plan="bitwise (logits, one "
+        "step's gradients)", per_layer=per_layer, serving=serving,
+        phase_s=round(time.perf_counter() - t_phase, 3))
+
+
+def tuner_per_layer(torch, C, K, dev, ncls, hw):
+    """Phase 13 (c): a per-layer search (budget 16) on the reduced
+    stand-in, over GCN training steps."""
+    from repro_torch.dist import VirtualRing
+    from repro_torch.runtime import DynamicGNNEngine, ProfileConfig
+    from repro_torch.train import (AdamWConfig, adamw_init, adamw_update,
+                                   graph_features, value_and_grad)
+
+    g, _ = C.paper_dataset("products", scale=TUNER_SCALE, seed=0)
+    d_in = 100
+    x, y, train_mask = graph_features(g.num_nodes, d_in, ncls, seed=0)
+    params = C.gcn_init(torch.Generator().manual_seed(0), d_in, ncls,
+                        hidden=16, num_layers=2, device=dev)
+    opt = adamw_init(params)
+    step = _gcn_step(C, value_and_grad, adamw_update, AdamWConfig(
+        lr=5e-3, warmup_steps=5, total_steps=200, weight_decay=0.0))
+    t0 = time.perf_counter()
+    dyn = DynamicGNNEngine.build(
+        g, VirtualRing(8, dev), d_feat=d_in,
+        layer_dims=C.aggregation_widths("gcn", params),
+        ps_space=TUNER_PS, dist_space=TUNER_DIST, pb_space=TUNER_PB,
+        use_kernel=True, hw=hw, budget=16,
+        window=ProfileConfig(warmup=1, iters=2))
+    tables = _tables(torch, C, dyn, x, y, train_mask, dev)
+    widths = C.aggregation_widths("gcn", params)
+    hold = lambda: _held_to_plain(torch, K, dyn.engine, _layer_inputs(
+        widths, tables[0]), dyn.config)[0]
+    err = hold()
+    n = 0
+    while not dyn.committed:
+        check(n < 400, "the per-layer search never closed")
+        t1 = time.perf_counter()
+        params, opt, _ = step(dyn, tables, params, opt)
+        torch.cuda.synchronize()
+        n += 1
+        if dyn.observe_step(time.perf_counter() - t1):
+            tables = None
+            tables = _tables(torch, C, dyn, x, y, train_mask, dev)
+            err = max(err, hold())
+    check(len(dyn.config["layers"]) == 2, "not a per-layer config")
+    return dict(nodes=g.num_nodes, widths=dyn.layer_dims,
+                committed=dyn.config["layers"],
+                measured=dyn.tuner.measured, steps=n,
+                best_ms=dyn.tuner.best_latency * 1e3,
+                plain_max_abs_err=err,
+                s=round(time.perf_counter() - t0, 3))
+
+
+def tuner_serving(torch, C, K, dev, ncls, hw, launches):
+    """Phase 13 (e): GCN serving through a DynamicGNNEngine on the
+    reduced stand-in (a full-size trace retuned 4 times at 5-6 s a
+    rebuild); a hot-set rotation must retune, and served logits equal the
+    offline forward bitwise after it."""
+    from repro_torch.dist import VirtualRing
+    from repro_torch.runtime import DynamicGNNEngine, ProfileConfig
+    from repro_torch.serve import (GNNServeEngine, TrafficPhase,
+                                   WorkloadStats, ZipfTraffic, run_trace)
+
+    g, _ = C.paper_dataset("products", scale=TUNER_SCALE, seed=0)
+    d_in = 100
+    x = np.random.default_rng(0).normal(size=(g.num_nodes, d_in)).astype(
+        np.float32)
+    params = C.gcn_init(torch.Generator().manual_seed(0), d_in, ncls,
+                        device=dev)
+    t0 = time.perf_counter()
+    dyn = DynamicGNNEngine.build(
+        g, VirtualRing(8, dev), d_feat=d_in, ps_space=(4, 8, 16),
+        dist_space=(1, 2), pb_space=(0, 4), use_kernel=True, hw=hw,
+        window=ProfileConfig(warmup=1, iters=2))
+    srv = GNNServeEngine(dyn, params, "gcn", x, g, slots=8,
+                         stats=WorkloadStats(window=32), check_every=8,
+                         min_records=8)
+    phases = [TrafficPhase(requests=200, alpha=1.1, rate=200.0, seeds_max=4,
+                           update_frac=0.02),
+              TrafficPhase(requests=200, alpha=1.1, rate=200.0, rotate=True,
+                           seeds_max=4, update_frac=0.02)]
+    events = list(ZipfTraffic(g.num_nodes, d_in, phases, seed=0))
+    n_requests = sum(not ev.is_update for ev in events)
+    K.reset_launch_counts()
+    results = run_trace(srv, events)
+    torch.cuda.synchronize()
+    launches["tuner_serving"] = counts = K.launch_counts()
+    check(all(counts[k] > 0 for k in PATH_KERNELS["tuner_serving"]),
+          f"a kernel of the tuned serving path never launched: {counts}")
+    rep = srv.report()
+    check(len(results) == rep["served"] == n_requests,
+          f"{n_requests} requests, {len(results)} answered")
+    check(rep["retunes"] >= 1, "the hot-set rotation caused no retune")
+    # close the open search on more traffic, then hold the config
+    extra = ZipfTraffic(g.num_nodes, d_in, [TrafficPhase(
+        requests=50, alpha=1.1, rate=200.0, seeds_max=4)], seed=1)
+    for _ in range(20):
+        if not srv._tuning:
+            break
+        run_trace(srv, extra)
+    check(not srv._tuning, "the retuned search never closed")
+    srv.check_every = 10 ** 9
+    seeds = np.unique(np.concatenate([r.seeds for r in results[-3:]]))[:8]
+    srv.cache.invalidate()
+    srv.submit(seeds)
+    (full,) = srv.step()
+    srv.submit(seeds)
+    (cached,) = srv.step()
+    check(not full.cached and cached.cached, "full/cached passes not taken")
+    with torch.inference_mode():
+        offline = C.gcn_apply(params, dyn, srv.xp)
+    rows = torch.from_numpy(C.pgas_rows(dyn.plan, seeds).astype(
+        np.int64)).to(dev)
+    off_rows = offline[rows].cpu().numpy()
+    check(np.array_equal(full.logits, off_rows)
+          and np.array_equal(cached.logits, off_rows),
+          "served != offline after the retune")
+    # the committed config's logits against the plain path (as phase 3),
+    # and every config the trace ran rebuilt on its partition and held
+    with torch.inference_mode():
+        plain = C.gcn_apply(params, dataclasses.replace(
+            dyn.engine, use_kernel=False), srv.xp)
+    check(torch.allclose(offline, plain, rtol=2e-4, atol=1e-5),
+          "tuned serving: kernel path != plain path")
+    logits_err = (offline - plain).abs().max().item()
+    del offline, plain
+    widths = C.aggregation_widths("gcn", params)
+    ran = []
+    for _, cfg in dyn.history:
+        if cfg not in ran:
+            ran.append(cfg)
+    err = 0.0
+    for cfg in ran:
+        eng = dyn._build_engine(cfg)
+        xs = _layer_inputs(widths, eng.shard(eng.pad(x)))
+        err = max(err, _held_to_plain(torch, K, eng, xs, cfg)[0])
+        del eng, xs
+    lat = np.array([r.latency for r in results])
+    return dict(nodes=g.num_nodes, requests=len(results),
+                retunes=rep["retunes"], rebuilds=rep["rebuilds"],
+                search_sizes=rep["search_sizes"], config=dyn.config,
+                events=[ev["event"] for ev in dyn.audit
+                        if ev["event"] != "probe"],
+                p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3),
+                served_equals_offline="bitwise (full, cached) after the "
+                                      "retune",
+                plain_logits_max_abs_err=logits_err,
+                plain_logits_tolerance="rtol 2e-4 atol 1e-5",
+                configs_held=len(ran), plain_max_abs_err=err,
+                launches=counts, s=round(time.perf_counter() - t0, 3))
 
 
 # ---------------------------------------------------------------------------

@@ -23,15 +23,16 @@ reference's pytrees (``{"layers": [{"w", "b"}, ...]}`` for GCN);
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..dist.ring import VirtualRing
 from .graph import CSRGraph
-from .placement import (AggregationPlan, LayerPlan, build_layer_plans,
-                        pad_embeddings, pad_table)
+from .placement import (AggregationPlan, LayerPlan, SharedPartition,
+                        build_layer_plans, build_partition, pad_embeddings,
+                        pad_table)
 from .pipeline import (RingArrays, block_neighbor_sum, mgg_aggregate,
                        mgg_aggregate_sparse, plan_device_arrays)
 
@@ -47,14 +48,19 @@ __all__ = ["GNNEngine", "gcn_init", "gcn_stage", "gcn_apply", "gin_init",
 class GNNEngine:
     """Graph partitioning state + the pipelined aggregation op.
 
-    One :class:`~repro_torch.core.placement.LayerPlan` from one ``(ps,
-    dist, pb)`` config serves every GNN layer; ``ring_arrays[0]`` is that
-    plan bound to the card (built once, at :meth:`build`).  Per-layer
-    plans come with the tuner's slice.  ``topk`` sends the hidden layers'
-    aggregations over the top-k compressed ring (:meth:`stage_topk`).
-    ``use_kernel=False`` (set on a built engine, e.g. with
-    ``dataclasses.replace``) runs the plain versions on any device — the
-    reference's oracle path, used to check the kernels end to end.
+    The engine holds one :class:`~repro_torch.core.placement.LayerPlan` a
+    GNN layer, all derived from one shared graph partition: layers may run
+    different ``(ps, dist, pb)`` schedules over one padded embedding
+    layout, so activations flow between layers without re-padding.  A
+    single-config engine is the case of one LayerPlan serving every layer.
+    ``ring_arrays[i]`` is layer ``i``'s plan bound to the card; layers
+    whose ``(ps, dist)`` coincide share one plan object and one
+    :class:`RingArrays` (built once, at :meth:`build`).  ``topk`` sends
+    the hidden layers' aggregations over the top-k compressed ring
+    (:meth:`stage_topk`).  ``use_kernel=False`` (set on a built engine,
+    e.g. with ``dataclasses.replace``) runs the plain versions on any
+    device — the reference's oracle path, used to check the kernels end
+    to end.
     """
 
     layer_plans: List[LayerPlan]
@@ -62,6 +68,7 @@ class GNNEngine:
     ring_arrays: List[RingArrays]
     deg: torch.Tensor                    # padded (N_pad,) float32, deg of A+I
     use_kernel: bool = True
+    partition: Optional[SharedPartition] = None
 
     @staticmethod
     def build(
@@ -74,29 +81,45 @@ class GNNEngine:
         interleave: bool = True,
         fuse_update: bool = False,
         topk: Optional[int] = None,
+        layer_configs: Optional[Sequence[Dict]] = None,
+        partition: Optional[SharedPartition] = None,
     ) -> "GNNEngine":
-        """Build an engine on ``ring`` whose one ``(ps, dist, pb)`` plan
-        serves every layer; GCN's ``Â`` takes ``graph`` with self-loops.
-        ``topk`` compresses the hidden layers' ring payloads to their
-        ``k`` largest entries a row."""
+        """Build an engine on ``ring``; GCN's ``Â`` takes ``graph`` with
+        self-loops.  ``layer_configs`` (one ``{ps, dist, pb, ...}`` dict a
+        layer) selects per-layer plans, otherwise the one ``(ps, dist,
+        pb)`` plan serves every layer.  ``partition`` reuses a
+        :class:`SharedPartition` built for this graph (with self-loops) and
+        this ring's shard count — the dynamic runtime passes it so tuner
+        moves re-derive schedules without re-partitioning.  ``topk``
+        compresses the hidden layers' ring payloads to their ``k`` largest
+        entries a row."""
         if ring.device.type == "cuda":
             # the dense ·W updates, forward and backward, must agree with
             # the reference to fp32 rounding: CUDA matmuls run in full
             # fp32, not TF32
             torch.backends.cuda.matmul.allow_tf32 = False
         g = graph.with_self_loops()
-        plans = build_layer_plans(g, ring.n_dev,
-                                  [dict(ps=ps, dist=dist, pb=pb)],
-                                  interleave=interleave,
+        if layer_configs is None:
+            layer_configs = [dict(ps=ps, dist=dist, pb=pb)]
+        part = partition if partition is not None \
+            else build_partition(g, ring.n_dev)
+        plans = build_layer_plans(g, ring.n_dev, layer_configs,
+                                  partition=part, interleave=interleave,
                                   fuse_update=fuse_update, topk=topk)
+        bound: Dict[tuple, RingArrays] = {}
+        for lp in plans:   # one RingArrays per distinct plan object
+            key = (id(lp.plan), lp.interleave)
+            if key not in bound:
+                bound[key] = plan_device_arrays(
+                    lp.plan, interleave=lp.interleave, device=ring.device)
+        arrays = [bound[(id(lp.plan), lp.interleave)] for lp in plans]
         plan0 = plans[0].plan
-        arrays = [plan_device_arrays(plan0, interleave=interleave,
-                                     device=ring.device)]
         deg = pad_table(plan0.bounds, plan0.rows_per_dev,
                         g.degrees.astype(np.float32)[:, None])[:, 0]
         return GNNEngine(
             layer_plans=plans, ring=ring, ring_arrays=arrays,
             deg=torch.from_numpy(np.maximum(deg, 1.0)).to(ring.device),
+            partition=part,
         )
 
     # -- layer plan access ---------------------------------------------------
@@ -115,8 +138,22 @@ class GNNEngine:
         return self.ring.device
 
     @property
+    def per_layer(self) -> bool:
+        return len(self.layer_plans) > 1
+
+    @property
+    def pb(self) -> Optional[int]:
+        return self.layer_plans[0].pb
+
+    @property
     def config(self) -> Dict[str, int]:
+        """Layer 0's (ps, dist, pb) — THE knob set of a single-config
+        engine; per-layer engines expose ``layer_configs``."""
         return self.layer_plans[0].config
+
+    @property
+    def layer_configs(self) -> List[Dict[str, int]]:
+        return [lp.config for lp in self.layer_plans]
 
     # -- layout --------------------------------------------------------------
 

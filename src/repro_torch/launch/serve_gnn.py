@@ -1,17 +1,23 @@
 """GNN serving launcher for the port: Zipfian traffic with phase shifts
-over the static MGG pipeline on one card (counterpart of
-``repro/launch/serve_gnn.py``, single-replica static path).
+over the (dynamically re-tuned) MGG pipeline on one card (counterpart of
+``repro/launch/serve_gnn.py``, single replica).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --dataset products \
-        --model gcn --requests 200 --rotate
+        --model gcn --requests 200 --rotate [--dynamic-tune]
 
 Serves any of the four models (``--model gcn|gin|sage|gat``) and reports
 p50/p99 request latency and the layer-1 cache hit rate.
 ``--devices N`` is the number of virtual shards of the ring on the card
 (default 8); ``--device cpu`` runs on the CPU with the plain versions.
 ``--trace PATH`` writes a Chrome-trace JSON of the request lifecycles;
-``--metrics-json PATH`` writes the metrics snapshot.  The flags of later
-slices (drift retuning, tiered features, sampled frontiers, replicas)
+``--metrics-json PATH`` writes the metrics snapshot with the tuner's
+audit trail.  ``--dynamic-tune`` serves through a
+:class:`~repro_torch.runtime.DynamicGNNEngine` that re-tunes ``(ps,
+dist)`` when the traffic drifts (checked every ``--check-every``
+micro-batches once ``--min-records`` are in the window);
+``--per-layer-tune`` tunes one config a layer (implies
+``--dynamic-tune``), ``--tune-cache`` persists the committed configs.
+The flags of later slices (tiered features, sampled frontiers, replicas)
 are accepted and raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from .. import core as C
 from ..dist import VirtualRing
 from ..obs import MetricsRegistry, Tracer
+from ..runtime import DynamicGNNEngine, ProfileConfig
 from ..serve import (GNNServeEngine, TrafficPhase, WorkloadStats,
                      ZipfTraffic, run_trace)
 
@@ -59,17 +66,23 @@ def _parser() -> argparse.ArgumentParser:
                     help="torch device (cuda unless 'cpu' is asked for)")
     ap.add_argument("--stats-window", type=int, default=32,
                     help="WorkloadStats window")
+    ap.add_argument("--dynamic-tune", action="store_true",
+                    help="re-tune (ps, dist) under traffic drift")
+    ap.add_argument("--per-layer-tune", action="store_true",
+                    help="one (ps, dist, pb) per GNN layer "
+                         "(implies --dynamic-tune)")
+    ap.add_argument("--tune-cache", default=None,
+                    help="JSON path persisting tuned configs across runs")
+    ap.add_argument("--check-every", type=int, default=8,
+                    help="micro-batches between traffic-drift checks")
+    ap.add_argument("--min-records", type=int, default=8,
+                    help="stats records required before drift checks")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome-trace JSON of request lifecycles")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="write the metrics-registry snapshot as JSON")
     # later slices: accepted so the flag set matches the reference's
     later = ap.add_argument_group("later slices (raise NotImplementedError)")
-    later.add_argument("--dynamic-tune", action="store_true")
-    later.add_argument("--per-layer-tune", action="store_true")
-    later.add_argument("--tune-cache", default=None)
-    later.add_argument("--check-every", type=int, default=None)
-    later.add_argument("--min-records", type=int, default=None)
     later.add_argument("--feature-capacity", type=int, default=None)
     later.add_argument("--frontier-fanout", type=int, default=None)
     later.add_argument("--replicas", type=int, default=1)
@@ -79,14 +92,23 @@ def _parser() -> argparse.ArgumentParser:
 
 
 _LATER_FLAGS = [
-    ("dynamic_tune", "drift retuning", "tuner"),
-    ("per_layer_tune", "per-layer tuning", "tuner"),
-    ("tune_cache", "the tuned-config cache", "tuner"),
-    ("check_every", "drift checks", "tuner"),
-    ("min_records", "drift checks", "tuner"),
-    ("feature_capacity", "the tiered feature store", "tiered-store"),
-    ("frontier_fanout", "the fanout-bounded frontier", "sampled-blocks"),
+    ("feature_capacity", "the tiered feature store",
+     "tiered-store slice (ROADMAP item 5)"),
+    ("frontier_fanout", "the fanout-bounded frontier",
+     "sampled-frontier slice (ROADMAP item 6)"),
 ]
+
+
+def _print_audit(audit, indent: str = "  ") -> None:
+    """Print the retune trail from the tuner's audit events (one line a
+    non-probe event)."""
+    for ev in audit:
+        if ev["event"] == "probe":
+            continue                       # one line per probe is too chatty
+        detail = ", ".join(f"{k}={v}" for k, v in ev.items()
+                           if k not in ("event", "measured"))
+        print(f"{indent}[{ev['measured']:4d} measured] "
+              f"{ev['event']}: {detail}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -94,12 +116,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     latency percentiles (seconds)."""
     args = _parser().parse_args(argv)
     for attr, what, slice_name in _LATER_FLAGS:
-        if getattr(args, attr):
+        if getattr(args, attr) is not None:
             raise NotImplementedError(
-                f"{what} arrives with the {slice_name} slice of the port")
+                f"{what} arrives with the {slice_name} of the port")
     if args.replicas > 1:
         raise NotImplementedError(
-            "serving replicas arrive with the cluster slice of the port")
+            "serving replicas arrive with the cluster slice of the port "
+            "(ROADMAP item 7)")
+    args.dynamic_tune = args.dynamic_tune or args.per_layer_tune
 
     ring = VirtualRing(args.devices, args.device)
     tracer = Tracer() if args.trace else None
@@ -114,12 +138,27 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     gen = torch.Generator().manual_seed(args.seed)
     params = init(gen, dim, ncls, device=ring.device, **kw)
 
-    eng = C.GNNEngine.build(g, ring, ps=8, dist=1,
-                            fuse_update=args.fuse_update)
+    if args.dynamic_tune:
+        layer_dims = C.aggregation_widths(args.model, params,
+                                          fused=args.fuse_update) \
+            if args.per_layer_tune else None
+        eng = DynamicGNNEngine.build(
+            g, ring, d_feat=dim,
+            ps_space=(1, 2, 4, 8, 16), dist_space=(1, 2, 4),
+            pb_space=(0,),
+            window=ProfileConfig(warmup=1, iters=2),
+            fuse_update=args.fuse_update, layer_dims=layer_dims,
+            cache_path=args.tune_cache, log_fn=print,
+            tracer=tracer, metrics=registry)
+    else:
+        eng = C.GNNEngine.build(g, ring, ps=8, dist=1,
+                                fuse_update=args.fuse_update)
     srv = GNNServeEngine(eng, params, args.model, x, g,
                          slots=args.slots,
                          stats=WorkloadStats(window=args.stats_window),
-                         use_cache=not args.no_cache,
+                         check_every=args.check_every,
+                         min_records=args.min_records,
+                         use_cache=not args.no_cache, log_fn=print,
                          tracer=tracer, metrics=registry)
 
     phases = [
@@ -144,8 +183,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"cache hit rate {rep['cache_hit_rate']:.3f} "
           f"({rep['cache_stores']} stores, "
           f"{rep['cache_invalidations']} invalidations)")
+    if args.dynamic_tune:
+        print(f"retunes {rep['retunes']}, rebuilds {rep['rebuilds']}, "
+              f"final config {rep['config']}")
+        _print_audit(srv.eng.audit)
     if args.metrics_json:
-        registry.dump_json(args.metrics_json)
+        audit = {"replica0": srv.eng.audit} if args.dynamic_tune else {}
+        registry.dump_json(args.metrics_json, extra={"audit": audit})
         print(f"[serve_gnn] metrics snapshot: {args.metrics_json}")
     if tracer is not None:
         tracer.dump_chrome(args.trace)

@@ -4,6 +4,8 @@ sampled mini-batch GraphSAGE over the tiered store, on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.train_gnn [--steps 100]
         [--model gcn|gin|sage|gat] [--fuse-update] [--devices 8]
+        [--dynamic-tune] [--per-layer-tune] [--tune-fuse]
+        [--tune-cache PATH]
         [--sample-fanout F --sample-batch B --feature-capacity C]
         [--device cpu]
 
@@ -11,15 +13,26 @@ The full-graph branch builds the static engine of the reference (``ps=16,
 dist=2``) over ``--devices`` virtual shards, takes the loss's gradient
 through the ring (its backward is the transposed ring, K4), runs AdamW
 and saves a checkpoint every 50 steps, in the reference's layout.
+``--dynamic-tune`` wraps the engine in
+:class:`~repro_torch.runtime.DynamicGNNEngine`: every step's wall time
+feeds the online ps → dist → pb search (pb 0 is K1, pb ≥ 1 K2 on the
+card), and whenever the tuner moves the plan is rebuilt and the padded
+node tables with it — parameters never change, so the loss curve is the
+one a static engine gives config for config.  ``--per-layer-tune`` lifts
+the search to one config a layer, ``--tune-fuse`` also probes each
+layer's fused-update dataflow (both imply ``--dynamic-tune``), and
+``--tune-cache`` persists the committed config for the next run.
 ``--sample-fanout F`` switches to fanout-bounded blocks (GraphSAGE only)
 whose source rows come from a tiered store: a device hot cache of
 ``--feature-capacity`` rows (default ``num_nodes // 8``, admitted
 hottest-degree first) over the host table, assembled by the row-gather
-kernel (K5).  Both report test accuracy.  The demo caps of the reference
+kernel (K5); with ``--dynamic-tune`` fanout and batch become the tuner's
+knobs (climbed over {F, 2F} × {B, 2B} on per-seed step time) and the loop
+adopts them live.  Both report test accuracy.  The demo caps of the reference
 hold: ``--scale 0.5`` of the dataset, at most 64 feature dims and 10
 classes.  ``--device cpu`` runs on the CPU with the plain versions;
 ``--trace`` writes a Chrome trace of the steps and ``--metrics-json`` the
-metrics snapshot.  The tuner's flags raise ``NotImplementedError``.
+metrics snapshot with the tuner's audit trail.
 """
 from __future__ import annotations
 
@@ -34,16 +47,10 @@ import torch
 from .. import core as C
 from ..dist import VirtualRing, resolve_device
 from ..obs import MetricsRegistry, Tracer
+from ..runtime import DynamicGNNEngine, ProfileConfig
 from ..train import (AdamWConfig, adamw_init, adamw_update, graph_features,
                      value_and_grad)
 from ..train import checkpoint as ck
-
-_TUNER_FLAGS = [
-    ("dynamic_tune", "online (ps, dist, pb) tuning"),
-    ("per_layer_tune", "per-layer tuning"),
-    ("tune_fuse", "fused-update tuning"),
-    ("tune_cache", "the tuned-config cache"),
-]
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -74,11 +81,17 @@ def _parser() -> argparse.ArgumentParser:
                     help="write a Chrome-trace JSON of the steps")
     ap.add_argument("--metrics-json", default="", metavar="PATH",
                     help="write the metrics snapshot")
-    tuner = ap.add_argument_group("tuner slice (raise NotImplementedError)")
-    tuner.add_argument("--dynamic-tune", action="store_true")
-    tuner.add_argument("--per-layer-tune", action="store_true")
-    tuner.add_argument("--tune-fuse", action="store_true")
-    tuner.add_argument("--tune-cache", default="")
+    ap.add_argument("--dynamic-tune", action="store_true",
+                    help="online cross-iteration (ps, dist, pb) tuning")
+    ap.add_argument("--per-layer-tune", action="store_true",
+                    help="tune one (ps, dist, pb) per GNN layer "
+                         "(implies --dynamic-tune)")
+    ap.add_argument("--tune-fuse", action="store_true",
+                    help="let the per-layer tuner probe flipping each "
+                         "layer's fused-update dataflow (implies "
+                         "--per-layer-tune)")
+    ap.add_argument("--tune-cache", default="",
+                    help="JSON path persisting tuned configs across runs")
     return ap
 
 
@@ -97,9 +110,10 @@ def _step_done(i, t0, dev, tracer, registry, name, **args) -> float:
     return dt
 
 
-def _finish(args, tracer, registry) -> None:
+def _finish(args, tracer, registry, eng) -> None:
     if args.metrics_json:
-        registry.dump_json(args.metrics_json, extra={"audit": []})
+        audit = eng.audit if isinstance(eng, DynamicGNNEngine) else []
+        registry.dump_json(args.metrics_json, extra={"audit": audit})
         print(f"metrics snapshot: {args.metrics_json}")
     if tracer is not None:
         tracer.dump_chrome(args.trace)
@@ -119,6 +133,22 @@ def run_sampled(args, g, x, y, train_mask, dim, ncls, dev, tracer,
                   **kw)
     n_layers = len(params["layers"])
     fanout, batch = args.sample_fanout, args.sample_batch
+
+    eng = None
+    if args.dynamic_tune:
+        # schedule knobs pinned (the ring plan is idle here — blocks
+        # aggregate locally); the search space is the sampling geometry,
+        # whose moves keep the one plan built here
+        eng = DynamicGNNEngine.build(
+            g, VirtualRing(args.devices, dev), d_feat=dim,
+            ps_space=(8,), dist_space=(1,), pb_space=(0,),
+            fanout_space=(fanout, 2 * fanout),
+            batch_space=(batch, 2 * batch),
+            window=ProfileConfig(warmup=1, iters=2),
+            cache_path=args.tune_cache or None, log_fn=print,
+            tracer=tracer, metrics=registry)
+        fanout = eng.sample_fanout or fanout
+        batch = eng.sample_batch or batch
 
     store = FeatureStore(x, pin=dev.type == "cuda")
     cap = args.feature_capacity if args.feature_capacity >= 0 \
@@ -155,9 +185,14 @@ def run_sampled(args, g, x, y, train_mask, dim, ncls, dev, tracer,
             lambda p: C.masked_cross_entropy(forward(p, seeds), yb, mb),
             params)
         params, opt, _ = adamw_update(grads, opt, params, ocfg)
-        _step_done(i, t0, dev, tracer, registry, "train.sampled_step",
-                   fanout=fanout, batch=batch)
+        dt = _step_done(i, t0, dev, tracer, registry, "train.sampled_step",
+                        fanout=fanout, batch=batch)
         losses.append(float(loss))
+        if eng is not None and eng.observe_step(dt / batch):
+            # per-seed latency drives the climb; adopt the tuned geometry
+            fanout = eng.sample_fanout or fanout
+            batch = eng.sample_batch or batch
+            batches = minibatches()
         if i % 10 == 0:
             print(f"step {i:4d} loss {losses[-1]:.4f} "
                   f"(fanout {fanout}, batch {batch})")
@@ -178,9 +213,13 @@ def run_sampled(args, g, x, y, train_mask, dim, ncls, dev, tracer,
     print(f"tiered store: cap {rep['capacity']} rows, hit rate "
           f"{rep['hit_rate']:.3f}, "
           f"{rep['host_rows_streamed']} host rows streamed")
-    _finish(args, tracer, registry)
+    if eng is not None:
+        print(f"tuned config: {eng.config} after "
+              f"{eng.tuner.measured} measurements")
+    _finish(args, tracer, registry, eng)
     return dict(losses=losses, test_acc=acc, store=rep, device=str(dev),
-                params=params)
+                params=params, fanout=fanout, batch=batch,
+                config=eng.config if eng is not None else None)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -188,10 +227,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     final parameters (plus the checkpoint directory, full-graph)."""
     ap = _parser()
     args = ap.parse_args(argv)
-    for attr, what in _TUNER_FLAGS:
-        if getattr(args, attr):
-            raise NotImplementedError(
-                f"{what} arrives with the tuner slice of the port")
+    args.per_layer_tune = args.per_layer_tune or args.tune_fuse
+    args.dynamic_tune = args.dynamic_tune or args.per_layer_tune
     if args.sample_fanout and args.model != "sage":
         ap.error("--sample-fanout requires --model sage "
                  "(block aggregation is GraphSAGE-only)")
@@ -212,28 +249,51 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     init, apply, kw = C.MODEL_ZOO[args.model]
     params = init(torch.Generator().manual_seed(0), dim, ncls, device=dev,
                   **kw)
-    eng = C.GNNEngine.build(g, ring, ps=16, dist=2,
-                            fuse_update=args.fuse_update)
+    if args.dynamic_tune:
+        layer_dims = C.aggregation_widths(args.model, params,
+                                          fused=args.fuse_update) \
+            if args.per_layer_tune else None
+        # pb 0 is K1; pb 1-4 K2 (collapsed off the card)
+        eng = DynamicGNNEngine.build(
+            g, ring, d_feat=dim,
+            ps_space=(1, 2, 4, 8, 16, 32), dist_space=(1, 2, 4),
+            pb_space=(0, 1, 2, 4),
+            window=ProfileConfig(warmup=1, iters=2),
+            cache_path=args.tune_cache or None,
+            fuse_update=args.fuse_update, tune_fuse=args.tune_fuse,
+            layer_dims=layer_dims, log_fn=print,
+            tracer=tracer, metrics=registry)
+    else:
+        eng = C.GNNEngine.build(g, ring, ps=16, dist=2,
+                                fuse_update=args.fuse_update)
     opt = adamw_init(params)
     ocfg = AdamWConfig(lr=5e-3, warmup_steps=5, total_steps=args.steps,
                        weight_decay=0.0)
-    pad1 = lambda a: C.pad_table(eng.plan.bounds, eng.plan.rows_per_dev,
-                                 a[:, None])[:, 0]
-    xp = eng.shard(eng.pad(x))
-    yp = torch.from_numpy(pad1(y.astype(np.int32))).to(dev)
-    mp = torch.from_numpy(pad1(train_mask.astype(np.float32))).to(dev)
 
-    def loss_fn(p):
-        return C.masked_cross_entropy(apply(p, eng, xp), yp, mp)
+    def prepare():
+        """Pad the node tables for the CURRENT plan (the layout moves
+        with dist)."""
+        pad1 = lambda a: C.pad_table(eng.plan.bounds, eng.plan.rows_per_dev,
+                                     a[:, None])[:, 0]
+        return (eng.shard(eng.pad(x)),
+                torch.from_numpy(pad1(y.astype(np.int32))).to(dev),
+                torch.from_numpy(pad1(train_mask.astype(np.float32))).to(dev))
 
+    xp, yp, mp = prepare()
     workdir = args.workdir or tempfile.mkdtemp(prefix="gnn_ckpt_")
     losses = []
     for i in range(args.steps):
         t0 = time.perf_counter()
-        loss, grads = value_and_grad(loss_fn, params)
+        loss, grads = value_and_grad(
+            lambda p: C.masked_cross_entropy(apply(p, eng, xp), yp, mp),
+            params)
         params, opt, _ = adamw_update(grads, opt, params, ocfg)
-        _step_done(i, t0, dev, tracer, registry, "train.step")
+        dt = _step_done(i, t0, dev, tracer, registry, "train.step")
         losses.append(float(loss))
+        if args.dynamic_tune and eng.observe_step(dt):
+            # the tuner moved: the plan (and maybe the padded layout)
+            # changed — re-pad; params are untouched
+            xp, yp, mp = prepare()
         if i % 10 == 0:
             print(f"step {i:4d} loss {losses[-1]:.4f}")
         if (i + 1) % 50 == 0:
@@ -247,9 +307,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"[train_gnn] {ring.n_dev} virtual shards on {ring.device}")
     print(f"final loss {losses[-1]:.4f}; test acc {acc:.3f}; "
           f"checkpoints in {workdir}")
-    _finish(args, tracer, registry)
+    if args.dynamic_tune:
+        print(f"tuned config: {eng.config} after "
+              f"{eng.tuner.measured} measurements "
+              f"({len(eng.history) - 1} swaps)")
+    _finish(args, tracer, registry, eng)
     return dict(losses=losses, test_acc=acc, device=str(dev),
-                workdir=workdir, params=params)
+                workdir=workdir, params=params,
+                config=eng.config)
 
 
 if __name__ == "__main__":

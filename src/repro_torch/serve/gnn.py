@@ -1,5 +1,5 @@
 """Online GNN inference serving on the port's MGG engine (counterpart of
-``repro/serve/gnn.py``; the static engine of this slice).
+``repro/serve/gnn.py``), static or re-tuned under traffic drift.
 
 Request path (one micro-batch)::
 
@@ -17,9 +17,22 @@ served logits are bitwise-identical to the offline ``gcn_apply`` forward.
 Latencies end in ``torch.cuda.synchronize()`` so they include the
 device's work.
 
-Drift retuning (``DynamicGNNEngine``), the tiered feature store, the
-fanout-bounded frontier and the cluster's retune gate belong to later
-slices: asking for them raises ``NotImplementedError``.
+Traffic-driven re-tuning (a :class:`~repro_torch.runtime.DynamicGNNEngine`):
+every ``check_every`` micro-batches the engine snapshots
+:class:`~repro_torch.serve.stats.WorkloadStats` and compares it to the
+snapshot taken at the last tune.  Past ``drift_threshold`` (hot-set
+rotation, burst, frontier shift) it calls ``retune(force=True)``; the
+re-opened search is then fed per-micro-batch wall times via
+``observe_step`` until it converges again — serving never stops and no
+request is dropped.  Every tuner move re-pads the feature table for the
+rebuilt plan and invalidates the h₁ cache (a ``dist`` move changes the
+padded layout); while a search is open every batch takes the FULL pass,
+so the tuner measures the whole aggregation pipeline.  Served logits stay
+bitwise equal to the offline forward under the live config.
+
+The tiered feature store, the fanout-bounded frontier and the cluster's
+retune gate belong to later slices: asking for them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,8 +48,9 @@ from ..core.gnn import apply_from_stage, apply_stage, num_stages
 from ..core.graph import CSRGraph, khop_in_frontier, neighbors_of
 from ..core.placement import pgas_rows
 from ..obs import NULL_TRACER, MetricsRegistry
+from ..runtime.engine import DynamicGNNEngine
 from .hotcache import HotNodeCache
-from .stats import WorkloadStats
+from .stats import TrafficSnapshot, WorkloadStats
 from .traffic import TrafficEvent
 
 __all__ = ["GNNServeEngine", "ServeResult", "run_trace"]
@@ -68,11 +82,11 @@ def _later(what: str, slice_name: str) -> NotImplementedError:
 
 
 class GNNServeEngine:
-    """Admission queue + fixed micro-batch slots over a GNNEngine."""
+    """Admission queue + fixed micro-batch slots over a (Dynamic)GNNEngine."""
 
     def __init__(
         self,
-        engine,                      # repro_torch.core.GNNEngine
+        engine,                      # GNNEngine or DynamicGNNEngine
         params: Dict,
         model: str,
         x: np.ndarray,               # (num_nodes, d_feat) features
@@ -80,6 +94,9 @@ class GNNServeEngine:
         *,
         slots: int = 8,
         stats: Optional[WorkloadStats] = None,
+        drift_threshold: float = 0.5,
+        check_every: int = 8,
+        min_records: int = 8,
         use_cache: bool = True,
         cache_capacity: Optional[int] = None,
         feature_store=None,
@@ -87,6 +104,7 @@ class GNNServeEngine:
         hotset_path: Optional[str] = None,
         frontier_fanout: Optional[int] = None,
         retune_gate=None,
+        log_fn: Callable[[str], None] = lambda _s: None,
         clock: Callable[[], float] = time.perf_counter,
         tracer=None,
         metrics: Optional[MetricsRegistry] = None,
@@ -99,8 +117,6 @@ class GNNServeEngine:
             raise _later("the fanout-bounded frontier", "sampled-blocks")
         if retune_gate is not None:
             raise _later("the cluster retune gate", "cluster")
-        if not hasattr(engine, "ring_arrays"):
-            raise _later("drift retuning (DynamicGNNEngine)", "tuner")
         self.eng = engine
         self.params = params
         self.model = model
@@ -112,9 +128,16 @@ class GNNServeEngine:
         self.k_hops = len(params["layers"])
         num_stages(model, params)        # refuses an unknown model
         self.stats = stats or WorkloadStats(window=32)
+        self.drift_threshold = float(drift_threshold)
+        self.check_every = int(check_every)
+        self.min_records = int(min_records)
         self.use_cache = bool(use_cache)
         self.cache = HotNodeCache(graph.num_nodes, capacity=cache_capacity)
+        self.log = log_fn
         self.clock = clock
+        self.dynamic = isinstance(engine, DynamicGNNEngine)
+        self._tuning = self.dynamic and not engine.tuner.converged
+        self._baseline: Optional[TrafficSnapshot] = None
         self._queue: Deque[_Pending] = deque()
         self._next_id = 0
         self.tracer = tracer if tracer is not None else NULL_TRACER
@@ -122,14 +145,27 @@ class GNNServeEngine:
         self.obs_labels = dict(obs_labels or {})
         _c = lambda name: self.metrics.counter(name, **self.obs_labels)
         self._c_served = _c("serve.served")
-        self._c_batches = _c("serve.batches")
+        self._c_batches = _c("serve.batches")  # ALL batches (check_every)
+        self._c_retunes = _c("serve.retunes")  # traffic-drift re-opens
+        self._c_rebuilds = _c("serve.rebuilds")  # plan rebuilds
         self._g_queue = self.metrics.gauge("serve.queue_depth",
                                            **self.obs_labels)
         self._h_latency = self.metrics.histogram("serve.request_seconds",
                                                  **self.obs_labels)
         self._h_batch = self.metrics.histogram("serve.batch_seconds",
                                                **self.obs_labels)
-        self.xp = self.eng.shard(self.eng.pad(self.x))
+        if self.dynamic:
+            # thread the same sinks into the runtime so tuner audit events
+            # land in this trace/registry (engine construction predates us)
+            if tracer is not None:
+                engine.tracer = self.tracer
+            if engine.metrics is None:
+                engine.metrics = self.metrics
+        # measurements (≈ configs visited) per closed search, in order
+        self.search_sizes: List[int] = []
+        self._search_opened_at: Optional[int] = \
+            engine.tuner.measured if self._tuning else None
+        self._refresh_tables()
 
     # -- registry-backed counters --------------------------------------------
 
@@ -140,6 +176,29 @@ class GNNServeEngine:
     @property
     def batches(self) -> int:
         return self._c_batches.value
+
+    @property
+    def retunes(self) -> int:
+        return self._c_retunes.value
+
+    @property
+    def rebuilds(self) -> int:
+        return self._c_rebuilds.value
+
+    # -- layout ---------------------------------------------------------------
+
+    def _refresh_tables(self) -> None:
+        """(Re-)pad the feature table for the CURRENT plan layout."""
+        self.xp = self.eng.shard(self.eng.pad(self.x))
+
+    def _on_rebuild(self) -> None:
+        self._c_rebuilds.inc()
+        self.tracer.instant("serve.rebuild", cat="serve",
+                            config=self.eng.config)
+        self._refresh_tables()
+        # the padded layout may have moved with dist — the cached table's
+        # rows no longer line up; recompute on next batch
+        self.cache.invalidate()
 
     # -- steps ----------------------------------------------------------------
 
@@ -245,7 +304,7 @@ class GNNServeEngine:
         self.stats.record(batch[-1].t_arrival, seeds, fk_size,
                           n_requests=len(batch))
 
-        use_cached = self.use_cache and misses == 0
+        use_cached = self.use_cache and not self._tuning and misses == 0
         t0 = self.clock()
         with self.tracer.span("serve.aggregate", cat="serve",
                               cached=bool(use_cached),
@@ -263,6 +322,21 @@ class GNNServeEngine:
         dt = self.clock() - t0
         self._h_batch.observe(dt)
         self._c_batches.inc()
+        if self.dynamic and self._tuning:
+            if self.eng.observe_step(dt):
+                self._on_rebuild()
+            self._tuning = not self.eng.tuner.converged
+            if not self._tuning:
+                if self._search_opened_at is not None:
+                    self.search_sizes.append(
+                        self.eng.tuner.measured - self._search_opened_at)
+                    self._search_opened_at = None
+                if len(self.stats) >= self.min_records:
+                    # search just closed: the current window is the traffic
+                    # the committed config was tuned under — that's the
+                    # drift baseline
+                    self._baseline = self.stats.snapshot()
+        self._maybe_retune()
 
         logits = out.cpu().numpy()
         results, off = [], 0
@@ -292,6 +366,56 @@ class GNNServeEngine:
             out.extend(self.step())
         return out
 
+    # -- traffic-driven re-tuning --------------------------------------------
+
+    def _maybe_retune(self) -> None:
+        if not self.dynamic or self._tuning:
+            return
+        if self.batches % self.check_every != 0:
+            return
+        if len(self.stats) < self.min_records:
+            return
+        snap = self.stats.snapshot()
+        if self._baseline is None:
+            self._baseline = snap
+            return
+        score = WorkloadStats.drift(self._baseline, snap)
+        if score <= self.drift_threshold:
+            return
+        hot_overlap = (len(set(self._baseline.hot_nodes)
+                           & set(snap.hot_nodes))
+                       / max(1, len(self._baseline.hot_nodes)))
+        self.log(f"[serve.gnn] traffic drift {score:.2f} > "
+                 f"{self.drift_threshold:.2f} → retune "
+                 f"(rate {self._baseline.rate:.0f}→{snap.rate:.0f}/s, "
+                 f"hot-set overlap {hot_overlap:.2f})")
+        self.force_retune()
+
+    def force_retune(self, from_cache: bool = False) -> None:
+        """Re-open the tuning search under live traffic, immediately.
+
+        The drift path above lands here.  ``from_cache=True`` adopts the
+        shared-ConfigCache entry another process committed (a single
+        validation measurement instead of a re-search; see
+        ``DynamicGNNEngine.retune``).
+        """
+        if not self.dynamic or self._tuning:
+            return
+        self._c_retunes.inc()
+        self.tracer.instant("serve.retune", cat="serve",
+                            from_cache=bool(from_cache))
+        self._baseline = self.stats.snapshot() if len(self.stats) else None
+        cfg_before = dict(self.eng.config)
+        measured_before = self.eng.tuner.measured
+        self.eng.retune(force=True, from_cache=from_cache)
+        self._tuning = not self.eng.tuner.converged
+        self._search_opened_at = measured_before if self._tuning else None
+        if self.eng.config != cfg_before:
+            # the forced re-open moved the config immediately — later
+            # moves arrive through observe_step; an unchanged config keeps
+            # the live tables and the warm cache
+            self._on_rebuild()
+
     # -- reporting -----------------------------------------------------------
 
     @property
@@ -299,13 +423,13 @@ class GNNServeEngine:
         return self.eng.config
 
     def report(self) -> Dict[str, object]:
-        """Thin view over the metrics registry (the reference's schema;
-        the static engine never retunes or rebuilds)."""
+        """Thin view over the metrics registry (the reference's schema)."""
         return dict(
             served=self._c_served.value, shadow_served=0,
             batches=self._c_batches.value,
             pending=self.pending_requests, dropped=0,
-            retunes=0, rebuilds=0, search_sizes=[],
+            retunes=self._c_retunes.value, rebuilds=self._c_rebuilds.value,
+            search_sizes=list(self.search_sizes),
             cache_hit_rate=round(self.cache.hit_rate, 4),
             cache_stores=self.cache.stores,
             cache_invalidations=self.cache.invalidations,

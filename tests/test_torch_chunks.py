@@ -23,6 +23,10 @@ from repro_torch.core.pipeline import WorkGroup, plan_device_arrays
 from repro_torch.dist import VirtualRing
 from repro_torch.kernels import ops, ref
 
+# six test workers share the host's cores with the reference's XLA
+# subprocesses: a few torch threads a worker
+torch.set_num_threads(2)
+
 C = ops.SEG_CHUNK
 
 

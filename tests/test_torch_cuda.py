@@ -28,6 +28,10 @@ from repro_torch.train.tree import tree_leaves, tree_map
 from repro_torch.serve import GNNServeEngine, TrafficPhase, ZipfTraffic, \
     run_trace
 
+# six test workers share the host's cores with the reference's XLA
+# subprocesses: a few torch threads a worker
+torch.set_num_threads(2)
+
 pytestmark = pytest.mark.cuda
 
 SHAPES = [(5, 1, 1), (32, 8, 16), (7, 4, 100), (9, 16, 130), (3, 2, 602),
@@ -765,3 +769,115 @@ def test_xlstm_forward_on_card_matches_cpu(cuda):
     assert k8.slstm_scan.launches == before + 3 * n_slstm
     torch.testing.assert_close(step.cpu(), want[:, 69], rtol=2e-3,
                                atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# the online tuner on the card
+# ---------------------------------------------------------------------------
+
+def test_profiler_on_card_times_are_finite_positive_and_memoized(cuda):
+    from repro_torch.runtime import AggregateProfiler, ProfileConfig
+    g = TC.power_law(3000, avg_degree=8.0, locality=0.3, seed=4)
+    prof = AggregateProfiler(g, VirtualRing(4, cuda), 16, use_kernel=True,
+                             profile=ProfileConfig(warmup=1, iters=3))
+    assert prof.measuring
+    before = neighbor_agg.gather_sum_blocked.launches
+    for key in ((4, 1, 0), (8, 2, 4)):
+        t = prof(*key)
+        assert np.isfinite(t) and t > 0 and prof(*key) == t
+    assert neighbor_agg.gather_sum_blocked.launches > before
+    assert len(prof.observations()) == 2
+
+
+@pytest.mark.parametrize("pb", [0, 1, 2, 4, 8, 16, 32, 64])
+def test_smem_check_is_blocked_fits(cuda, pb):
+    from repro_torch.runtime import make_smem_check
+    check = make_smem_check()
+    for ps in (1, 8, 16, 40, 100, 192, 384, 3072, 6144):
+        assert check(ps, 1, pb) == (pb == 0 or neighbor_agg.blocked_fits(
+            pb, ps))
+
+
+def _gcn_tables(eng, x, y, mask, dev):
+    pad1 = lambda a: TC.pad_table(eng.plan.bounds, eng.plan.rows_per_dev,
+                                  a[:, None])[:, 0]
+    return (eng.shard(eng.pad(x)), torch.from_numpy(pad1(y)).to(dev),
+            torch.from_numpy(pad1(mask.astype(np.float32))).to(dev))
+
+
+def test_dynamic_equals_static_bitwise_after_commit_on_card(cuda):
+    """The tuner (kernels on, pb 0 = K1 and pb 4 = K2 in its space) moves
+    and commits on a fake latency feed; from the commit step a static
+    engine at the committed config gives the same losses and parameters,
+    bit for bit, for 3 AdamW steps."""
+    from repro_torch.runtime import DynamicGNNEngine, ProfileConfig
+    from repro_torch.train import (AdamWConfig, adamw_init, adamw_update,
+                                   graph_features)
+    g = TC.power_law(3000, avg_degree=8.0, locality=0.3, seed=4)
+    ring = VirtualRing(4, cuda)
+    x, y, mask = graph_features(g.num_nodes, 16, 5, seed=0)
+    p = TC.gcn_init(torch.Generator().manual_seed(0), 16, 5, device=cuda)
+    ocfg = AdamWConfig(lr=5e-3, warmup_steps=2, total_steps=20,
+                       weight_decay=0.0)
+    dyn = DynamicGNNEngine.build(
+        g, ring, d_feat=16, ps_space=(4, 8), dist_space=(1, 2),
+        pb_space=(0, 4), window=ProfileConfig(warmup=0, iters=1))
+
+    def step(eng, tables, p, opt):
+        xp, yp, mp = tables
+        loss, grads = value_and_grad(lambda q: TC.masked_cross_entropy(
+            TC.gcn_apply(q, eng, xp), yp, mp), p)
+        p, opt, _ = adamw_update(grads, opt, p, ocfg)
+        return p, opt, loss
+
+    fake = lambda c: 1.0 + abs(c["ps"] - 8) + 0.5 * (c["dist"] - 1) \
+        + (0.1 if c["pb"] else 0.2)          # K2 "wins" on this surface
+    opt, tables = adamw_init(p), _gcn_tables(dyn, x, y, mask, cuda)
+    for _ in range(30):
+        p, opt, _ = step(dyn, tables, p, opt)
+        if dyn.observe_step(fake(dyn.config)):
+            tables = _gcn_tables(dyn, x, y, mask, cuda)
+        if dyn.committed:
+            break
+    assert dyn.committed and dyn.config == dict(ps=8, dist=1, pb=4)
+    static = TC.GNNEngine.build(g, ring, ps=8, dist=1, pb=4)
+    runs = []
+    for eng in (dyn, static):
+        q = tree_map(lambda t: t.clone(), p)
+        o = tree_map(lambda t: t.clone(), opt)
+        tb, losses = _gcn_tables(eng, x, y, mask, cuda), []
+        k2 = neighbor_agg.gather_sum_blocked.launches
+        for _ in range(3):
+            q, o, loss = step(eng, tb, q, o)
+            losses.append(loss)
+        assert neighbor_agg.gather_sum_blocked.launches > k2
+        runs.append((losses, q))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(runs[0][1]),
+                                                 tree_leaves(runs[1][1])))
+
+
+def test_pb_only_move_keeps_the_logits_bitwise_on_card(cuda):
+    """A move of pb alone (K1 → K2 at pb 4) keeps the plan's device arrays
+    and the logits' bits: K2 adds in K1's order."""
+    from repro_torch.runtime import DynamicGNNEngine, ProfileConfig
+    g = TC.power_law(3000, avg_degree=8.0, locality=0.3, seed=4)
+    x = np.random.default_rng(1).normal(size=(g.num_nodes, 16)).astype(
+        np.float32)
+    p = TC.gcn_init(torch.Generator().manual_seed(0), 16, 5, device=cuda)
+    dyn = DynamicGNNEngine.build(
+        g, VirtualRing(4, cuda), d_feat=16, ps_space=(8,), dist_space=(2,),
+        pb_space=(0, 4), window=ProfileConfig(warmup=0, iters=1))
+    assert dyn.config["pb"] == 0
+    xp = dyn.shard(dyn.pad(x))
+    arrays = dyn.ring_arrays[0]
+    with torch.inference_mode():
+        k1 = neighbor_agg.gather_sum_pipelined.launches
+        a = TC.gcn_apply(p, dyn, xp)
+        assert neighbor_agg.gather_sum_pipelined.launches > k1
+        dyn.observe_step(2.0)                 # K1 measured slower: pb 4
+        assert dyn.config["pb"] == 4 and dyn.ring_arrays[0] is arrays
+        k2 = neighbor_agg.gather_sum_blocked.launches
+        b = TC.gcn_apply(p, dyn, xp)
+        assert neighbor_agg.gather_sum_blocked.launches > k2
+    assert torch.equal(a, b)

@@ -16,6 +16,10 @@ from repro.kernels import ref as rref
 from repro_torch.core.pipeline import WorkGroup
 from repro_torch.kernels import neighbor_agg, ops, ref, rows
 
+# six test workers share the host's cores with the reference's XLA
+# subprocesses: a few torch threads a worker
+torch.set_num_threads(2)
+
 # (P, ps, D): widths of the slice (16), products' input (100), a width
 # that is no lane multiple (130), and degenerate ones
 SHAPES = [(5, 1, 1), (32, 8, 16), (7, 4, 100), (9, 16, 130), (3, 2, 602)]

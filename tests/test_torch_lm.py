@@ -44,6 +44,10 @@ from repro_torch.models import transformer as TT
 from repro_torch.serve import ServeEngine as TServeEngine
 from repro_torch.train.tree import tree_flatten_with_names
 
+# six test workers share the host's cores with the reference's XLA
+# subprocesses: a few torch threads a worker
+torch.set_num_threads(2)
+
 TOL = 2e-4
 DENSE = [a for a in RC.ARCH_IDS
          if RC.get_config(a).family in ("dense", "vlm")]

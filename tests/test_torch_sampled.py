@@ -30,6 +30,10 @@ from repro_torch.store import FeatureStore, HotFeatureCache, TieredFeatures
 from repro_torch.train import value_and_grad
 from repro_torch.train.tree import tree_flatten_with_names, tree_unflatten
 
+# six test workers share the host's cores with the reference's XLA
+# subprocesses: a few torch threads a worker
+torch.set_num_threads(2)
+
 N, D, NCLS = 360, 9, 4
 CPU = "cpu"
 

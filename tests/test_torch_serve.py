@@ -105,6 +105,10 @@ from repro_torch.serve import TrafficPhase as TPhase  # noqa: E402
 from repro_torch.serve import ZipfTraffic as TTraffic  # noqa: E402
 from repro_torch.serve import run_trace as t_run_trace  # noqa: E402
 
+# six test workers share the host's cores with the reference's XLA
+# subprocesses: a few torch threads a worker
+torch.set_num_threads(2)
+
 CPU = "cpu"
 
 

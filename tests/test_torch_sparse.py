@@ -39,6 +39,10 @@ from repro_torch.serve import (GNNServeEngine, TrafficPhase, ZipfTraffic,
 from repro_torch.train import value_and_grad
 from repro_torch.train.tree import tree_leaves
 
+# six test workers share the host's cores with the reference's XLA
+# subprocesses: a few torch threads a worker
+torch.set_num_threads(2)
+
 CPU = "cpu"
 
 

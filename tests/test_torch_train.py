@@ -154,6 +154,10 @@ from repro_torch.train import checkpoint as tck  # noqa: E402
 from repro_torch.train.tree import (tree_flatten_with_names,  # noqa: E402
                                     tree_unflatten)
 
+# six test workers share the host's cores with the reference's XLA
+# subprocesses: a few torch threads a worker
+torch.set_num_threads(2)
+
 CPU = "cpu"
 
 

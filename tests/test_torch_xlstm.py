@@ -46,6 +46,10 @@ from repro_torch.train.tree import tree_flatten_with_names
 
 from test_torch_lm import TOL, _fp32, _margins_hold, _np, _Recorder, _t
 
+# six test workers share the host's cores with the reference's XLA
+# subprocesses: a few torch threads a worker
+torch.set_num_threads(2)
+
 ARCH = "xlstm-125m"
 
 
