@@ -93,9 +93,35 @@ Phases, each of which passes or ends the run with a non-zero exit:
    static engine adds; (e) GCN serving of two Zipf phases with a hot-set
    rotation through a ``DynamicGNNEngine`` (ps 4/8/16 x dist 1/2 x pb
    0/4): at least one retune, and served == offline bitwise (full and
-   cached passes) after it.  The per-layer search and (e) run on the
-   reduced stand-in (``TUNER_SCALE``): at full size a move's rebuild
-   takes 5-7 s, and each retune's search makes several;
+   cached passes) after it; (f) the sampled branch's search as the
+   training launcher runs it (one idle ring plan; fanout 5/10 x batch
+   512/1024, budget 4, SAGE 32 x 2 over the pinned tiered store at full
+   size), each config's first K5 assembly bitwise ``x[ids]``.  The
+   per-layer search and (e) run on the reduced stand-in
+   (``TUNER_SCALE``): at full size a move's rebuild takes 5-7 s, and each
+   retune's search makes several;
+14. tiered serving and the streamed ring, after phase 13 and on phase 3's
+   graph and features (2.45 M nodes, D = 100, 8 virtual shards, ps 16,
+   dist 2, a pinned ``FeatureStore``): (a) the streamed ring at
+   capacities 0, N // 8 and N (one pass each, launches counted; the top-k
+   ring at k = D the same) bitwise equal across capacities, within 1e-5
+   of the resident ``mgg_aggregate`` scaled by each row's sum of
+   magnitudes ``A|x|`` (the sums associate differently; the entries
+   outside elementwise rtol/atol 1e-5 are counted), the top-k ring at
+   k = D bitwise the dense one, ``padded_table`` bitwise ``pad(x)`` and
+   ``dist - 1`` prefetches a call; (b) each capacity's pass timed (CUDA
+   events) beside the resident pass, the host bytes streamed, one pass's
+   timeline from events on both streams (each ring, each upload, their
+   overlap, the host's time in each fetch), the H2D rate, the pass's
+   floor ``max(resident ms, streamed bytes / H2D rate)``, and, with the
+   card held by a spin kernel, every prefetch returning before its ring
+   ends (no fetch waits for the card); (c) K5 at the padded table's shape
+   (capacity N // 8), bitwise its plain version and timed beside it,
+   ``index_select`` and its bound (the kernels line's K5 ``padded_table``);
+   (d) a GCN serving trace with feature updates at capacity N // 8, its
+   logits bitwise resident serving's on the same trace, full and cached
+   passes alike; (e) the serving launcher with ``--feature-capacity`` and
+   ``--trace``, its streamed profile's overlap efficiency;
 11. dense-LM inference at full width, after the GNN phases' device state
    is freed: mistral-nemo-12b (40 layers, d_model 5120, 32/8 heads,
    head_dim 128, vocab 131,072, fp32 parameters drawn on the card from a
@@ -208,6 +234,16 @@ PATH_KERNELS = {
               "segment_add_ordered", "scatter_sum_ordered"),
     # phase 13 (e): serving with drift retuning
     "tuner_serving": ("gather_sum_pipelined", "segment_add_ordered"),
+    # phase 13 (f): the sampled branch's fanout / batch search
+    "tuner_sampled": ("gather_sum_pipelined", "scatter_sum_ordered",
+                      "gather_rows"),
+    # phase 14: the streamed ring over the tiered store, dense and top-k,
+    # then tiered serving
+    "tiered": ("gather_sum_pipelined", "segment_add_ordered", "gather_rows"),
+    "tiered_sparse": ("sparse_gather_sum", "segment_add_ordered",
+                      "gather_rows"),
+    "tiered_serving": ("gather_sum_pipelined", "segment_add_ordered",
+                       "gather_rows"),
     # the LM's cache-less forward with use_flash_attention (bf16 compute)
     "lm_forward": ("flash_attention",),
     # xlstm-125m: the cache-less forward (bf16 compute), then the launcher
@@ -245,6 +281,10 @@ GRID_P = 300_000
 TUNER_PS, TUNER_DIST, TUNER_PB = (4, 8, 16, 32), (1, 2, 4), (0, 4, 8)
 TUNER_BUDGET = 12
 TUNER_SCALE = REDUCED_SCALE
+# phase 13 (f): the sampled branch's spaces (the launcher's f, 2f and b, 2b)
+SAMPLED_FANOUT, SAMPLED_BATCH = (5, 10), (512, 1024)
+# phase 14: the streamed ring's plan on the full stand-in
+STREAM_PS, STREAM_DIST = 16, 2
 
 
 def fail(msg):
@@ -590,7 +630,16 @@ def main():
     k4["fig9e"] = {k: v for k, v in k4_fig9e.items()
                    if k not in ("name", "route", "source", "replaces")}
     k4["bitwise_plain"] = k4["bitwise_plain"] and k4_fig9e["bitwise_plain"]
-    tuner_on_card(torch, C, K, g, ring, dev, ncls, launches)
+    part = tuner_on_card(torch, C, K, g, ring, dev, ncls, launches)
+    # -- 14. tiered serving and the streamed ring ---------------------------
+    k5_padded = tiered_streaming(torch, C, K, g, ring, dev, x, part, ncls,
+                                 rate, launches)
+    k5 = next(k for k in kernels if k["name"] == "gather_rows")
+    k5["padded_table"] = {k: v for k, v in k5_padded.items()
+                          if k not in ("name", "route", "source",
+                                       "replaces")}
+    k5["max_abs_err"] = max(k5["max_abs_err"], k5_padded["max_abs_err"])
+    del part
 
     # -- 11. dense-LM inference: the GNN phases' device state goes first ----
     del params, results, ring, apply, init
@@ -1845,10 +1894,99 @@ def tuner_on_card(torch, C, K, g, ring, dev, ncls, launches):
 
     # -- (e) serving with drift retuning ------------------------------------
     serving = tuner_serving(torch, C, K, dev, ncls, H100_SXM, launches)
+    # -- (f) the sampled branch's fanout / batch search ---------------------
+    sampled = tuner_sampled(torch, C, K, g, ring, dev, ncls, launches)
     torch.cuda.synchronize()
     say("tuner_done", per_layer_equals_single_plan="bitwise (logits, one "
         "step's gradients)", per_layer=per_layer, serving=serving,
-        phase_s=round(time.perf_counter() - t_phase, 3))
+        sampled=sampled, phase_s=round(time.perf_counter() - t_phase, 3))
+    return part
+
+
+def tuner_sampled(torch, C, K, g, ring, dev, ncls, launches):
+    """Phase 13 (f): the sampled branch's search, as the training
+    launcher's ``--dynamic-tune --model sage`` runs it
+    (``launch/train_gnn.py``: one idle ring plan, fanout and batch tuned)
+    on the full stand-in: SAGE 32 x 2 over the pinned tiered store (a hot
+    cache of N // 8 rows), ``SAMPLED_FANOUT`` x ``SAMPLED_BATCH`` with a
+    budget of 4 and a window of 1 + 2 steps fed the per-seed step time;
+    each config's first K5 assembly held bitwise to ``x[ids]``."""
+    from repro_torch.runtime import DynamicGNNEngine, ProfileConfig
+    from repro_torch.sample import block_tree, sample_blocks, seed_batches
+    from repro_torch.store import FeatureStore, TieredFeatures
+    from repro_torch.train import (AdamWConfig, adamw_init, adamw_update,
+                                   graph_features, value_and_grad)
+
+    t0 = time.perf_counter()
+    n, d_in = g.num_nodes, 100
+    x, y, train_mask = graph_features(n, d_in, ncls, seed=0)
+    tiers = TieredFeatures(FeatureStore(x, copy=False, pin=True), None,
+                           n // 8, device=dev)
+    tiers.admit(np.argsort(-np.diff(g.indptr))[: n // 8])
+    params = C.sage_init(torch.Generator().manual_seed(0), d_in, ncls,
+                         hidden=32, num_layers=2, device=dev)
+    opt = adamw_init(params)
+    ocfg = AdamWConfig(lr=5e-3, warmup_steps=5, total_steps=200,
+                       weight_decay=0.0)
+    dyn = DynamicGNNEngine.build(
+        g, ring, d_feat=d_in, ps_space=(8,), dist_space=(1,), pb_space=(0,),
+        fanout_space=SAMPLED_FANOUT, batch_space=SAMPLED_BATCH, budget=4,
+        window=ProfileConfig(warmup=1, iters=2))
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    train_ids = np.nonzero(train_mask)[0]
+
+    def minibatches(batch):
+        while True:
+            yield from seed_batches(train_ids, batch, rng=rng)
+
+    fanout, batch = dyn.sample_fanout, dyn.sample_batch
+    batches = minibatches(batch)
+    held, n_steps = {}, 0
+    t_search = time.perf_counter()
+    K.reset_launch_counts()
+    while not dyn.committed:
+        check(n_steps < 100, "the sampled search never closed")
+        seeds, valid = next(batches)
+        t1 = time.perf_counter()
+        blocks = sample_blocks(g, seeds, [fanout, fanout], batch=batch,
+                               rng=rng)
+        h0 = tiers.gather_rows(blocks[0].src_ids)
+        bt = block_tree(blocks, dev)
+        yb = torch.from_numpy(y[np.clip(seeds, 0, None)]).to(dev)
+        mb = torch.from_numpy(valid).to(dev)
+        _, grads = value_and_grad(lambda p: C.masked_cross_entropy(
+            C.apply_blocks("sage", p, h0, bt), yb, mb), params)
+        params, opt, _ = adamw_update(grads, opt, params, ocfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        n_steps += 1
+        if (fanout, batch) not in held:   # K5's assembly, bitwise x[ids]
+            ids = blocks[0].src_ids
+            want = np.where((ids >= 0)[:, None], x[np.maximum(ids, 0)], 0.0)
+            check(np.array_equal(h0.cpu().numpy(), want),
+                  f"sampled search: gather_rows != x[ids] at fanout "
+                  f"{fanout}, batch {batch}")
+            held[(fanout, batch)] = int(ids.size)
+        if dyn.observe_step(dt / batch):
+            fanout, batch = dyn.sample_fanout, dyn.sample_batch
+            batches = minibatches(batch)
+    torch.cuda.synchronize()
+    launches["tuner_sampled"] = counts = K.launch_counts()
+    check(all(counts[k] > 0 for k in PATH_KERNELS["tuner_sampled"]),
+          f"a kernel of the sampled search never launched: {counts}")
+    check(dyn.config["fanout"] in SAMPLED_FANOUT
+          and dyn.config["batch"] in SAMPLED_BATCH,
+          f"bad sampled config {dyn.config}")
+    probes = [dict(config=ev["config"], us_per_seed=ev["latency"] * 1e6)
+              for ev in dyn.audit if ev["event"] == "probe"]
+    return dict(nodes=n, committed=dyn.config, measured=dyn.tuner.measured,
+                steps=n_steps, probes=probes,
+                gather_rows_bitwise={f"fanout {f}, batch {b}": rows
+                                     for (f, b), rows in held.items()},
+                store=tiers.report(), launches=counts,
+                build_s=round(build_s, 3),
+                search_s=round(time.perf_counter() - t_search, 3))
 
 
 def tuner_per_layer(torch, C, K, dev, ncls, hw):
@@ -1997,6 +2135,260 @@ def tuner_serving(torch, C, K, dev, ncls, hw, launches):
                 plain_logits_tolerance="rtol 2e-4 atol 1e-5",
                 configs_held=len(ran), plain_max_abs_err=err,
                 launches=counts, s=round(time.perf_counter() - t0, 3))
+
+
+# ---------------------------------------------------------------------------
+# tiered serving and the streamed ring (phase 14)
+# ---------------------------------------------------------------------------
+
+def _overlap_ms(a, b):
+    """The length of the intersection of two (start, end) ms intervals."""
+    return max(0.0, min(a[1], b[1]) - max(a[0], b[0]))
+
+
+def stream_timeline(torch, C, tiers, eng):
+    """One streamed pass with CUDA events on both streams: each ring's
+    interval on the current stream (from after its chunk's assembly to
+    the next fetch, which is issued as soon as the ring is enqueued) and
+    each upload's on the copy stream, all from one base event; the host's
+    time in each fetch beside them."""
+    base = torch.cuda.Event(enable_timing=True)
+    marks, fetch_s = {}, []
+
+    def mark(key):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks[key] = e
+
+    def fetch(c):
+        mark(("ring_end", c - 1))
+        t0 = time.perf_counter()
+        chunk = tiers.device_chunk(c)
+        fetch_s.append(time.perf_counter() - t0)
+        mark(("ring_start", c))
+        return chunk
+
+    tiers.copy_log = []
+    torch.cuda.synchronize()
+    base.record()
+    out = C.mgg_aggregate_streamed(fetch, eng.plan, eng.ring,
+                                   arrays=eng.stream_arrays(0))
+    mark(("ring_end", eng.plan.dist - 1))
+    torch.cuda.synchronize()
+    log, tiers.copy_log = tiers.copy_log, None
+    at = lambda e: base.elapsed_time(e)
+    copies = [dict(start_ms=at(c["start"]), end_ms=at(c["end"]),
+                   bytes=c["bytes"]) for c in log]
+    rings = [(at(marks[("ring_start", c)]), at(marks[("ring_end", c)]))
+             for c in range(eng.plan.dist)]
+    for c, cp in enumerate(copies):
+        cp["ms"] = cp["end_ms"] - cp["start_ms"]
+        cp["h2d_gb_per_s"] = cp["bytes"] / max(cp["ms"], 1e-9) / 1e6
+        cp["host_fetch_ms"] = fetch_s[c] * 1e3
+        if c:   # the copy of chunk c hides behind ring c - 1
+            cp["overlap_with_ring_ms"] = _overlap_ms(
+                (cp["start_ms"], cp["end_ms"]), rings[c - 1])
+    return out, dict(rings_ms=[r[1] - r[0] for r in rings],
+                     ring_intervals_ms=rings, copies=copies,
+                     pass_ms=at(marks[("ring_end", eng.plan.dist - 1)]))
+
+
+def tiered_streaming(torch, C, K, g, ring, dev, x, part, ncls, rate,
+                     launches):
+    """Phase 14: the streamed ring and tiered serving at full size."""
+    from repro_torch.core.pipeline import mgg_aggregate
+    from repro_torch.launch import serve_gnn
+    from repro_torch.serve import (GNNServeEngine, TrafficPhase,
+                                   WorkloadStats, ZipfTraffic, run_trace)
+    from repro_torch.store import FeatureStore, TieredFeatures
+
+    t_phase = time.perf_counter()
+    n, d = x.shape
+    store = FeatureStore(x, copy=False, pin=True)
+    eng = C.GNNEngine.build(g, ring, ps=STREAM_PS, dist=STREAM_DIST,
+                            partition=part)
+    arrays = eng.stream_arrays(0)
+    plan, dist = eng.plan, eng.plan.dist
+    hot = np.argsort(-g.degrees, kind="stable")
+    caps = (0, n // 8, n)
+    build_s = time.perf_counter() - t_phase
+
+    def tiers_at(cap):
+        t = TieredFeatures(store, plan, cap, device=dev)
+        if cap:
+            t.admit(hot[:cap])
+        return t
+
+    # the resident ring over the resident padded table, and its time
+    xp = eng.shard(eng.pad(x))
+    with torch.inference_mode():
+        resident = mgg_aggregate(xp, plan, ring, arrays=eng.ring_arrays[0])
+        resident_ms = _time(torch, lambda: mgg_aggregate(
+            xp, plan, ring, arrays=eng.ring_arrays[0]), reps=5)
+    tiers = {cap: tiers_at(cap) for cap in caps}
+
+    # (a) the main path: one streamed pass a capacity, counted
+    outs, stats, streamed = {}, {}, {}
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        for cap in caps:
+            before = tiers[cap].report()["host_bytes_streamed"]
+            stats[cap] = {}
+            outs[cap] = eng.aggregate_streamed(tiers[cap], stats=stats[cap])
+            streamed[cap] = tiers[cap].report()["host_bytes_streamed"] \
+                - before
+    torch.cuda.synchronize()
+    launches["tiered"] = counts = K.launch_counts()
+    check(all(counts[k] > 0 for k in PATH_KERNELS["tiered"]),
+          f"a kernel of the streamed ring never launched: {counts}")
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        sparse = {cap: eng.aggregate_streamed(tiers[cap], topk=d)
+                  for cap in caps}
+    torch.cuda.synchronize()
+    launches["tiered_sparse"] = sparse_counts = K.launch_counts()
+    check(all(sparse_counts[k] > 0 for k in PATH_KERNELS["tiered_sparse"]),
+          f"a kernel of the top-k streamed ring never launched: "
+          f"{sparse_counts}")
+    bits = lambda t: t.view(torch.int32)
+    for cap in caps:
+        check(torch.equal(bits(outs[cap]), bits(outs[0])),
+              f"the streamed ring at capacity {cap} != at capacity 0")
+        check(torch.equal(bits(sparse[cap]), bits(outs[cap])),
+              f"the top-k streamed ring at k = D != the dense one, cap {cap}")
+        check(stats[cap]["prefetch_issued"] == dist - 1,
+              f"prefetches issued at cap {cap}: {stats[cap]}")
+        with torch.inference_mode():
+            check(torch.equal(bits(tiers[cap].padded_table()), bits(xp)),
+                  f"padded_table != pad(x) at capacity {cap}")
+    # against the resident ring: the sums are associated differently, so
+    # each entry is held within 1e-5 of its row's sum of magnitudes
+    # (A|x|); entries outside elementwise rtol/atol 1e-5 are counted
+    with torch.inference_mode():
+        scale = mgg_aggregate(xp.abs(), plan, ring, arrays=eng.ring_arrays[0])
+    diff = (outs[0] - resident).abs()
+    err = diff.max().item()
+    err_scaled = (diff / scale.clamp_min(1e-30)).max().item()
+    outside = int((~torch.isclose(outs[0], resident, rtol=1e-5,
+                                  atol=1e-5)).sum())
+    check(bool((diff <= 1e-5 * scale + 1e-5).all()),
+          f"streamed ring against the resident one: {err} (scaled "
+          f"{err_scaled})")
+    del sparse, resident, scale, diff
+
+    # (b) numbers: each capacity's pass, and one pass's event timeline
+    ms_by_cap, timeline = {}, {}
+    with torch.inference_mode():
+        for cap in caps:
+            ms_by_cap[cap] = _time(torch, lambda: eng.aggregate_streamed(
+                tiers[cap]), reps=3, warmup=1)
+        for cap in (0, n // 8):
+            got, timeline[cap] = stream_timeline(torch, C, tiers[cap], eng)
+            check(torch.equal(bits(got), bits(outs[0])),
+                  "the timed streamed pass changed the bits")
+    copies = [cp for cap in timeline for cp in timeline[cap]["copies"]]
+    h2d = max(cp["h2d_gb_per_s"] for cp in copies) * 1e9
+    floor_ms = {cap: max(resident_ms, streamed[cap] / h2d * 1e3)
+                for cap in caps}
+    # the fetches never wait for the card: with a spin kernel holding it
+    # for about 3 x a pass, every prefetch returns while its ring is
+    # still unfinished
+    spin = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(3 * max(ms_by_cap.values()) * 1e-3 * 2.0e9))
+        eng.aggregate_streamed(tiers[n // 8], stats=spin)
+    torch.cuda.synchronize()
+    check(spin["prefetch_inflight"] == dist - 1,
+          f"a fetch waited for the card: {spin}")
+    say("tiered_ring", nodes=n, d=d, shards=ring.n_dev,
+        config=dict(ps=STREAM_PS, dist=STREAM_DIST), build_s=round(
+            build_s, 3), capacities=list(caps),
+        bitwise_across_capacities=True, padded_table="bitwise pad(x)",
+        sparse_k_equals_d="bitwise the dense streamed ring",
+        resident_max_abs_err=err, resident_max_err_over_sum_abs=err_scaled,
+        resident_outside_rtol_atol_1e5=outside,
+        tolerance="|streamed - resident| <= 1e-5 * (A|x|) + 1e-5",
+        prefetch=stats[0], prefetch_with_card_held=spin,
+        launches=counts, sparse_launches=sparse_counts,
+        resident_ms=resident_ms, streamed_ms_by_capacity=ms_by_cap,
+        host_bytes_streamed_by_capacity=streamed,
+        h2d_bytes_per_s=h2d, floor_ms_by_capacity=floor_ms,
+        timeline_by_capacity=timeline)
+
+    # (c) K5 at the padded table's shape (capacity N // 8)
+    ids = np.full(plan.padded_nodes, -1, np.int64)
+    for ch_ids, _, fpos in tiers[n // 8]._chunks:
+        ids[fpos] = ch_ids
+    k5 = time_gather_rows(torch, K, tiers[n // 8], ids, rate, dev)
+    del tiers, outs, xp
+
+    # (d) tiered serving at capacity N // 8 against resident serving
+    init, apply, kw = C.MODEL_ZOO["gcn"]
+    params = init(torch.Generator().manual_seed(0), d, ncls, device=dev,
+                  **kw)
+    phases = [TrafficPhase(requests=100, alpha=1.1, rate=200.0, seeds_max=4,
+                           update_frac=0.05),
+              TrafficPhase(requests=100, alpha=1.1, rate=200.0, rotate=True,
+                           seeds_max=4, update_frac=0.05)]
+    events = list(ZipfTraffic(n, d, phases, seed=0))
+    served, reports = {}, {}
+    for cap in (None, n // 8):
+        srv = GNNServeEngine(eng, params, "gcn", x, g, slots=8,
+                             stats=WorkloadStats(window=32),
+                             feature_capacity=cap,
+                             feature_store=None if cap is None else
+                             FeatureStore(x, pin=True))
+        if cap is not None:
+            K.reset_launch_counts()
+        t0 = time.perf_counter()
+        served[cap] = run_trace(srv, events)
+        torch.cuda.synchronize()
+        reports[cap] = dict(srv.report(), serve_s=round(
+            time.perf_counter() - t0, 3))
+        if cap is not None:
+            launches["tiered_serving"] = serve_counts = K.launch_counts()
+            check(srv.xp is None, "tiered serving held a padded table")
+        del srv
+    check(all(serve_counts[k] > 0 for k in PATH_KERNELS["tiered_serving"]),
+          f"a kernel of tiered serving never launched: {serve_counts}")
+    n_req = sum(not ev.is_update for ev in events)
+    check(len(served[None]) == len(served[n // 8]) == n_req,
+          "tiered serving dropped requests")
+    for a, b in zip(served[None], served[n // 8]):
+        check(a.cached == b.cached and np.array_equal(a.logits, b.logits),
+              "tiered serving logits != resident serving logits")
+    tiered_lat = np.array([r.latency for r in served[n // 8]])
+    resident_lat = np.array([r.latency for r in served[None]])
+    say("tiered_serving", nodes=n, capacity=n // 8, requests=n_req,
+        updates=sum(ev.is_update for ev in events),
+        full_passes=sum(not r.cached for r in served[n // 8]),
+        equals_resident="bitwise (full and cached passes)",
+        tiered_p50_ms=float(np.percentile(tiered_lat, 50) * 1e3),
+        tiered_p99_ms=float(np.percentile(tiered_lat, 99) * 1e3),
+        resident_p50_ms=float(np.percentile(resident_lat, 50) * 1e3),
+        resident_p99_ms=float(np.percentile(resident_lat, 99) * 1e3),
+        tiers=reports[n // 8]["tiers"], serve_s=reports[n // 8]["serve_s"],
+        resident_serve_s=reports[None]["serve_s"], launches=serve_counts)
+    del served, eng, store
+
+    # (e) the launcher's streamed profile (--feature-capacity, --trace)
+    trace = os.path.join(ROOT, "build", "serve_gnn_tiered_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    rep = serve_gnn.main(["--scale", "1", "--requests", "30", "--rotate",
+                          "--devices", "8", "--feature-capacity", "1536",
+                          "--trace", trace])
+    prof = rep["pipeline_profile"]
+    # the launcher serves at dist 1: one chunk, nothing to prefetch
+    check(rep["served"] > 0 and rep["tiers"] is not None and prof
+          and prof["prefetch_issued"] == 0
+          and 0.0 <= prof["overlap_efficiency"] <= 1.0,
+          f"the tiered launcher: {rep.get('tiers')}, {prof}")
+    say("tiered_launcher", served=rep["served"], tiers=rep["tiers"],
+        pipeline_profile=prof,
+        phase_s=round(time.perf_counter() - t_phase, 3))
+    return k5
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,9 @@ from .placement import (AggregationPlan, SharedPartition, LayerPlan,
                         build_layer_plans, pad_table, unpad_table,
                         pad_embeddings, unpad_embeddings, pgas_rows)
 from .pipeline import (WorkGroup, RingArrays, plan_device_arrays,
-                       mgg_aggregate, mgg_aggregate_sparse, block_neighbor_sum,
+                       mgg_aggregate, mgg_aggregate_sparse,
+                       mgg_aggregate_streamed, mgg_aggregate_sparse_streamed,
+                       block_neighbor_sum,
                        reference_aggregate, topk_activation, wire_index_dtype,
                        topk_decompress, collective_bytes,
                        sparse_collective_bytes)

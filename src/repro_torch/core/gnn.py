@@ -34,7 +34,8 @@ from .placement import (AggregationPlan, LayerPlan, SharedPartition,
                         build_layer_plans, build_partition, pad_embeddings,
                         pad_table)
 from .pipeline import (RingArrays, block_neighbor_sum, mgg_aggregate,
-                       mgg_aggregate_sparse, plan_device_arrays)
+                       mgg_aggregate_sparse, mgg_aggregate_sparse_streamed,
+                       mgg_aggregate_streamed, plan_device_arrays)
 
 __all__ = ["GNNEngine", "gcn_init", "gcn_stage", "gcn_apply", "gin_init",
            "gin_stage", "gin_apply", "sage_init", "sage_stage", "sage_apply",
@@ -69,6 +70,10 @@ class GNNEngine:
     deg: torch.Tensor                    # padded (N_pad,) float32, deg of A+I
     use_kernel: bool = True
     partition: Optional[SharedPartition] = None
+    # the streamed ring's arrays (interleave=False) a plan, built on first
+    # use and shared with every replace()d copy of this engine
+    streamed: Dict[int, tuple] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @staticmethod
     def build(
@@ -196,6 +201,45 @@ class GNNEngine:
                          topk: Optional[int] = None) -> torch.Tensor:
         """Fused ``(A x) @ W``: the update matmul runs inside the ring."""
         return self.aggregate(x, layer=layer, update_w=w, topk=topk)
+
+    def stream_arrays(self, layer: int = 0) -> RingArrays:
+        """Layer ``layer``'s plan bound for the streamed ring
+        (``interleave=False``): built once a plan, reusing the remote steps
+        of :attr:`ring_arrays`, so only the local group is new."""
+        arrays = self.ring_arrays[min(layer, len(self.ring_arrays) - 1)]
+        if not arrays.interleave:
+            return arrays
+        hit = self.streamed.get(id(arrays))
+        if hit is None or hit[0] is not arrays:
+            hit = (arrays, plan_device_arrays(
+                self.layer_plan(layer).plan, interleave=False,
+                device=self.device, remote_steps=arrays.remote_steps))
+            self.streamed[id(arrays)] = hit
+        return hit[1]
+
+    def aggregate_streamed(self, tiered, layer: int = 0,
+                           update_w: Optional[torch.Tensor] = None,
+                           topk: Optional[int] = None,
+                           stats: Optional[Dict] = None,
+                           tracer=None) -> torch.Tensor:
+        """Partly resident aggregation: chunks are pulled on demand from a
+        :class:`repro_torch.store.TieredFeatures` (host store + device hot
+        cache), each chunk's host gather and upload running while the
+        previous chunk's ring is in flight — see
+        :func:`repro_torch.core.pipeline.mgg_aggregate_streamed`.  ``topk``
+        compresses each landed chunk, so the rings carry the sparse
+        payload.  Rebinds ``tiered`` when it holds another plan."""
+        lp = self.layer_plan(layer)
+        if tiered.plan is not lp.plan:
+            tiered.set_plan(lp.plan)
+        kw = dict(use_kernel=self.use_kernel, update_w=update_w,
+                  arrays=self.stream_arrays(layer), stats=stats,
+                  tracer=tracer)
+        if topk:
+            return mgg_aggregate_sparse_streamed(
+                tiered.chunk_fetcher(), lp.plan, self.ring, k=int(topk), **kw)
+        return mgg_aggregate_streamed(tiered.chunk_fetcher(), lp.plan,
+                                      self.ring, pb=lp.pb, **kw)
 
     def _dinv(self, x: torch.Tensor) -> torch.Tensor:
         return torch.rsqrt(self.deg)[:, None].to(x.dtype)

@@ -41,10 +41,16 @@ transposed ring over ``k``-wide value gradients (a ppermute of the values
 transposes to a ppermute of their cotangent), and ``dx`` is the scatter of
 the value gradients at the ids.
 
-The bulk, fetch and streamed variants come in later slices.
+:func:`mgg_aggregate_streamed` (and its top-k twin) runs the same
+chunk rings over features that are only partly on the card: each chunk
+is fetched from a tiered store while the previous chunk's ring is in
+flight, the local pass runs last over the assembled table, and the
+partial sums are added in a fixed order.  It is forward only, as in the
+reference.  The bulk and fetch baselines come in a later slice.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional, Tuple
 
@@ -57,7 +63,9 @@ from ..kernels.ops import GradIndex, SegmentChunks
 from .placement import AggregationPlan
 
 __all__ = ["WorkGroup", "RingArrays", "plan_device_arrays", "mgg_aggregate",
-           "mgg_aggregate_sparse", "block_neighbor_sum", "reference_aggregate",
+           "mgg_aggregate_sparse", "mgg_aggregate_streamed",
+           "mgg_aggregate_sparse_streamed", "block_neighbor_sum",
+           "reference_aggregate",
            "topk_activation", "wire_index_dtype", "topk_decompress",
            "collective_bytes", "sparse_collective_bytes"]
 
@@ -160,9 +168,13 @@ class RingArrays:
 
 
 def plan_device_arrays(plan: AggregationPlan, *, interleave: bool = True,
-                       device="cpu") -> RingArrays:
+                       device="cpu",
+                       remote_steps: Optional[Tuple[WorkGroup, ...]] = None
+                       ) -> RingArrays:
     """Flatten ``plan``'s per-shard arrays into per-step :class:`WorkGroup`\\ s
-    on ``device`` (host-side, once per plan)."""
+    on ``device`` (host-side, once per plan).  ``remote_steps`` reuses the
+    remote groups of the same plan's arrays under the other ``interleave``
+    flag (they do not depend on it), so only the local work is built."""
     n_dev, rows, tile_rows = plan.n_dev, plan.rows_per_dev, plan.tile_rows
     n_steps = plan.num_steps if n_dev > 1 else 0
     dev = np.arange(n_dev, dtype=np.int64)
@@ -186,10 +198,14 @@ def plan_device_arrays(plan: AggregationPlan, *, interleave: bool = True,
     else:
         local = group(plan.local_nbrs, plan.local_mask, plan.local_targets,
                       rows)
-    remote_steps = tuple(
-        group(plan.remote_nbrs[:, s], plan.remote_mask[:, s],
-              plan.remote_targets[:, s], tile_rows)
-        for s in range(n_steps))
+    if remote_steps is None:
+        remote_steps = tuple(
+            group(plan.remote_nbrs[:, s], plan.remote_mask[:, s],
+                  plan.remote_targets[:, s], tile_rows)
+            for s in range(n_steps))
+    elif len(remote_steps) != n_steps:
+        raise ValueError(f"{len(remote_steps)} remote steps given, the plan "
+                         f"has {n_steps}")
     return RingArrays(interleave=bool(interleave), local=local,
                       local_steps=local_steps, remote_steps=remote_steps)
 
@@ -284,6 +300,21 @@ def _ring_forward(x, update_w, plan, ring, arrays, use_kernel, pb):
                       use_kernel).to(x.dtype)
 
 
+def _updater(update_w: Optional[torch.Tensor], d_feat: int):
+    """(the per-partial update, the output width): ``partial @ W`` in full
+    fp32 when an update is fused, else the identity."""
+    if update_w is None:
+        return (lambda partial: partial), d_feat
+    w = update_w.to(torch.float32)
+    return (lambda partial: partial @ w), int(w.shape[1])
+
+
+def _work(out, bufs, grp: WorkGroup, gather, update, use_kernel) -> None:
+    """One group's gather-sum (updated) added into ``out`` in order."""
+    if grp.num_partitions:
+        _segment_add(out, update(gather(bufs, grp)), grp, use_kernel)
+
+
 def _ring_walk(tables, gather, d_feat, update_w, plan, ring, arrays,
                use_kernel) -> torch.Tensor:
     """The forward schedule over the row tables ``tables`` — ``(x,)``, or
@@ -291,22 +322,11 @@ def _ring_walk(tables, gather, d_feat, update_w, plan, ring, arrays,
     ``gather(bufs, grp)`` the group's gather-sum → ``(rows, d_out)``
     float32."""
     n_dev, dist, tile_rows = plan.n_dev, plan.dist, plan.tile_rows
-    rows = tables[0].shape[0]
-    update: Callable[[torch.Tensor], torch.Tensor]
-    if update_w is not None:
-        w = update_w.to(torch.float32)
-        d_out = w.shape[1]
-        update = lambda partial: partial @ w
-    else:
-        d_out = d_feat
-        update = lambda partial: partial
-    out = torch.zeros((rows, d_out), dtype=torch.float32,
+    update, d_out = _updater(update_w, d_feat)
+    out = torch.zeros((tables[0].shape[0], d_out), dtype=torch.float32,
                       device=tables[0].device)
-
-    def work(bufs, grp: WorkGroup) -> None:
-        if grp.num_partitions:
-            _segment_add(out, update(gather(bufs, grp)), grp, use_kernel)
-
+    work = lambda bufs, grp: _work(out, bufs, grp, gather, update,
+                                   use_kernel)
     if arrays.local is not None:
         # paper Fig. 9(b) baseline (or a single shard): local work up front
         work(tables, arrays.local)
@@ -314,27 +334,46 @@ def _ring_walk(tables, gather, d_feat, update_w, plan, ring, arrays,
         return out
 
     tiles = tuple(t.view(n_dev, dist, tile_rows, t.shape[1]) for t in tables)
-    cur = tuple(t.new_empty((n_dev, tile_rows, t.shape[1])) for t in tables)
-    nxt = tuple(torch.empty_like(t) for t in cur)
+    bufs = _tile_buffers(tables, n_dev, tile_rows)
     # One double-buffered ring per tile chunk (chunk-major: every chunk
     # makes exactly n_dev - 1 rotations).
     for c in range(dist):
-        # rotation 1 (prologue)
-        ring.wait(ring.rotate(tuple(t[:, c] for t in tiles), cur))
-        for k in range(n_dev - 1):
-            step = k * dist + c
-            # rotation k+2 is in flight while this step aggregates `cur`;
-            # the last step (epilogue) has nothing left to rotate
-            last = k == n_dev - 2
-            token = None if last else ring.rotate(cur, nxt)
-            work(tuple(t.view(-1, t.shape[2]) for t in cur),
-                 arrays.remote_steps[step])
-            if arrays.local_steps:
-                work(tables, arrays.local_steps[step])
-            if not last:
-                ring.wait(token)
-                cur, nxt = nxt, cur
+        _chunk_ring(tuple(t[:, c] for t in tiles), c, work, plan, ring,
+                    arrays, bufs, tables)
     return out
+
+
+def _tile_buffers(tables, n_dev, tile_rows):
+    """The double buffer a ring rotates its tiles through."""
+    cur = tuple(t.new_empty((n_dev, tile_rows, t.shape[1])) for t in tables)
+    return cur, tuple(torch.empty_like(t) for t in cur)
+
+
+def _chunk_ring(chunk, c, work, plan, ring, arrays, bufs,
+                tables=None) -> None:
+    """Chunk ``c``'s ring: its stacked tiles ``chunk`` (a tuple of
+    ``(n_dev, tile_rows, ·)`` tensors that rotate together) make
+    ``n_dev - 1`` rotations through the double buffer ``bufs``, and step
+    ``k · dist + c`` runs ``work`` on the tile that just arrived, with the
+    step's interleaved local slice of ``tables`` when the arrays have
+    one."""
+    n_dev, dist = plan.n_dev, plan.dist
+    cur, nxt = bufs
+    # rotation 1 (prologue)
+    ring.wait(ring.rotate(chunk, cur))
+    for k in range(n_dev - 1):
+        step = k * dist + c
+        # rotation k+2 is in flight while this step aggregates `cur`; the
+        # last step (epilogue) has nothing left to rotate
+        last = k == n_dev - 2
+        token = None if last else ring.rotate(cur, nxt)
+        work(tuple(t.view(-1, t.shape[2]) for t in cur),
+             arrays.remote_steps[step])
+        if arrays.local_steps:
+            work(tables, arrays.local_steps[step])
+        if not last:
+            ring.wait(token)
+            cur, nxt = nxt, cur
 
 
 def _ring_backward(g, plan, ring, arrays, use_kernel) -> torch.Tensor:
@@ -510,6 +549,212 @@ def _sparse_ring_backward(g, idx, plan, ring, arrays,
             acc, nxt = nxt, acc
         dv_tiles[:, c] = acc[0]
     return dv.add_(torch.gather(dense, 1, idx.long()))
+
+
+def mgg_aggregate_streamed(
+    fetch_chunk: Callable[[int], torch.Tensor],
+    plan: AggregationPlan,
+    ring: VirtualRing,
+    *,
+    use_kernel: bool = True,
+    pb: Optional[int] = None,
+    update_w: Optional[torch.Tensor] = None,
+    arrays: Optional[RingArrays] = None,
+    stats: Optional[dict] = None,
+    tracer=None,
+) -> torch.Tensor:
+    """Pipelined aggregation over *partly resident* features.
+
+    ``fetch_chunk(c)`` supplies ring chunk ``c`` on demand — the
+    ``(n_dev · tile_rows, D)`` table of every shard's chunk-``c`` tile
+    (:meth:`repro_torch.store.TieredFeatures.device_chunk`, which sources
+    rows from the device hot cache or a host gather).  The schedule is the
+    reference's double-buffered prefetch:
+
+    1. fetch chunk 0 (the pipeline fill, the one fetch nothing hides);
+    2. for each chunk ``c``: enqueue chunk ``c``'s remote ring (K1, or K2
+       with ``pb``, and K3 each step; nothing in it waits for the device),
+       then fetch chunk ``c + 1`` — its host gather and upload run while
+       that ring is in flight;
+    3. assemble the whole table from the chunks, run the local pass over
+       it, and sum ``out = local + Σ_c ring_c`` in that fixed order, each
+       ``ring_c`` its own fp32 accumulator.
+
+    The result is deterministic and independent of where the rows came
+    from: at any capacity, all-resident included, the output is bitwise
+    the same.  Against :func:`mgg_aggregate` it differs only by the
+    association of the sums.  There is no ``interleave`` knob: the local
+    pass cannot start before the last chunk lands, and ``arrays`` must be
+    the plan's arrays with ``interleave=False``
+    (:meth:`GNNEngine.stream_arrays
+    <repro_torch.core.gnn.GNNEngine.stream_arrays>`).  Built here when
+    not given, their upload waits for the card: pass them to keep the
+    fetches in flight.
+
+    Forward only, as in the reference: a fused ``update_w`` or a chunk
+    that requires grad raises.  ``stats`` (a dict) gains
+    ``prefetch_issued`` (fetches issued while the previous chunk's ring
+    was enqueued, ``dist - 1`` a call) and ``prefetch_inflight`` (those
+    that returned while that ring's completion event still reported
+    unfinished: on the CPU a ring runs before its call returns, so
+    never).  ``tracer`` records ``mgg.stream.fetch`` / ``ring`` /
+    ``local`` / ``drain`` spans and an ``mgg.stream.aggregate`` span whose
+    ``overlap_efficiency`` is ``1 − (fill + drain) / total``; with it on,
+    the drain waits for the card, which only moves when the host sees the
+    end (also written to ``stats["overlap_efficiency"]``).
+    """
+    gather = lambda d_feat: lambda bufs, grp: _gather_sum(
+        bufs[0], grp, use_kernel, pb)
+    return _streamed(fetch_chunk, lambda chunk: (chunk,), gather, plan, ring,
+                     update_w, arrays, use_kernel, stats, tracer, {})
+
+
+def mgg_aggregate_sparse_streamed(
+    fetch_chunk: Callable[[int], torch.Tensor],
+    plan: AggregationPlan,
+    ring: VirtualRing,
+    *,
+    k: int,
+    use_kernel: bool = True,
+    update_w: Optional[torch.Tensor] = None,
+    arrays: Optional[RingArrays] = None,
+    stats: Optional[dict] = None,
+    tracer=None,
+) -> torch.Tensor:
+    """Top-k compressed variant of :func:`mgg_aggregate_streamed`.
+
+    ``fetch_chunk`` keeps the dense contract; each chunk is compressed
+    (:func:`topk_activation`, ``k`` clamped to ``D``, ids in
+    :func:`wire_index_dtype`) right after it lands, so the rings carry the
+    ``(values, ids)`` pair and every step runs K6.  The local pass runs
+    over the assembled compressed table.  The sum order is the dense
+    streamed path's, so at ``k == D`` the output is bitwise
+    :func:`mgg_aggregate_streamed`'s at any capacity.  Forward only.
+    """
+    if int(k) < 1:
+        raise ValueError(f"k must be positive, got {k}")
+
+    def land(chunk):
+        kk = min(int(k), int(chunk.shape[1]))
+        values, idx = topk_activation(chunk, kk)
+        return values, idx.to(wire_index_dtype(chunk.shape[1]))
+
+    gather = lambda d_feat: lambda bufs, grp: ops.sparse_neighbor_gather_sum(
+        *bufs, grp.nbrs, grp.mask, d_feat=d_feat, use_kernel=use_kernel)
+
+    return _streamed(fetch_chunk, land, gather, plan, ring, update_w, arrays,
+                     use_kernel, stats, tracer, {"sparse_k": int(k)})
+
+
+def _streamed(fetch_chunk, land, make_gather, plan, ring, update_w, arrays,
+              use_kernel, stats, tracer, span_args) -> torch.Tensor:
+    """The streamed schedule; ``land(chunk)`` turns a fetched chunk into
+    the tables its ring rotates, ``make_gather(d_feat)(bufs, grp)`` is a
+    group's gather-sum over them."""
+    n_dev, dist, tile_rows = plan.n_dev, plan.dist, plan.tile_rows
+    rows = plan.padded_nodes
+    if ring.n_dev != n_dev:
+        raise ValueError(f"ring of {ring.n_dev} shards, plan for {n_dev}")
+    if update_w is not None and update_w.requires_grad:
+        raise ValueError("the streamed ring is forward only: update_w "
+                         "requires grad")
+    if arrays is None:
+        arrays = plan_device_arrays(plan, interleave=False,
+                                    device=ring.device)
+    elif arrays.interleave:
+        raise ValueError("the streamed ring takes arrays built with "
+                         "interleave=False")
+    if stats is not None:
+        stats.setdefault("prefetch_issued", 0)
+        stats.setdefault("prefetch_inflight", 0)
+    tracing = tracer is not None and tracer.enabled
+    on_card = ring.device.type == "cuda"
+
+    def fetch(c):
+        chunk = fetch_chunk(c)
+        if chunk.requires_grad:
+            raise ValueError("the streamed ring is forward only: chunk "
+                             f"{c} requires grad")
+        if chunk.shape[0] != n_dev * tile_rows:
+            raise ValueError(f"chunk {c} has {chunk.shape[0]} rows, the "
+                             f"plan's chunks {n_dev * tile_rows}")
+        return land(chunk.contiguous()), int(chunk.shape[1]), chunk.dtype
+
+    if tracing:
+        t_start = tracer.now()
+    cur, d_feat, dtype = fetch(0)           # pipeline fill (not hidden)
+    if tracing:
+        t_fill = tracer.now() - t_start
+        tracer.complete("mgg.stream.fetch", t_start, t_start + t_fill,
+                        cat="mgg", args={"chunk": 0, "fill": True})
+    gather = make_gather(d_feat)
+    update, d_out = _updater(update_w, d_feat)
+    chunks, partials, bufs = [], [], None
+    for c in range(dist):
+        chunks.append(cur)
+        done = None
+        if n_dev > 1:
+            if bufs is None:
+                bufs = _tile_buffers(cur, n_dev, tile_rows)
+            with tracer.span("mgg.stream.ring", cat="mgg", chunk=c,
+                             dist=dist, n_dev=n_dev, **span_args) \
+                    if tracing else _NO_SPAN:
+                part = torch.zeros((rows, d_out), dtype=torch.float32,
+                                   device=ring.device)
+                work = lambda bufs_, grp, part=part: _work(
+                    part, bufs_, grp, gather, update, use_kernel)
+                _chunk_ring(tuple(t.view(n_dev, tile_rows, t.shape[1])
+                                  for t in cur), c, work, plan, ring, arrays,
+                            bufs)
+                partials.append(part)
+            if on_card:
+                done = torch.cuda.Event()
+                done.record()
+        if c + 1 < dist:
+            # host gather + upload of chunk c+1 while ring c is in flight
+            with tracer.span("mgg.stream.fetch", cat="mgg", chunk=c + 1,
+                             fill=False) if tracing else _NO_SPAN:
+                cur = fetch(c + 1)[0]
+            if stats is not None:
+                stats["prefetch_issued"] += 1
+                if done is not None and not done.query():
+                    stats["prefetch_inflight"] += 1
+
+    # the whole table, chunk-minor → row-major per shard
+    full = tuple(torch.stack([ch[i].view(n_dev, tile_rows, -1)
+                              for ch in chunks], dim=1).view(rows, -1)
+                 for i in range(len(chunks[0])))
+    with tracer.span("mgg.stream.local", cat="mgg", dist=dist) \
+            if tracing else _NO_SPAN:
+        out = torch.zeros((rows, d_out), dtype=torch.float32,
+                          device=ring.device)
+        _work(out, full, arrays.local, gather, update, use_kernel)
+        for part in partials:               # fixed order ⇒ deterministic
+            out.add_(part)
+        out = out.to(dtype)
+    if tracing:
+        # drain: the wait nothing overlaps; it changes when the host sees
+        # the end, never the values
+        t0 = tracer.now()
+        if on_card:
+            torch.cuda.synchronize(ring.device)
+        t_drain = tracer.now() - t0
+        tracer.complete("mgg.stream.drain", t0, t0 + t_drain, cat="mgg")
+        total = tracer.now() - t_start
+        exposed = t_fill + t_drain
+        overlap = max(0.0, 1.0 - exposed / total) if total > 0 else 0.0
+        tracer.complete("mgg.stream.aggregate", t_start, t_start + total,
+                        cat="mgg",
+                        args=dict(dist=dist, n_dev=n_dev,
+                                  overlap_efficiency=overlap,
+                                  exposed_s=exposed, total_s=total,
+                                  **span_args))
+        if stats is not None:
+            stats["overlap_efficiency"] = overlap
+    return out
+
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def block_neighbor_sum(h_src: torch.Tensor, nbr: torch.Tensor,

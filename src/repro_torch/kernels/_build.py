@@ -91,7 +91,7 @@ _SIGNATURES = {
     "mgg_slstm_scan": [_P] * 11 + [_I] * 6 + [_P],
     # hd, bt, cluster
     "mgg_slstm_smem_bytes": [_I, _I, _I],
-    # out, B, S, H, hd, bt, cluster, barrier, stream
+    # out, B, S, H, hd, bt, cluster, stream
     "mgg_slstm_cluster_probe": [_P] + [_I] * 6 + [_P],
 }
 

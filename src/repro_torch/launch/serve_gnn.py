@@ -17,8 +17,13 @@ dist)`` when the traffic drifts (checked every ``--check-every``
 micro-batches once ``--min-records`` are in the window);
 ``--per-layer-tune`` tunes one config a layer (implies
 ``--dynamic-tune``), ``--tune-cache`` persists the committed configs.
-The flags of later slices (tiered features, sampled frontiers, replicas)
-are accepted and raise ``NotImplementedError``.
+``--feature-capacity N`` serves tiered: the features live in a host store
+(pinned on the card) and the card holds only ``N`` hot rows (0 streams
+everything); with ``--trace`` three streamed aggregations then run
+through the live store and print their overlap efficiency and prefetch
+counts.  ``--frontier-fanout F`` bounds the receptive field the traffic
+statistics see with a sampled k-hop frontier.  ``--replicas`` belongs to
+a later slice (ROADMAP item 7) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from ..obs import MetricsRegistry, Tracer
 from ..runtime import DynamicGNNEngine, ProfileConfig
 from ..serve import (GNNServeEngine, TrafficPhase, WorkloadStats,
                      ZipfTraffic, run_trace)
+from ..store import FeatureStore
 
 
 def _pct(lat, q):
@@ -81,22 +87,20 @@ def _parser() -> argparse.ArgumentParser:
                     help="write a Chrome-trace JSON of request lifecycles")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="write the metrics-registry snapshot as JSON")
-    # later slices: accepted so the flag set matches the reference's
+    ap.add_argument("--feature-capacity", type=int, default=None,
+                    help="serve tiered: features live in a host store, "
+                         "the card holds only this many hot rows "
+                         "(0 = stream everything)")
+    ap.add_argument("--frontier-fanout", type=int, default=None,
+                    help="bound the stats-side receptive field with a "
+                         "sampled k-hop frontier of this per-hop fanout; "
+                         "cache gating stays exact")
+    # a later slice: accepted so the flag set matches the reference's
     later = ap.add_argument_group("later slices (raise NotImplementedError)")
-    later.add_argument("--feature-capacity", type=int, default=None)
-    later.add_argument("--frontier-fanout", type=int, default=None)
     later.add_argument("--replicas", type=int, default=1)
     later.add_argument("--router", default="locality",
                        choices=["load", "locality"])
     return ap
-
-
-_LATER_FLAGS = [
-    ("feature_capacity", "the tiered feature store",
-     "tiered-store slice (ROADMAP item 5)"),
-    ("frontier_fanout", "the fanout-bounded frontier",
-     "sampled-frontier slice (ROADMAP item 6)"),
-]
 
 
 def _print_audit(audit, indent: str = "  ") -> None:
@@ -111,14 +115,30 @@ def _print_audit(audit, indent: str = "  ") -> None:
               f"{ev['event']}: {detail}")
 
 
+def _profile_pipeline(srv, tracer, passes: int = 3) -> Optional[dict]:
+    """A few streamed aggregations of the features through the live
+    tiered store, so the trace carries the ring's ``mgg.stream.*`` spans
+    with their measured overlap efficiency (the values are the resident
+    ones; only the schedule is traced).  Returns the prefetch stats."""
+    if srv.tiers is None:
+        print("[serve_gnn] pipeline profile skipped "
+              "(needs --feature-capacity for the tiered streamed path)")
+        return None
+    stats: dict = {}
+    with torch.inference_mode():
+        for _ in range(passes):
+            srv.eng.aggregate_streamed(srv.tiers, stats=stats, tracer=tracer)
+    print(f"[serve_gnn] pipeline profile: overlap efficiency "
+          f"{stats.get('overlap_efficiency', 0.0):.3f} "
+          f"(prefetch {stats.get('prefetch_inflight', 0)}/"
+          f"{stats.get('prefetch_issued', 0)} in flight)")
+    return stats
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Serve two traffic phases; returns the engine's report plus the
     latency percentiles (seconds)."""
     args = _parser().parse_args(argv)
-    for attr, what, slice_name in _LATER_FLAGS:
-        if getattr(args, attr) is not None:
-            raise NotImplementedError(
-                f"{what} arrives with the {slice_name} of the port")
     if args.replicas > 1:
         raise NotImplementedError(
             "serving replicas arrive with the cluster slice of the port "
@@ -153,12 +173,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     else:
         eng = C.GNNEngine.build(g, ring, ps=8, dist=1,
                                 fuse_update=args.fuse_update)
+    store = None
+    if args.feature_capacity is not None:
+        # the host tier: page-locked on the card, so uploads never block
+        store = FeatureStore(x, pin=ring.device.type == "cuda")
     srv = GNNServeEngine(eng, params, args.model, x, g,
                          slots=args.slots,
                          stats=WorkloadStats(window=args.stats_window),
                          check_every=args.check_every,
                          min_records=args.min_records,
-                         use_cache=not args.no_cache, log_fn=print,
+                         use_cache=not args.no_cache,
+                         feature_store=store,
+                         feature_capacity=args.feature_capacity,
+                         frontier_fanout=args.frontier_fanout,
+                         frontier_seed=args.seed, log_fn=print,
                          tracer=tracer, metrics=registry)
 
     phases = [
@@ -183,6 +211,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"cache hit rate {rep['cache_hit_rate']:.3f} "
           f"({rep['cache_stores']} stores, "
           f"{rep['cache_invalidations']} invalidations)")
+    if rep["tiers"] is not None:
+        t = rep["tiers"]
+        print(f"tiered features: cap {t['capacity']} rows "
+              f"({t['resident_fraction']:.1%} resident), feature hit rate "
+              f"{t['hit_rate']:.3f}, streamed "
+              f"{t['host_bytes_streamed'] / 1e6:.1f} MB from host")
     if args.dynamic_tune:
         print(f"retunes {rep['retunes']}, rebuilds {rep['rebuilds']}, "
               f"final config {rep['config']}")
@@ -192,6 +226,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         registry.dump_json(args.metrics_json, extra={"audit": audit})
         print(f"[serve_gnn] metrics snapshot: {args.metrics_json}")
     if tracer is not None:
+        rep["pipeline_profile"] = _profile_pipeline(srv, tracer)
         tracer.dump_chrome(args.trace)
         print(f"[serve_gnn] chrome trace: {args.trace} "
               f"({len(tracer)} events — open in ui.perfetto.dev)")

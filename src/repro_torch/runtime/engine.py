@@ -16,8 +16,8 @@ On the card ``pb`` selects the gather-sum kernel: ``pb = 0`` runs K1
 (``gather_sum_blocked``) with that many partitions a block.  On every
 ring the feasibility rule is K2's shared-memory fit
 (:func:`~repro_torch.runtime.tuner.make_smem_check`).  A move that
-changes only ``pb``, ``fanout`` or ``batch`` keeps the plan and its
-device arrays; any other move releases the old ones before building the
+changes only ``pb``, ``cap``, ``fanout`` or ``batch`` keeps the plan and
+its device arrays; any other move releases the old ones before building the
 new.  Where the plain versions
 run (a CPU ring, or ``use_kernel=False``) every ``pb`` is the same
 computation, so ``pb_space`` collapses to its minimum.
@@ -84,8 +84,9 @@ def _on_card(ring) -> bool:
 
 
 # knobs that never reach the plan: ``pb`` picks the gather-sum kernel on
-# the same plan, ``fanout``/``batch`` are read by the sampling loop
-_OFF_PLAN = ("pb", "fanout", "batch")
+# the same plan, ``cap`` is read by the tiered store, ``fanout``/``batch``
+# by the sampling loop
+_OFF_PLAN = ("pb", "cap", "fanout", "batch")
 
 
 def _schedule(cfg: Dict) -> Dict:
@@ -218,12 +219,11 @@ class DynamicGNNEngine:
         ``tune_fuse`` (per-layer mode only) probes flipping each layer's
         fused-update dataflow after its (ps, dist, pb) search settles;
         ``fuse_update`` remains the starting point for every layer.
-        ``cap_space`` (the tiered feature cache's capacity) belongs to
-        ROADMAP item 5 and raises."""
-        if cap_space:
-            raise NotImplementedError(
-                "tuning the tiered feature-cache capacity arrives with the "
-                "tiered-store slice of the port (ROADMAP item 5)")
+        ``cap_space`` makes the tiered feature cache's capacity (rows held
+        on the card by :class:`repro_torch.store.TieredFeatures`) a tuned
+        knob: configs carry ``cap``, read through
+        :attr:`feature_capacity` by the storage layer; a move of ``cap``
+        keeps the plan."""
         if tune_fuse and layer_dims is None:
             raise ValueError(
                 "tune_fuse probes a per-layer dataflow knob — pass "
@@ -249,7 +249,7 @@ class DynamicGNNEngine:
             warm = cls._clamp_pb(warm, pb_space)
             tuner = PerLayerTuner(
                 len(shapes), ps_space, dist_space, pb_space,
-                k_space=k_space,
+                cap_space=cap_space, k_space=k_space,
                 fanout_space=fanout_space, batch_space=batch_space,
                 fuse_space=((fuse_update, not fuse_update) if tune_fuse
                             else (fuse_update,)),
@@ -263,7 +263,7 @@ class DynamicGNNEngine:
             warm = cache.get(shape) if cache is not None else None
             warm = cls._clamp_pb(warm, pb_space)
             tuner = OnlineTuner(
-                ps_space, dist_space, pb_space,
+                ps_space, dist_space, pb_space, cap_space=cap_space,
                 k_space=k_space,
                 fanout_space=fanout_space, batch_space=batch_space,
                 vmem_check=make_smem_check(),
@@ -299,6 +299,7 @@ class DynamicGNNEngine:
 
     def _build_engine(self, cfg: Dict) -> GNNEngine:
         def _lc(c):
+            # "cap" (storage layer — see feature_capacity) and
             # "fanout"/"batch" (sampling loop — see sample_fanout /
             # sample_batch) never reach the plan; "fuse" selects the
             # layer's dataflow; "k" is the sparse-payload width
@@ -390,6 +391,13 @@ class DynamicGNNEngine:
         return int(cfg[key]) if key in cfg else None
 
     @property
+    def feature_capacity(self) -> Optional[int]:
+        """The live config's tiered-cache capacity (``cap`` knob), or None
+        when capacity is not being tuned.  Per-layer configs pin one cap
+        across layers (the feature table is shared)."""
+        return self._global_knob("cap")
+
+    @property
     def sample_fanout(self) -> Optional[int]:
         """The live config's sampled-path per-hop neighbor bound
         (``fanout`` knob), or None when sampling is not being tuned."""
@@ -413,6 +421,12 @@ class DynamicGNNEngine:
 
     def aggregate_update(self, x, w, layer: int = 0, topk=None):
         return self.engine.aggregate_update(x, w, layer=layer, topk=topk)
+
+    def aggregate_streamed(self, tiered, layer: int = 0, update_w=None,
+                           topk=None, stats=None, tracer=None):
+        return self.engine.aggregate_streamed(
+            tiered, layer=layer, update_w=update_w, topk=topk, stats=stats,
+            tracer=tracer if tracer is not None else self.tracer)
 
     def stage_topk(self, layer: int):
         return self.engine.stage_topk(layer)

@@ -30,13 +30,28 @@ padded layout); while a search is open every batch takes the FULL pass,
 so the tuner measures the whole aggregation pipeline.  Served logits stay
 bitwise equal to the offline forward under the live config.
 
-The tiered feature store, the fanout-bounded frontier and the cluster's
-retune gate belong to later slices: asking for them raises
-``NotImplementedError``.
+Tiered feature storage (``feature_store`` / ``feature_capacity``): the
+features live in a host :class:`~repro_torch.store.FeatureStore` (pinned
+on the card), the card holds a bounded hot-row cache refreshed from the
+live hot set before each batch, and every full pass runs on a padded
+table assembled for it (:meth:`TieredFeatures.padded_table`) and dropped
+after it, so no resident padded table is held.  Each assembled row is
+the store's row verbatim, so tiered logits are bitwise the resident
+ones, feature updates included.  The admitted ids persist across
+restarts in a JSON sidecar (``hotset_path``, or next to the tuner's
+config cache).  ``frontier_fanout`` bounds the receptive field fed to
+the traffic statistics with a sampled k-hop frontier
+(:mod:`repro_torch.sample`); the cache gating stays exact.
+
+The cluster's retune gate belongs to a later slice (ROADMAP item 7):
+asking for it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import tempfile
 import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional
@@ -49,6 +64,8 @@ from ..core.graph import CSRGraph, khop_in_frontier, neighbors_of
 from ..core.placement import pgas_rows
 from ..obs import NULL_TRACER, MetricsRegistry
 from ..runtime.engine import DynamicGNNEngine
+from ..sample import sampled_khop_frontier
+from ..store import FeatureStore, TieredFeatures
 from .hotcache import HotNodeCache
 from .stats import TrafficSnapshot, WorkloadStats
 from .traffic import TrafficEvent
@@ -76,9 +93,9 @@ class _Pending:
     t_trace: float = 0.0      # tracer clock at admission (span timelines)
 
 
-def _later(what: str, slice_name: str) -> NotImplementedError:
+def _later(what: str, slice_name: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} arrives with the {slice_name} slice "
-                               f"of the port")
+                               f"of the port (ROADMAP item {item})")
 
 
 class GNNServeEngine:
@@ -103,6 +120,7 @@ class GNNServeEngine:
         feature_capacity: Optional[int] = None,
         hotset_path: Optional[str] = None,
         frontier_fanout: Optional[int] = None,
+        frontier_seed: int = 0,
         retune_gate=None,
         log_fn: Callable[[str], None] = lambda _s: None,
         clock: Callable[[], float] = time.perf_counter,
@@ -110,13 +128,8 @@ class GNNServeEngine:
         metrics: Optional[MetricsRegistry] = None,
         obs_labels: Optional[dict] = None,
     ):
-        if feature_store is not None or feature_capacity is not None \
-                or hotset_path is not None:
-            raise _later("the tiered feature store", "tiered-store")
-        if frontier_fanout is not None:
-            raise _later("the fanout-bounded frontier", "sampled-blocks")
         if retune_gate is not None:
-            raise _later("the cluster retune gate", "cluster")
+            raise _later("the cluster retune gate", "cluster", 7)
         self.eng = engine
         self.params = params
         self.model = model
@@ -133,6 +146,13 @@ class GNNServeEngine:
         self.min_records = int(min_records)
         self.use_cache = bool(use_cache)
         self.cache = HotNodeCache(graph.num_nodes, capacity=cache_capacity)
+        # fanout-bounded frontier accounting: the receptive-field size fed
+        # to WorkloadStats comes from a sampled k-hop frontier, bounded by
+        # slots·(fanout+1)^k instead of the full BFS fan-out; the cache
+        # gating stays exact (a sampled frontier may miss a dirty row)
+        self.frontier_fanout = (None if frontier_fanout is None
+                                else int(frontier_fanout))
+        self._frontier_rng = np.random.default_rng(frontier_seed)
         self.log = log_fn
         self.clock = clock
         self.dynamic = isinstance(engine, DynamicGNNEngine)
@@ -165,6 +185,33 @@ class GNNServeEngine:
         self.search_sizes: List[int] = []
         self._search_opened_at: Optional[int] = \
             engine.tuner.measured if self._tuning else None
+
+        # tiered feature storage: selected by passing either knob
+        self.tiers: Optional[TieredFeatures] = None
+        if feature_store is not None or feature_capacity is not None:
+            store = feature_store if feature_store is not None else \
+                FeatureStore(self.x, pin=self.eng.device.type == "cuda")
+            cap = feature_capacity
+            if cap is None:   # adopt the tuner's cap knob when it has one
+                cap = (engine.feature_capacity or 0) if self.dynamic else 0
+            self.tiers = TieredFeatures(store, self.eng.plan, int(cap),
+                                        device=self.eng.device,
+                                        metrics=self.metrics,
+                                        labels=self.obs_labels)
+            self.x = store.x   # the store owns the bits; a shared view
+        # hot-set persistence: the admitted ids (never the rows, which are
+        # refetched from the store) survive restarts in a JSON sidecar —
+        # ``hotset_path``, else next to the tuner's config cache
+        self._hotset_path = hotset_path
+        if self._hotset_path is None and self.dynamic \
+                and engine.cache is not None:
+            rep = self.obs_labels.get("replica")
+            suffix = ".hotset.json" if rep is None \
+                else f".hotset.r{rep}.json"
+            self._hotset_path = engine.cache.path + suffix
+        if self.tiers is not None:
+            self._hotset_load()
+        self.xp: Optional[torch.Tensor] = None
         self._refresh_tables()
 
     # -- registry-backed counters --------------------------------------------
@@ -185,16 +232,75 @@ class GNNServeEngine:
     def rebuilds(self) -> int:
         return self._c_rebuilds.value
 
+    # -- hot-set persistence --------------------------------------------------
+
+    def _hotset_load(self) -> None:
+        """Warm-admit the hot ids a previous serve process persisted.  The
+        sidecar is a hint: a missing or corrupt file, or one recorded for
+        another store shape, is ignored (the tier starts cold)."""
+        if self._hotset_path is None or not self.tiers.capacity:
+            return
+        try:
+            with open(self._hotset_path) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            return
+        store = self.tiers.store
+        if not isinstance(doc, dict) \
+                or doc.get("num_nodes") != store.num_nodes \
+                or doc.get("d_feat") != store.d_feat \
+                or not isinstance(doc.get("ids"), list):
+            return
+        ids = [int(i) for i in doc["ids"] if 0 <= int(i) < store.num_nodes]
+        if ids:
+            n = self.tiers.admit(ids)
+            self.log(f"[serve.gnn] warm hot set from {self._hotset_path}: "
+                     f"{n} rows admitted")
+
+    def _hotset_dump(self) -> None:
+        """Atomically persist the admitted ids (a temporary file, then
+        ``os.replace``: a preempted writer never corrupts the sidecar)."""
+        if self._hotset_path is None or self.tiers is None:
+            return
+        doc = dict(num_nodes=self.tiers.store.num_nodes,
+                   d_feat=self.tiers.store.d_feat,
+                   ids=[int(i) for i in self.tiers.cache.resident_ids()])
+        d = os.path.dirname(os.path.abspath(self._hotset_path)) or "."
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=d, prefix=".hotset-", suffix=".tmp")
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump(doc, f)
+            os.replace(tmp, self._hotset_path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+
     # -- layout ---------------------------------------------------------------
 
     def _refresh_tables(self) -> None:
-        """(Re-)pad the feature table for the CURRENT plan layout."""
+        """(Re-)pad the feature table for the CURRENT plan layout; the
+        tiered mode only rebinds the store to the plan and holds no
+        table."""
+        if self.tiers is not None:
+            self.tiers.set_plan(self.eng.plan)
+            self.xp = None
+            return
         self.xp = self.eng.shard(self.eng.pad(self.x))
 
     def _on_rebuild(self) -> None:
         self._c_rebuilds.inc()
         self.tracer.instant("serve.rebuild", cat="serve",
                             config=self.eng.config)
+        if self.tiers is not None and self.dynamic:
+            # the tuner may have moved the cap knob: adopt it (the tier
+            # restarts cold; the next admission refills it)
+            cap = self.eng.feature_capacity
+            if cap is not None and cap != self.tiers.capacity:
+                self.tiers.resize(int(cap))
         self._refresh_tables()
         # the padded layout may have moved with dist — the cached table's
         # rows no longer line up; recompute on next batch
@@ -206,9 +312,9 @@ class GNNServeEngine:
         if self.eng.device.type == "cuda":
             torch.cuda.synchronize(self.eng.device)
 
-    def _step_full(self, rows: torch.Tensor):
+    def _step_full(self, xp: torch.Tensor, rows: torch.Tensor):
         with torch.inference_mode():
-            h1 = apply_stage(self.model, self.params, self.eng, self.xp, 0)
+            h1 = apply_stage(self.model, self.params, self.eng, xp, 0)
             out = apply_from_stage(self.model, self.params, self.eng, h1, 1)
             return out[rows], h1
 
@@ -247,15 +353,30 @@ class GNNServeEngine:
     def update_features(self, node: int, value: np.ndarray) -> int:
         """Feature write at ``node``: writes the one changed row into the
         device table in place (the reference rebuilds its immutable array
-        with ``.at[row].set``) and explicitly invalidates the layer-1 rows
-        that aggregate it (reverse edges, self-loop included).  Returns the
-        number of rows invalidated."""
+        with ``.at[row].set``), or in tiered mode into the store, which
+        invalidates the row's hot copy, and explicitly invalidates the
+        layer-1 rows that aggregate it (reverse edges, self-loop
+        included).  Returns the number of rows invalidated."""
         value = np.asarray(value, dtype=np.float32)
-        self.x[int(node)] = value
-        row = int(pgas_rows(self.eng.plan, np.array([node]))[0])
-        self.xp[row] = torch.from_numpy(value).to(self.xp.device)
+        if self.tiers is not None:
+            self.tiers.update(int(node), value)
+        else:
+            self.x[int(node)] = value
+            row = int(pgas_rows(self.eng.plan, np.array([node]))[0])
+            self.xp[row] = torch.from_numpy(value).to(self.xp.device)
         dirty = self.rev.row(int(node))
         return self.cache.invalidate(dirty)
+
+    def sampled_frontier(self, seeds: np.ndarray) -> np.ndarray:
+        """Fanout-bounded k-hop receptive field of ``seeds`` (sorted unique
+        global ids): always a subset of the exact frontier, of at most
+        ``len(seeds) · (frontier_fanout + 1) ** k_hops`` ids.  Duplicate
+        seeds are deduped."""
+        if self.frontier_fanout is None:
+            raise ValueError("serve engine built without frontier_fanout")
+        return sampled_khop_frontier(
+            self.g_full, np.unique(np.asarray(seeds, dtype=np.int64)),
+            [self.frontier_fanout] * self.k_hops, rng=self._frontier_rng)
 
     # -- the serving loop ----------------------------------------------------
 
@@ -293,7 +414,9 @@ class GNNServeEngine:
                               n_seeds=int(n_seeds)):
             f_need = khop_in_frontier(self.g_full, seeds,
                                       max(0, self.k_hops - 1))
-            if self.k_hops > 0:
+            if self.frontier_fanout is not None and self.k_hops > 0:
+                fk_size = self.sampled_frontier(seeds).size
+            elif self.k_hops > 0:
                 fk_size = np.unique(np.concatenate(
                     [f_need,
                      neighbors_of(self.g_full, f_need).astype(np.int64)])
@@ -303,6 +426,12 @@ class GNNServeEngine:
             misses = self.cache.lookup(f_need)
         self.stats.record(batch[-1].t_arrival, seeds, fk_size,
                           n_requests=len(batch))
+        if self.tiers is not None and self.tiers.capacity:
+            # refresh the feature tier from the live hot set before this
+            # batch's assembly (only newly hot rows are fetched); persist
+            # the admitted set when it moved
+            if self.tiers.admit(self.stats.top_nodes(self.tiers.capacity)):
+                self._hotset_dump()
 
         use_cached = self.use_cache and not self._tuning and misses == 0
         t0 = self.clock()
@@ -313,7 +442,11 @@ class GNNServeEngine:
                 out = self._step_cached(rows)
                 self._sync()
             else:
-                out, h1 = self._step_full(rows)
+                # tiered mode assembles the padded table for this pass
+                xp = self.xp if self.tiers is None \
+                    else self.tiers.padded_table()
+                out, h1 = self._step_full(xp, rows)
+                del xp
                 self._sync()
                 if self.use_cache:
                     hot = self.stats.snapshot().hot_nodes \
@@ -434,7 +567,7 @@ class GNNServeEngine:
             cache_stores=self.cache.stores,
             cache_invalidations=self.cache.invalidations,
             config=self.config,
-            tiers=None,
+            tiers=self.tiers.report() if self.tiers is not None else None,
         )
 
 

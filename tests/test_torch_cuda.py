@@ -1,8 +1,10 @@
 """repro_torch on the card: the CUDA kernels against their plain versions,
 the ring (forward and backward, dense and top-k compressed) on the card
 against the ring on the CPU, sampled GraphSAGE's gradients on the card
-against the CPU's, served == offline, and the LM's flash attention (K7)
-and its cache-less forward on the card against the CPU.
+against the CPU's, served == offline, the streamed ring over a tiered
+store (bitwise across capacities, its fetches never waiting for the
+card) and tiered serving == resident serving, and the LM's flash
+attention (K7) and its cache-less forward on the card against the CPU.
 
 These tests need an NVIDIA card and nvcc (a CUDA kernel has no CPU mode);
 without them they skip.  On the card, run them with
@@ -484,6 +486,100 @@ def test_sparse_served_logits_bitwise_match_offline_on_card(cuda):
             params, eng, srv.xp).cpu().numpy())
     for r in results:
         np.testing.assert_array_equal(r.logits, offline[r.seeds])
+
+
+def _stream_case(device, n_dev=8, dist=2, pin=True):
+    from repro_torch.store import FeatureStore, TieredFeatures
+    g = TC.power_law(600, avg_degree=8.0, locality=0.4, seed=7)
+    x = np.random.default_rng(7).normal(size=(g.num_nodes, 16)).astype(
+        np.float32)
+    plan = TC.build_plan(g, n_dev, ps=8, dist=dist)
+
+    def tiers(cap):
+        t = TieredFeatures(FeatureStore(x, pin=pin), plan, cap,
+                           device=device)
+        if cap:
+            t.admit(np.argsort(-g.degrees)[:cap].tolist())
+        return t
+
+    return g, x, plan, tiers
+
+
+@pytest.mark.parametrize("pin", [True, False])
+def test_streamed_ring_on_card_bitwise_across_capacities(cuda, pin):
+    """The streamed ring on the card: bitwise equal at capacities 0,
+    N // 3 and N (K5 assembling every chunk), within 1e-5 of the resident
+    ring and of the CPU's streamed ring; the top-k ring at k = D bitwise
+    the dense one; ``padded_table`` bitwise the padded table."""
+    g, x, plan, tiers = _stream_case(cuda, pin=pin)
+    n = g.num_nodes
+    ring = VirtualRing(8, cuda)
+    padded = torch.from_numpy(TC.pad_embeddings(plan, x))
+    resident = TC.mgg_aggregate(padded.to(cuda), plan, ring)
+    cpu_plan_tiers = _stream_case("cpu")[3]
+    want = TC.mgg_aggregate_streamed(cpu_plan_tiers(0).chunk_fetcher(), plan,
+                                     VirtualRing(8, "cpu"))
+    outs = []
+    for cap in (0, n // 3, n):
+        t = tiers(cap)
+        before = rows.gather_rows.launches
+        stats = {}
+        got = TC.mgg_aggregate_streamed(t.chunk_fetcher(), plan, ring,
+                                        stats=stats)
+        assert rows.gather_rows.launches > before
+        assert stats["prefetch_issued"] == 1
+        outs.append(got)
+        assert torch.equal(_bits(t.padded_table().cpu()), _bits(padded))
+        assert torch.equal(_bits(TC.mgg_aggregate_sparse_streamed(
+            t.chunk_fetcher(), plan, ring, k=16)), _bits(got))
+    for o in outs[1:]:
+        assert torch.equal(_bits(o), _bits(outs[0]))
+    torch.testing.assert_close(outs[0], resident, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(outs[0].cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_streamed_fetch_never_waits_for_the_ring(cuda):
+    """With the card held by a spin kernel enqueued first, every prefetch
+    returns while the ring before it is still unfinished: no fetch (host
+    gather, pinned upload on the copy stream, K5 assembly) waits for the
+    device."""
+    g, x, plan, tiers = _stream_case(cuda, n_dev=4, dist=3)
+    t = tiers(g.num_nodes // 3)
+    ring = VirtualRing(4, cuda)
+    # the plan's arrays are uploaded once, as an engine holds them (their
+    # upload waits for the card); the first call loads every kernel
+    arrays = TC.plan_device_arrays(plan, interleave=False, device=cuda)
+    want = TC.mgg_aggregate_streamed(t.chunk_fetcher(), plan, ring,
+                                     arrays=arrays)
+    torch.cuda.synchronize()
+    stats = {}
+    torch.cuda._sleep(1_000_000_000)
+    got = TC.mgg_aggregate_streamed(t.chunk_fetcher(), plan, ring,
+                                    arrays=arrays, stats=stats)
+    assert stats == dict(prefetch_issued=2, prefetch_inflight=2)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_tiered_serving_bitwise_resident_serving_on_card(cuda):
+    g = TC.power_law(2000, avg_degree=8.0, locality=0.3, seed=2)
+    x = np.random.default_rng(0).normal(size=(g.num_nodes, 32)).astype(
+        np.float32)
+    params = TC.gcn_init(torch.Generator().manual_seed(0), 32, 7,
+                         device=cuda)
+    events = list(ZipfTraffic(g.num_nodes, 32, [
+        TrafficPhase(requests=40, alpha=1.2, seeds_max=3, update_frac=0.1)],
+        seed=7))
+    served = []
+    for cap in (None, g.num_nodes // 8):
+        eng = TC.GNNEngine.build(g, VirtualRing(4, cuda), ps=8, dist=2)
+        srv = GNNServeEngine(eng, params, "gcn", x, g, slots=4,
+                             feature_capacity=cap)
+        served.append(run_trace(srv, events))
+    assert srv.xp is None and srv.report()["tiers"]["cache_rows_served"] > 0
+    assert any(r.cached for r in served[1])
+    for a, b in zip(*served):
+        assert a.cached == b.cached
+        np.testing.assert_array_equal(a.logits, b.logits)
 
 
 # K7: (B, S, H, KV, hd, causal, window): GQA 1, 4 and 12; a window under

@@ -160,7 +160,9 @@ def test_port_imports_no_jax():
         "        'repro_torch.models.xlstm', 'repro_torch.core.autotune',\n"
         "        'repro_torch.runtime.tuner', 'repro_torch.runtime.cache',\n"
         "        'repro_torch.runtime.profiler',\n"
-        "        'repro_torch.runtime.engine', 'repro_torch.obs.calibrate'}\n"
+        "        'repro_torch.runtime.engine', 'repro_torch.obs.calibrate',\n"
+        "        'repro_torch.store.feature_store',\n"
+        "        'repro_torch.store.hotfeatures', 'repro_torch.serve.gnn'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
@@ -185,8 +187,11 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_gnn.main(["--scale", "0.01", "--requests", "2",
                         "--dynamic-tune"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        serve_gnn.main(["--device", "cpu", "--feature-capacity", "0"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_gnn.main(["--scale", "0.01", "--requests", "2",
+                        "--feature-capacity", "0", "--frontier-fanout", "2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        serve_gnn.main(["--device", "cpu", "--replicas", "2"])
     from repro_torch.launch import train_gnn
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_gnn.main(["--scale", "0.01", "--steps", "1"])

@@ -10,6 +10,10 @@ script in a subprocess with four fake XLA devices:
 
 Tolerances: the ring 1e-5 (fp32 sums in another order), GCN logits and
 served logits rtol 2e-4 (the reference's own fused-vs-unfused tolerance).
+The 4-shard dump also holds the streamed ring over a tiered store (dense
+at capacities 0, N // 3 and N, dist 1 and 2; top-k at k = D and k < D),
+the tiered store's padded table and a tiered serving trace with feature
+updates, each held to the same tolerances.
 Inside the port, served == offline holds bitwise.  The top-k compressed
 ring runs on random normal features (no ties at the ``k`` boundary, where
 ``lax.top_k`` and ``torch.topk`` may pick other columns).
@@ -28,6 +32,21 @@ RING_CASES = [(4, 1, True, False), (8, 2, False, False), (8, 1, True, True),
 # top-k compressed ring: (ps, dist, interleave, fused update, k)
 SPARSE_RING_CASES = [(4, 1, True, False, 6), (8, 2, False, True, 23),
                      (16, 2, True, True, 1)]
+# the streamed ring over a tiered store, 4 shards: (ps, dist, fused update)
+# at each capacity, and its top-k variant at dist 2 for each k
+STREAM_CASES = [(8, 1, False), (4, 2, True)]
+STREAM_KS = (D, 6)
+SERVE_PHASES = [dict(requests=24, alpha=1.2, seeds_max=3, update_frac=0.1),
+                dict(requests=24, alpha=1.2, seeds_max=3, rotate=True,
+                     update_frac=0.1)]
+
+
+def _capacities(n):
+    return (0, n // 3, n)
+
+
+def _hot(g, cap):
+    return np.argsort(-g.degrees, kind="stable")[:cap]
 
 
 def _graph(C):
@@ -80,6 +99,52 @@ def _reference_outputs(n_dev):
                       C.MODEL_ZOO["gcn"][1](p, eng, xx))
         out[f"gcn_fused{int(fuse)}"] = np.asarray(
             fwd(params, eng.shard(eng.pad(x))))
+    if n_dev > 1:
+        out.update(_reference_tiered(C, g, x, mesh, params))
+    return out
+
+
+def _reference_tiered(C, g, x, mesh, params):
+    """The streamed ring, the padded table and tiered serving."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from repro.core.pipeline import (mgg_aggregate_sparse_streamed,
+                                     mgg_aggregate_streamed)
+    from repro.serve import GNNServeEngine, TrafficPhase, ZipfTraffic
+    from repro.serve import run_trace
+    from repro.store import FeatureStore, TieredFeatures
+
+    shard = lambda a: jax.device_put(a, NamedSharding(mesh, P("ring", None)))
+
+    def tiers(plan, cap):
+        t = TieredFeatures(FeatureStore(x), plan, cap, shard=shard)
+        if cap:
+            t.admit(_hot(g, cap).tolist())
+        return t
+
+    out = {}
+    for i, (ps, dist, fused) in enumerate(STREAM_CASES):
+        plan = C.build_plan(g, mesh.size, ps=ps, dist=dist)
+        w = _update_w() if fused else None
+        for cap in _capacities(g.num_nodes):
+            out[f"stream{i}_cap{cap}"] = np.asarray(mgg_aggregate_streamed(
+                tiers(plan, cap).chunk_fetcher(), plan, mesh, update_w=w))
+    plan = C.build_plan(g, mesh.size, ps=8, dist=2)
+    for k in STREAM_KS:
+        out[f"stream_sparse_k{k}"] = np.asarray(
+            mgg_aggregate_sparse_streamed(
+                tiers(plan, g.num_nodes // 3).chunk_fetcher(), plan, mesh,
+                k=k))
+    out["padded_table"] = np.asarray(
+        tiers(plan, g.num_nodes // 3).padded_table())
+    eng = C.GNNEngine.build(g, mesh, ps=8, dist=2)
+    srv = GNNServeEngine(eng, params, "gcn", x, g, slots=4,
+                         feature_capacity=g.num_nodes // 3)
+    results = run_trace(srv, ZipfTraffic(
+        g.num_nodes, D, [TrafficPhase(**p) for p in SERVE_PHASES], seed=5))
+    out["tiered_seeds"] = np.concatenate([r.seeds for r in results])
+    out["tiered_logits"] = np.concatenate([r.logits for r in results])
+    out["tiered_cached"] = np.array([r.cached for r in results])
     return out
 
 
@@ -104,6 +169,8 @@ from repro_torch.serve import GNNServeEngine as TServe  # noqa: E402
 from repro_torch.serve import TrafficPhase as TPhase  # noqa: E402
 from repro_torch.serve import ZipfTraffic as TTraffic  # noqa: E402
 from repro_torch.serve import run_trace as t_run_trace  # noqa: E402
+from repro_torch.store import FeatureStore  # noqa: E402
+from repro_torch.store import TieredFeatures  # noqa: E402
 
 # six test workers share the host's cores with the reference's XLA
 # subprocesses: a few torch threads a worker
@@ -281,3 +348,80 @@ def test_update_features_writes_one_row_in_place():
     srv.update_features(17, np.full(D, 2.5, np.float32))
     assert srv.xp is table                       # no new table
     np.testing.assert_array_equal(srv.xp.numpy(), eng.pad(srv.x))
+
+
+def _port_tiers(g, plan, cap):
+    t = TieredFeatures(FeatureStore(_features(g.num_nodes)), plan, cap,
+                       device=CPU)
+    if cap:
+        t.admit(_hot(g, cap).tolist())
+    return t
+
+
+@pytest.mark.parametrize("case", range(len(STREAM_CASES)))
+def test_streamed_ring_matches_reference(dump4, case):
+    ps, dist, fused = STREAM_CASES[case]
+    g = _graph(TC)
+    plan = TC.build_plan(g, 4, ps=ps, dist=dist)
+    ring = VirtualRing(4, CPU)
+    w = torch.from_numpy(_update_w()) if fused else None
+    outs = []
+    for cap in _capacities(g.num_nodes):
+        stats = {}
+        got = TC.mgg_aggregate_streamed(_port_tiers(g, plan, cap)
+                                        .chunk_fetcher(), plan, ring,
+                                        update_w=w, stats=stats)
+        assert stats["prefetch_issued"] == dist - 1
+        np.testing.assert_allclose(got.numpy(),
+                                   dump4[f"stream{case}_cap{cap}"],
+                                   rtol=1e-5, atol=1e-5)
+        outs.append(got)
+    assert all(torch.equal(outs[0].view(torch.int32), o.view(torch.int32))
+               for o in outs[1:])
+
+
+@pytest.mark.parametrize("k", STREAM_KS)
+def test_sparse_streamed_ring_matches_reference(dump4, k):
+    g = _graph(TC)
+    plan = TC.build_plan(g, 4, ps=8, dist=2)
+    got = TC.mgg_aggregate_sparse_streamed(
+        _port_tiers(g, plan, g.num_nodes // 3).chunk_fetcher(), plan,
+        VirtualRing(4, CPU), k=k)
+    np.testing.assert_allclose(got.numpy(), dump4[f"stream_sparse_k{k}"],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_padded_table_matches_reference(dump4):
+    g = _graph(TC)
+    plan = TC.build_plan(g, 4, ps=8, dist=2)
+    got = _port_tiers(g, plan, g.num_nodes // 3).padded_table().numpy()
+    np.testing.assert_array_equal(got, dump4["padded_table"])
+    np.testing.assert_array_equal(got, TC.pad_embeddings(
+        plan, _features(g.num_nodes)))
+
+
+def test_tiered_serving_matches_reference(dump4):
+    """The reference's tiered serving trace (feature updates, a hot-set
+    rotation) through the port's tiered engine: the same seeds and
+    cached/full decisions, logits within rtol 2e-4, and bitwise the
+    port's resident serving of the same trace."""
+    g = _graph(TC)
+    params = _port_params(dump4)
+    events = list(TTraffic(g.num_nodes, D, [TPhase(**p)
+                                            for p in SERVE_PHASES], seed=5))
+    served = {}
+    for cap in (g.num_nodes // 3, None):
+        eng = TC.GNNEngine.build(g, VirtualRing(4, CPU), ps=8, dist=2)
+        srv = TServe(eng, params, "gcn", _features(g.num_nodes), g, slots=4,
+                     feature_capacity=cap)
+        served[cap] = t_run_trace(srv, events)
+    res = served[g.num_nodes // 3]
+    np.testing.assert_array_equal(
+        np.concatenate([r.seeds for r in res]), dump4["tiered_seeds"])
+    np.testing.assert_array_equal([r.cached for r in res],
+                                  dump4["tiered_cached"])
+    got = np.concatenate([r.logits for r in res])
+    np.testing.assert_allclose(got, dump4["tiered_logits"], rtol=2e-4,
+                               atol=1e-5)
+    np.testing.assert_array_equal(
+        got, np.concatenate([r.logits for r in served[None]]))
