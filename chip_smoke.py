@@ -96,8 +96,12 @@ Phases, each of which passes or ends the run with a non-zero exit:
    cached passes) after it; (f) the sampled branch's search as the
    training launcher runs it (one idle ring plan; fanout 5/10 x batch
    512/1024, budget 4, SAGE 32 x 2 over the pinned tiered store at full
-   size), each config's first K5 assembly bitwise ``x[ids]``.  The
-   per-layer search and (e) run on the reduced stand-in
+   size), each config's first K5 assembly bitwise ``x[ids]``; after (a)'s
+   search, the hardware probes (``probe_hardware`` on the ring: fp32
+   matmul rate, pageable H2D rate, one rotation's per-tile rate, each a
+   number) and ``spec_from_probes(H100_SXM)``, and ``calibrate()`` on the
+   search's audit trail, its calibrated model error at most the stock
+   spec's.  The per-layer search and (e) run on the reduced stand-in
    (``TUNER_SCALE``): at full size a move's rebuild takes 5-7 s, and each
    retune's search makes several;
 14. tiered serving and the streamed ring, after phase 13 and on phase 3's
@@ -122,6 +126,38 @@ Phases, each of which passes or ends the run with a non-zero exit:
    logits bitwise resident serving's on the same trace, full and cached
    passes alike; (e) the serving launcher with ``--feature-capacity`` and
    ``--trace``, its streamed profile's overlap efficiency;
+15. the serving cluster, after phase 14: (a) at full width, phase 3's
+   model and graph behind 4 static replicas (``ps=8, dist=1``), each its
+   own engine over its own 8-shard virtual ring on the card (build
+   seconds and device GB each), serving one Zipf trace of 400 requests
+   with a hot-set rotation and 5 % feature updates through the locality
+   router and through the least-load router (fresh serving engines over
+   the same engines, launches counted): every request answered, every
+   replica serving under the locality router, each answer bitwise the
+   offline forward of the replica that served it over the features as
+   they stood when its batch ran (full and cached passes); a cluster of
+   one replica, with a tracer on the cluster and on the replica, bitwise
+   ``run_trace`` on that replica untraced; K1 and K3 bitwise their plain
+   versions on every group of a replica's plan; p50/p99 per router beside one replica on the same
+   trace and phase 3's engine, and each replica's hit rate.  (b) The
+   coordinated retune on the reduced stand-in (``TUNER_SCALE``): two
+   ``DynamicGNNEngine`` replicas (ps 4/8/16 x dist 1/2 x pb 0/4,
+   ``H100_SXM``) sharing one config cache and one metrics registry; a
+   rotation trace through the locality router (at least one staggered
+   retune, nothing dropped), then two overlapping drifts (the second
+   replica adopts the first's commit with one measurement, fewer than the
+   first's search), the counters the sums over the replicas, and served
+   == offline bitwise after the rejoin, full and cached; (c) the serving
+   launcher with ``--replicas 2 --router locality --dynamic-tune
+   --feature-capacity --trace``, its merged trace passing
+   ``repro_torch.obs.validate``;
+16. the baselines at full width, on phase 14's graph and features (D =
+   100, 8 shards, ps 16): ``bulk_aggregate`` and ``fetch_rows_aggregate``
+   (pages of 1 and 16 rows), launches counted, each within 1e-5 of
+   ``A|x|`` of the resident ``mgg_aggregate`` (ps 16, dist 2), K1, K3 and
+   K5 bitwise their plain versions on every group of their plans, each
+   timed (CUDA events) beside the resident ring with the rows it fetches
+   and the bytes they are;
 11. dense-LM inference at full width, after the GNN phases' device state
    is freed: mistral-nemo-12b (40 layers, d_model 5120, 32/8 heads,
    head_dim 128, vocab 131,072, fp32 parameters drawn on the card from a
@@ -244,6 +280,14 @@ PATH_KERNELS = {
                       "gather_rows"),
     "tiered_serving": ("gather_sum_pipelined", "segment_add_ordered",
                        "gather_rows"),
+    # phase 15: the serving cluster at full width (two routers), and the
+    # coordinated retune of two tuned replicas
+    "cluster_serving": ("gather_sum_pipelined", "segment_add_ordered"),
+    "cluster_retune": ("gather_sum_pipelined", "segment_add_ordered"),
+    # phase 16: the baselines
+    "bulk_baseline": ("gather_sum_pipelined", "segment_add_ordered"),
+    "fetch_baseline": ("gather_rows", "gather_sum_pipelined",
+                       "segment_add_ordered"),
     # the LM's cache-less forward with use_flash_attention (bf16 compute)
     "lm_forward": ("flash_attention",),
     # xlstm-125m: the cache-less forward (bf16 compute), then the launcher
@@ -285,6 +329,10 @@ TUNER_SCALE = REDUCED_SCALE
 SAMPLED_FANOUT, SAMPLED_BATCH = (5, 10), (512, 1024)
 # phase 14: the streamed ring's plan on the full stand-in
 STREAM_PS, STREAM_DIST = 16, 2
+# phase 15: replicas of phase 3's engine, and the requests of their trace
+CLUSTER_REPLICAS, CLUSTER_REQUESTS = 4, 400
+# phase 16: the fetch baseline's page sizes (rows)
+BASELINE_PAGES = (1, 16)
 
 
 def fail(msg):
@@ -639,6 +687,12 @@ def main():
                           if k not in ("name", "route", "source",
                                        "replaces")}
     k5["max_abs_err"] = max(k5["max_abs_err"], k5_padded["max_abs_err"])
+    # -- 15. the serving cluster ---------------------------------------------
+    cluster_phase(torch, C, K, g, x, params, part, dev, ncls, launches,
+                  dict(p50_ms=float(np.percentile(lat, 50) * 1e3),
+                       p99_ms=float(np.percentile(lat, 99) * 1e3)))
+    # -- 16. the baselines ----------------------------------------------------
+    baselines(torch, C, K, ops, ref, g, ring, dev, x, part, launches)
     del part
 
     # -- 11. dense-LM inference: the GNN phases' device state goes first ----
@@ -1800,6 +1854,25 @@ def tuner_on_card(torch, C, K, g, ring, dev, ncls, launches):
         events=[ev["event"] for ev in dyn.audit if ev["event"] != "probe"],
         launches=counts)
 
+    # the hardware probes on the ring, the spec they give, and the stock
+    # spec against the one fitted to the search's audit trail
+    from repro_torch.obs import calibrate as cal
+    probes = cal.probe_hardware(ring)
+    check(all(isinstance(v, float) and math.isfinite(v) and v > 0
+              for v in probes.values()), f"a probe gave no number: {probes}")
+    probed = cal.spec_from_probes(H100_SXM, probes)
+    fit = dyn.calibrate(adopt=False)
+    check(fit is not None and fit.error <= fit.base_error,
+          f"calibration: {fit}")
+    say("tuner_calibration", probes=probes,
+        probe_shapes=dict(matmul="4096 x 4096 fp32, TF32 off",
+                          host="32 MiB pageable numpy -> card",
+                          link=f"one rotation of {ring.n_dev} x 2048 x 256 "
+                               "fp32 tiles, one tile's bytes"),
+        probed_spec=dataclasses.asdict(probed), stock=H100_SXM.name,
+        base_error=fit.base_error, error=fit.error, scales=fit.scales,
+        n_observations=fit.n_observations, summary=fit.summary())
+
     # -- (d) memory and (b) dynamic == static from the commit step ----------
     # the bytes a fresh static engine at the committed config adds, and
     # the bytes dropping the tuned engine frees: equal unless tuner moves
@@ -2389,6 +2462,552 @@ def tiered_streaming(torch, C, K, g, ring, dev, x, part, ncls, rate,
         pipeline_profile=prof,
         phase_s=round(time.perf_counter() - t_phase, 3))
     return k5
+
+
+# ---------------------------------------------------------------------------
+# the serving cluster (phase 15)
+# ---------------------------------------------------------------------------
+
+def _first_requests(events, n):
+    """The events up to and including the ``n``-th request."""
+    out, k = [], 0
+    for ev in events:
+        out.append(ev)
+        k += not ev.is_update
+        if k == n:
+            return out
+    fail(f"the trace holds {k} requests, not {n}")
+
+
+def _tag_epochs(cluster):
+    """Tag each served result with the number of feature updates applied
+    before its batch ran: wraps each replica's ``step`` and the cluster's
+    update fan-out.  Returns ``(epoch of (replica, local request id),
+    the updates in order)``."""
+    epoch_of, updates = {}, []
+    for i, srv in enumerate(cluster.replicas):
+        def step(i=i, step=srv.step):
+            out = step()
+            for r in out:
+                epoch_of[(i, r.request_id)] = len(updates)
+            return out
+        srv.step = step
+    fan = cluster.update_features
+
+    def update(node, value):
+        updates.append((int(node), np.asarray(value, np.float32)))
+        return fan(node, value)
+    cluster.update_features = update
+    return epoch_of, updates
+
+
+def _held_by_epoch(torch, C, cluster, results, x, params, epoch_of,
+                   updates):
+    """Each result bitwise the offline forward of the replica that served
+    it, over the features as they stood when its batch ran.  The replicas
+    share one plan layout, so one padded table carries the updates."""
+    reps = cluster.replicas
+    plan0 = reps[0].eng.plan
+    check(all(np.array_equal(r.eng.plan.bounds, plan0.bounds)
+              and r.eng.plan.rows_per_dev == plan0.rows_per_dev
+              for r in reps), "the replicas' layouts differ")
+    # each replica numbers its requests in the order it was given them
+    local, seen = {}, [0] * len(reps)
+    for gid in sorted(r.request_id for r in results):
+        i = cluster.replica_of(gid)
+        local[gid] = (i, seen[i])
+        seen[i] += 1
+    by_epoch = {}
+    for r in results:
+        by_epoch.setdefault(epoch_of[local[r.request_id]], []).append(r)
+    dev = reps[0].eng.device
+    xp = reps[0].eng.shard(reps[0].eng.pad(x))
+    applied, n_full = 0, 0
+    for e in sorted(by_epoch):
+        for node, value in updates[applied:e]:
+            xp[int(C.pgas_rows(plan0, np.array([node]))[0])] = \
+                torch.from_numpy(value).to(dev)
+        applied = e
+        batch = by_epoch[e]
+        with torch.inference_mode():
+            offline = {i: C.gcn_apply(params, reps[i].eng, xp)
+                       for i in {cluster.replica_of(r.request_id)
+                                 for r in batch}}
+        for r in batch:
+            i = cluster.replica_of(r.request_id)
+            rows = torch.from_numpy(C.pgas_rows(plan0, r.seeds).astype(
+                np.int64)).to(dev)
+            check(np.array_equal(r.logits, offline[i][rows].cpu().numpy()),
+                  f"request {r.request_id} (replica {i}, "
+                  f"{'cached' if r.cached else 'full'} pass) != its "
+                  f"replica's offline forward")
+            n_full += not r.cached
+        del offline
+    return dict(epochs=len(by_epoch), full=n_full,
+                cached=len(results) - n_full)
+
+
+def _groups_bitwise(torch, ops, ref, eng, d, gen):
+    """K1 and K3 bitwise their plain versions on every ring group of
+    ``eng``'s layer-0 plan, on random rows of width ``d``."""
+    plan, arrays = eng.plan, eng.ring_arrays[0]
+    dev = eng.device
+    table = torch.from_numpy(gen.normal(size=(plan.padded_nodes, d)).astype(
+        np.float32)).to(dev)
+    tiles = table[:plan.n_dev * plan.tile_rows]
+    groups = [(table, grp) for grp in (arrays.local,) + arrays.local_steps
+              if grp is not None] + [(tiles, grp)
+                                     for grp in arrays.remote_steps]
+    for buf, grp in groups:
+        _k1_k3_bitwise(torch, ops, ref, buf, grp, plan.padded_nodes,
+                       "a replica's ring group")
+    return len(groups)
+
+
+def _k1_k3_bitwise(torch, ops, ref, buf, grp, out_rows, what):
+    bits = lambda t: t.view(torch.int32)
+    k1 = ops.neighbor_gather_sum(buf, grp.nbrs, grp.mask)
+    check(torch.equal(bits(k1), bits(ref.neighbor_gather_sum_ref(
+        buf, grp.nbrs, grp.mask))), f"{what}: K1 != its plain version")
+    segs = (grp.order, grp.seg_rows, grp.seg_start, grp.chunks)
+    base = torch.zeros((out_rows, buf.shape[1]), device=buf.device)
+    check(torch.equal(
+        bits(ops.segment_add_ordered(base.clone(), k1, *segs)),
+        bits(ref.segment_add_ordered_ref(base.clone(), k1, *segs))),
+        f"{what}: K3 != its plain version")
+
+
+def _lat_ms(results):
+    lat = np.array([r.latency for r in results])
+    return dict(p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3))
+
+
+def cluster_phase(torch, C, K, g, x, params, part, dev, ncls, launches,
+                  phase3):
+    """Phase 15: the serving cluster at full width, the coordinated
+    retune on the reduced stand-in, and the launcher's cluster."""
+    from repro_torch.core.autotune import H100_SXM
+    from repro_torch.dist import VirtualRing
+    from repro_torch.kernels import ops, ref
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import (GNNServeEngine, LeastLoadRouter,
+                                   LocalityRouter, ServeCluster,
+                                   TrafficPhase, WorkloadStats, ZipfTraffic,
+                                   run_trace)
+
+    t_phase = time.perf_counter()
+    n, d = x.shape
+    # -- (a) 4 static replicas at full width --------------------------------
+    engines, builds = [], []
+    for i in range(CLUSTER_REPLICAS):
+        torch.cuda.synchronize()
+        mem0, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+        engines.append(C.GNNEngine.build(g, VirtualRing(8, dev), ps=8,
+                                         dist=1, partition=part))
+        torch.cuda.synchronize()
+        builds.append(dict(build_s=round(time.perf_counter() - t0, 3),
+                           engine_gb=round((torch.cuda.memory_allocated()
+                                            - mem0) / 1e9, 3)))
+
+    def replicas(tracers=None, which=None):
+        which = range(CLUSTER_REPLICAS) if which is None else which
+        return [GNNServeEngine(engines[i], params, "gcn", x, g, slots=8,
+                               stats=WorkloadStats(window=32),
+                               tracer=None if tracers is None
+                               else tracers[k])
+                for k, i in enumerate(which)]
+
+    phases = [TrafficPhase(requests=220, alpha=1.1, rate=200.0, seeds_max=4,
+                           update_frac=0.05),
+              TrafficPhase(requests=220, alpha=1.1, rate=200.0, rotate=True,
+                           seeds_max=4, update_frac=0.05)]
+    events = _first_requests(list(ZipfTraffic(n, d, phases, seed=2)),
+                             CLUSTER_REQUESTS)
+    runs, counts_sum = {}, {}
+    for name, router in (("locality", LocalityRouter()),
+                         ("load", LeastLoadRouter())):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        cluster = ServeCluster(replicas(), router=router)
+        torch.cuda.synchronize()
+        serve_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+        epoch_of, updates = _tag_epochs(cluster)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = cluster.run_trace(events)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+        rep = cluster.report()
+        check(rep["dropped"] == 0 and rep["served"] == len(res)
+              == CLUSTER_REQUESTS and sorted(r.request_id for r in res)
+              == list(range(CLUSTER_REQUESTS)),
+              f"{name} router: {rep['served']} of {CLUSTER_REQUESTS} "
+              f"answered, {rep['dropped']} dropped")
+        check(all(counts[k] > 0 for k in PATH_KERNELS["cluster_serving"]),
+              f"a kernel of the cluster's path never launched: {counts}")
+        held = _held_by_epoch(torch, C, cluster, res, x, params, epoch_of,
+                              updates)
+        per = rep["per_replica"]
+        runs[name] = dict(
+            results=res, served_by_replica=[p["served"] for p in per],
+            hit_rate_by_replica=[p["cache_hit_rate"] for p in per],
+            updates=len(updates), held_to_offline=held,
+            serve_s=round(serve_s, 3), replicas_serving_gb=round(serve_gb, 3),
+            launches=counts, **_lat_ms(res))
+        for k, v in counts.items():
+            counts_sum[k] = counts_sum.get(k, 0) + v
+        del cluster
+    launches["cluster_serving"] = counts_sum
+    check(all(s > 0 for s in runs["locality"]["served_by_replica"]),
+          f"a replica took no traffic: {runs['locality']}")
+
+    # one replica: bare and untraced against a cluster of one with a
+    # tracer on the cluster and on the replica, bitwise
+    (bare,) = replicas(which=[0])
+    res_bare = run_trace(bare, events)
+    del bare
+    tracer = Tracer(pid=1)
+    solo = ServeCluster(replicas([tracer], which=[0]),
+                        router=LocalityRouter(), tracer=Tracer())
+    res_solo = solo.run_trace(events)
+    del solo
+    check(len(res_bare) == len(res_solo) and all(
+        a.request_id == b.request_id and a.cached == b.cached
+        and np.array_equal(a.logits, b.logits)
+        for a, b in zip(res_bare, res_solo)),
+        "a traced cluster of one != run_trace on its untraced replica")
+    n_spans = sum(e["name"] == "serve.request" for e in tracer.events())
+    check(n_spans == CLUSTER_REQUESTS, f"{n_spans} request spans traced")
+    n_groups = _groups_bitwise(torch, ops, ref, engines[0], 16,
+                               np.random.default_rng(5))
+    for name in runs:
+        del runs[name]["results"]
+    say("cluster_serving", nodes=n, d=d, classes=ncls,
+        replicas=CLUSTER_REPLICAS, config=dict(ps=8, dist=1), shards=8,
+        builds=builds, requests=CLUSTER_REQUESTS,
+        updates=sum(ev.is_update for ev in events), by_router=runs,
+        one_replica=_lat_ms(res_bare), phase3_engine=phase3,
+        cluster_of_one="traced (the cluster and its replica), bitwise "
+                       f"run_trace on its untraced replica ({n_spans} "
+                       "request spans)",
+        served_equals_offline="bitwise, each request its replica's "
+                              "forward at its batch's features",
+        k1_k3_bitwise_groups=n_groups)
+    del engines, res_bare, res_solo
+    torch.cuda.empty_cache()
+
+    cluster_retune(torch, C, K, dev, ncls, H100_SXM, launches)
+    cluster_launcher()
+    say("cluster_done", phase_s=round(time.perf_counter() - t_phase, 3))
+
+
+def cluster_retune(torch, C, K, dev, ncls, hw, launches):
+    """Phase 15 (b): two tuned replicas sharing one config cache on the
+    reduced stand-in (a full-size rebuild takes 5-7 s, and a search makes
+    several)."""
+    from repro_torch.dist import VirtualRing
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.runtime import DynamicGNNEngine, ProfileConfig
+    from repro_torch.serve import (GNNServeEngine, LocalityRouter,
+                                   ServeCluster, TrafficPhase, WorkloadStats,
+                                   ZipfTraffic)
+
+    t0 = time.perf_counter()
+    g, _ = C.paper_dataset("products", scale=TUNER_SCALE, seed=0)
+    d_in = 100
+    x = np.random.default_rng(0).normal(size=(g.num_nodes, d_in)).astype(
+        np.float32)
+    params = C.gcn_init(torch.Generator().manual_seed(0), d_in, ncls,
+                        device=dev)
+    cache = os.path.join(ROOT, "build", "tuner", "phase15.json")
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    if os.path.exists(cache):
+        os.remove(cache)          # the searches start cold in every run
+    registry = MetricsRegistry()
+
+    def replica(i):
+        dyn = DynamicGNNEngine.build(
+            g, VirtualRing(8, dev), d_feat=d_in, ps_space=(4, 8, 16),
+            dist_space=(1, 2), pb_space=(0, 4), use_kernel=True, hw=hw,
+            window=ProfileConfig(warmup=1, iters=2), cache_path=cache,
+            metrics=registry)
+        return GNNServeEngine(dyn, params, "gcn", x, g, slots=8,
+                              stats=WorkloadStats(window=32), check_every=8,
+                              min_records=8, metrics=registry,
+                              obs_labels={"replica": i})
+
+    reps = [replica(0), replica(1)]
+    cluster = ServeCluster(reps, router=LocalityRouter(), metrics=registry)
+    steady = lambda seed: ZipfTraffic(g.num_nodes, d_in, [TrafficPhase(
+        requests=100, alpha=1.1, rate=200.0, seeds_max=4)], seed=seed)
+    K.reset_launch_counts()
+    n_steady = 0
+    for rnd in range(20):     # both initial searches close on steady traffic
+        if not any(r._tuning for r in reps):
+            break
+        n_steady += len(cluster.run_trace(steady(20 + rnd)))
+    check(not any(r._tuning for r in reps), "an initial search never closed")
+    first_configs = [dict(r.config) for r in reps]
+    # (b1) a rotation: drift on live traffic, the token staggers retunes
+    rotation = list(ZipfTraffic(g.num_nodes, d_in, [
+        TrafficPhase(requests=100, alpha=1.1, rate=200.0, seeds_max=4,
+                     update_frac=0.02),
+        TrafficPhase(requests=250, alpha=1.1, rate=200.0, rotate=True,
+                     seeds_max=4, update_frac=0.02)], seed=7))
+    res = cluster.run_trace(rotation)
+    n_rot = sum(not ev.is_update for ev in rotation)
+    rep = cluster.report()
+    check(len(res) == n_rot and rep["dropped"] == 0,
+          f"rotation: {len(res)} of {n_rot} answered, {rep['dropped']} "
+          "dropped")
+    check(rep["staggered_retunes"] >= 1, f"no staggered retune: {rep}")
+    organic = list(rep["retune_log"])
+    for rnd in range(20):     # close any search the rotation left open
+        if cluster._token is None and not any(r._tuning for r in reps):
+            break
+        n_steady += len(cluster.run_trace(steady(60 + rnd)))
+    check(cluster._token is None and not any(r._tuning for r in reps),
+          "a search never closed after the rotation")
+    # (b2) two overlapping drifts: replica 1's signal fires while replica
+    # 0 holds the token, so it adopts 0's commit from the shared cache
+
+    def pump():
+        for _ in range(400):
+            cluster.pump()
+            if cluster._token is None:
+                return
+        fail("a coordinated retune never finished")
+
+    check(reps[0].retune_gate(reps[0], 1.0) is False
+          and cluster._token == 0, "replica 0 did not take the token")
+    check(reps[1].retune_gate(reps[1], 1.0) is False
+          and cluster._token == 0, "replica 1 was not deferred")
+    pump()
+    first = cluster.retune_log[-1]
+    check(first["replica"] == 0 and first["committed"]
+          and not first["from_cache"] and first["search_size"] >= 2,
+          f"the first retune: {first}")
+    check(reps[1].retune_gate(reps[1], 1.0) is False
+          and cluster._token == 1, "replica 1 did not take the token")
+    pump()
+    second = cluster.retune_log[-1]
+    check(second["replica"] == 1 and second["committed"]
+          and second["from_cache"] and second["search_size"] == 1
+          < first["search_size"] and reps[1].config == reps[0].config,
+          f"the adoption: {second} after {first}")
+    # served == offline after the rejoin, full and cached passes
+    for r in reps:
+        r.check_every = 10 ** 9
+        r.cache.invalidate()        # the first batch takes a full pass
+    seeds = [np.array([s]) for s in range(0, 64 * 97, 97)]
+    gids = [cluster.submit(s) for s in seeds]
+    done = cluster.drain()
+    gids += [cluster.submit(s) for s in seeds]
+    done += cluster.drain()
+    torch.cuda.synchronize()
+    launches["cluster_retune"] = counts = K.launch_counts()
+    check(all(counts[k] > 0 for k in PATH_KERNELS["cluster_retune"]),
+          f"a kernel of the coordinated retune never launched: {counts}")
+    by_id = {r.request_id: r for r in done}
+    check(sorted(by_id) == sorted(gids), "the probe requests were dropped")
+    check({cluster.replica_of(gid) for gid in gids} == {0, 1},
+          "the probe requests reached one replica")
+    with torch.inference_mode():
+        offline = [C.gcn_apply(params, r.eng, r.xp) for r in reps]
+    for gid in gids:
+        r, i = by_id[gid], cluster.replica_of(gid)
+        rows = torch.from_numpy(C.pgas_rows(reps[i].eng.plan, r.seeds)
+                                .astype(np.int64)).to(dev)
+        check(np.array_equal(r.logits, offline[i][rows].cpu().numpy()),
+              f"replica {i}: served != offline after the rejoin")
+    check(any(by_id[g].cached for g in gids)
+          and not all(by_id[g].cached for g in gids),
+          "the probe took no full or no cached pass")
+    rep = cluster.report()
+    per = rep["per_replica"]
+    check(rep["served"] == sum(p["served"] for p in per)
+          == registry.counter_total("serve.served")
+          == registry.counter_total("cluster.user_served")
+          and rep["shadow_served"] == sum(p["shadow_served"] for p in per)
+          == registry.counter_total("serve.shadow_served") > 0
+          and rep["dropped"] == sum(p["dropped"] for p in per) == 0,
+          f"the cluster's counters are not the replicas' sums: {rep}")
+    say("cluster_retune", nodes=g.num_nodes, replicas=2,
+        spaces=dict(ps=(4, 8, 16), dist=(1, 2), pb=(0, 4)), hw=hw.name,
+        first_configs=first_configs, final_configs=[r.config for r in reps],
+        steady_requests=n_steady, rotation_requests=n_rot,
+        served=rep["served"],
+        shadow_served=rep["shadow_served"],
+        staggered_retunes=rep["staggered_retunes"],
+        deferred_retunes=rep["deferred_retunes"], organic_log=organic,
+        adopted_organically=any(e["from_cache"] and e["committed"]
+                                for e in organic),
+        retune_log=rep["retune_log"],
+        search_sizes=[p["search_sizes"] for p in per],
+        served_equals_offline="bitwise after the rejoin (full, cached)",
+        counters="the cluster's = the replicas' sums = the registry's",
+        launches=counts, s=round(time.perf_counter() - t0, 3))
+
+
+def cluster_launcher():
+    """Phase 15 (c): the launcher's cluster, its merged trace validated."""
+    from repro_torch.launch import serve_gnn
+    from repro_torch.obs import validate
+
+    trace = os.path.join(ROOT, "build", "serve_gnn_cluster_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    rep = serve_gnn.main(["--scale", "1", "--requests", "60", "--rotate",
+                          "--devices", "8", "--replicas", "2", "--router",
+                          "locality", "--dynamic-tune", "--check-every", "4",
+                          "--min-records", "4", "--stats-window", "16",
+                          "--feature-capacity", "1536", "--trace", trace])
+    check(rep["served"] > 0 and rep["dropped"] == 0
+          and rep["device"].startswith("cuda")
+          and all(p["served"] > 0 for p in rep["per_replica"]),
+          f"the cluster launcher: {rep}")
+    problems = validate.validate(trace)
+    check(not problems and validate.main([trace]) == 0,
+          f"the merged trace: {problems}")
+    say("cluster_launcher", served=rep["served"],
+        shadow_served=rep["shadow_served"],
+        staggered_retunes=rep["staggered_retunes"],
+        served_by_replica=[p["served"] for p in rep["per_replica"]],
+        p50_ms=rep["p50"] * 1e3, p99_ms=rep["p99"] * 1e3,
+        pipeline_profile=rep["pipeline_profile"], trace_valid=True)
+
+
+# ---------------------------------------------------------------------------
+# the baselines (phase 16)
+# ---------------------------------------------------------------------------
+
+def _padded_rows(bounds, rows, ids):
+    """Global node ids → rows of the padded table ``(n_dev · rows, ·)``."""
+    owner = np.searchsorted(bounds, ids, side="right") - 1
+    return owner * rows + (ids - bounds[owner])
+
+
+def baselines(torch, C, K, ops, ref, g, ring, dev, x, part, launches):
+    """Phase 16: the bulk and fetch baselines beside the resident ring."""
+    from repro_torch.core.pipeline import (bulk_aggregate, bulk_groups,
+                                           fetch_groups,
+                                           fetch_rows_aggregate,
+                                           mgg_aggregate)
+
+    t_phase = time.perf_counter()
+    n, d = x.shape
+    n_dev = ring.n_dev
+    eng = C.GNNEngine.build(g, ring, ps=STREAM_PS, dist=STREAM_DIST,
+                            partition=part)
+    plan, arrays = eng.plan, eng.ring_arrays[0]
+    g_full = g.with_self_loops()
+    ids = np.arange(n, dtype=np.int64)
+    xp = eng.shard(eng.pad(x))
+    with torch.inference_mode():
+        resident = mgg_aggregate(xp, plan, ring, arrays=arrays)
+        resident_ms = _time(torch, lambda: mgg_aggregate(
+            xp, plan, ring, arrays=arrays), reps=5)
+        scale = mgg_aggregate(xp.abs(), plan, ring, arrays=arrays)
+    at = torch.from_numpy(C.pgas_rows(plan, ids).astype(np.int64)).to(dev)
+    want, scale = resident[at], scale[at]
+    del resident, xp, at
+    bounds = plan.bounds
+    results = {}
+
+    def held(name, got, rows):
+        at = torch.from_numpy(_padded_rows(bounds, rows, ids)).to(dev)
+        got = got.reshape(-1, d)[at]
+        diff = (got - want).abs()
+        check(bool((diff <= 1e-5 * scale + 1e-5).all()),
+              f"{name} against the resident ring: {diff.max().item()}")
+        return dict(max_abs_err=diff.max().item(),
+                    max_err_over_sum_abs=(diff / scale.clamp_min(1e-30))
+                    .max().item(),
+                    outside_rtol_atol_1e5=int((~torch.isclose(
+                        got, want, rtol=1e-5, atol=1e-5)).sum()))
+
+    # bulk: every shard's partitions over the whole (all-gathered) table
+    t0 = time.perf_counter()
+    nbrs, mask, tgt, rows = C.build_bulk_plan(g_full, n_dev, STREAM_PS,
+                                              bounds=bounds)
+    groups = bulk_groups(nbrs, mask, tgt, dev)
+    build_s = time.perf_counter() - t0
+    xb = torch.from_numpy(C.pad_table(bounds, rows, x)).to(dev)
+    run = lambda: bulk_aggregate(xb, nbrs, mask, tgt, rows, ring,
+                                 groups=groups)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        out = run()
+    torch.cuda.synchronize()
+    launches["bulk_baseline"] = counts = K.launch_counts()
+    check(all(counts[k] > 0 for k in PATH_KERNELS["bulk_baseline"]),
+          f"a kernel of the bulk baseline never launched: {counts}")
+    err = held("bulk", out, rows)
+    del out
+    with torch.inference_mode():
+        for grp in groups:
+            _k1_k3_bitwise(torch, ops, ref, xb, grp, rows, "bulk")
+        ms = _time(torch, run, reps=5)
+    results["bulk"] = dict(
+        build_s=round(build_s, 3), ms=ms, launches=counts,
+        partitions=sum(grp.num_partitions for grp in groups),
+        rows_fetched=n_dev * (n_dev - 1) * rows,
+        bytes_fetched=n_dev * (n_dev - 1) * rows * d * 4, **err)
+    del groups, nbrs, mask, tgt
+
+    # fetch: each shard's referenced rows (exact, or pages of 16) first
+    fetch_counts = {}
+    for page in BASELINE_PAGES:
+        t0 = time.perf_counter()
+        fp = C.build_fetch_plan(g_full, n_dev, STREAM_PS, page_rows=page,
+                                bounds=bounds)
+        args = (fp["fetch_rows"], fp["nbrs"], fp["mask"], fp["targets"])
+        groups = fetch_groups(*args, dev)
+        build_s = time.perf_counter() - t0
+        check(fp["rows_per_dev"] == rows, "the fetch plan's layout moved")
+        run = lambda: fetch_rows_aggregate(xb, *args, rows, groups=groups)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        with torch.inference_mode():
+            out = run()
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        check(all(counts[k] > 0 for k in PATH_KERNELS["fetch_baseline"]),
+              f"a kernel of the fetch baseline never launched: {counts}")
+        for k, v in counts.items():
+            fetch_counts[k] = fetch_counts.get(k, 0) + v
+        err = held(f"fetch, pages of {page}", out, rows)
+        del out
+        with torch.inference_mode():
+            for fids, grp in groups:
+                buf = ops.gather_rows(xb, fids)
+                check(torch.equal(buf, ref.gather_rows_ref(xb, fids)),
+                      f"fetch {page}: K5 != its plain version")
+                _k1_k3_bitwise(torch, ops, ref, buf, grp, rows,
+                               f"fetch {page}")
+                del buf
+            ms = _time(torch, run, reps=5)
+        fetched = int(sum(fp["fetched_rows_per_dev"]))
+        results[f"fetch_page{page}"] = dict(
+            build_s=round(build_s, 3), ms=ms, launches=counts,
+            partitions=sum(grp.num_partitions for _, grp in groups),
+            rows_fetched=fetched, rows_gathered=int(
+                fp["fetch_rows"].size), bytes_fetched=fetched * d * 4,
+            **err)
+        del groups, fp, args
+        torch.cuda.empty_cache()
+    launches["fetch_baseline"] = fetch_counts
+    say("baselines", nodes=n, d=d, shards=n_dev, ps=STREAM_PS,
+        resident=dict(ms=resident_ms, dist=STREAM_DIST,
+                      rows_rotated=n_dev * (n_dev - 1) * plan.rows_per_dev,
+                      bytes_rotated=n_dev * C.collective_bytes(plan, d)),
+        tolerance="|baseline - resident| <= 1e-5 * (A|x|) + 1e-5",
+        kernels_bitwise="K1, K3 (and K5) on every group", **results,
+        phase_s=round(time.perf_counter() - t_phase, 3))
+    del eng, xb, want, scale
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

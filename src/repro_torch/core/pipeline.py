@@ -46,7 +46,14 @@ chunk rings over features that are only partly on the card: each chunk
 is fetched from a tiered store while the previous chunk's ring is in
 flight, the local pass runs last over the assembled table, and the
 partial sums are added in a fixed order.  It is forward only, as in the
-reference.  The bulk and fetch baselines come in a later slice.
+reference.
+
+:func:`bulk_aggregate` and :func:`fetch_rows_aggregate` are the paper's
+baselines, forward only as in the reference: the whole table gathered
+first, then aggregated (DGCL / NCCL), and each shard's referenced rows
+fetched first, exactly or a page at a time (Direct / UVM).  Neither
+overlaps its communication with its computation.  They run the ring's
+K1 and K3 (and K5 for the fetch) on one :class:`WorkGroup` a shard.
 """
 from __future__ import annotations
 
@@ -65,7 +72,8 @@ from .placement import AggregationPlan
 __all__ = ["WorkGroup", "RingArrays", "plan_device_arrays", "mgg_aggregate",
            "mgg_aggregate_sparse", "mgg_aggregate_streamed",
            "mgg_aggregate_sparse_streamed", "block_neighbor_sum",
-           "reference_aggregate",
+           "bulk_groups", "bulk_aggregate", "fetch_groups",
+           "fetch_rows_aggregate", "reference_aggregate",
            "topk_activation", "wire_index_dtype", "topk_decompress",
            "collective_bytes", "sparse_collective_bytes"]
 
@@ -774,6 +782,127 @@ def block_neighbor_sum(h_src: torch.Tensor, nbr: torch.Tensor,
     buf = torch.cat([h_src, sentinel], dim=0)
     return ops.neighbor_gather_sum(buf, nbr, mask, grad_index=grad_index,
                                    use_kernel=use_kernel).to(h_src.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Baseline 1: bulk all-gather + local aggregation (DGCL / NCCL pattern)
+# ---------------------------------------------------------------------------
+
+def _shard_group(nbrs: np.ndarray, mask: np.ndarray, targets: np.ndarray,
+                 device) -> WorkGroup:
+    """One shard's partitions of a baseline plan, without the SPMD padding
+    (all-masked partitions, which only add zero rows)."""
+    keep = np.asarray(mask, bool).any(-1)
+    return WorkGroup.build(np.asarray(nbrs)[keep], np.asarray(mask)[keep],
+                           np.asarray(targets)[keep], device)
+
+
+def bulk_groups(bulk_nbrs: np.ndarray, bulk_mask: np.ndarray,
+                bulk_targets: np.ndarray, device) -> Tuple[WorkGroup, ...]:
+    """The per-shard :class:`WorkGroup`\\ s of a
+    :func:`~repro_torch.core.placement.build_bulk_plan` (host-side, once
+    per plan): each shard's partitions name rows of the whole padded
+    table and target rows of its own shard."""
+    return tuple(_shard_group(bulk_nbrs[d], bulk_mask[d], bulk_targets[d],
+                              device) for d in range(bulk_nbrs.shape[0]))
+
+
+def _aggregate_into(out, buf, grp: WorkGroup, use_kernel: bool) -> None:
+    """One shard's gather-sum (K1) over ``buf`` added into its rows
+    ``out`` in order (K3)."""
+    if grp.num_partitions:
+        _segment_add(out, _gather_sum(buf, grp, use_kernel, None), grp,
+                     use_kernel)
+
+
+def bulk_aggregate(
+    x: torch.Tensor,
+    bulk_nbrs: np.ndarray,     # (n_dev, P, ps) offsets into the padded table
+    bulk_mask: np.ndarray,
+    bulk_targets: np.ndarray,  # (n_dev, P)
+    rows_per_dev: int,
+    ring: VirtualRing,
+    *,
+    use_kernel: bool = True,
+    groups: Optional[Tuple[WorkGroup, ...]] = None,
+) -> torch.Tensor:
+    """All-gather the entire table first, aggregate second (no overlap).
+
+    On the virtual ring the stacked table ``x`` (``(n_dev · rows_per_dev,
+    D)``) already is the all-gathered one, so shard ``d``'s gather-sum
+    (K1) reads it directly and its ordered segment add (K3) writes its own
+    rows.  Returns the padded table in ``x``'s dtype.  ``groups`` is
+    :func:`bulk_groups` of the plan (built here when not given).
+    """
+    n_dev, rows = ring.n_dev, int(rows_per_dev)
+    if bulk_nbrs.shape[0] != n_dev:
+        raise ValueError(f"ring of {n_dev} shards, plan for "
+                         f"{bulk_nbrs.shape[0]}")
+    if x.shape[0] != n_dev * rows:
+        raise ValueError(f"x has {x.shape[0]} rows, the plan pads to "
+                         f"{n_dev * rows}")
+    x = x.contiguous()
+    if groups is None:
+        groups = bulk_groups(bulk_nbrs, bulk_mask, bulk_targets, x.device)
+    out = torch.zeros((x.shape[0], x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for d, grp in enumerate(groups):
+        _aggregate_into(out[d * rows:(d + 1) * rows], x, grp, use_kernel)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Baseline 2: fetch-then-aggregate with a granularity knob (UVM / Direct)
+# ---------------------------------------------------------------------------
+
+def fetch_groups(fetch_rows: np.ndarray, nbrs: np.ndarray, mask: np.ndarray,
+                 targets: np.ndarray, device
+                 ) -> Tuple[Tuple[torch.Tensor, WorkGroup], ...]:
+    """Each shard's row ids to fetch (int32, on ``device``) and the
+    :class:`WorkGroup` over its fetched buffer, of a
+    :func:`~repro_torch.core.placement.build_fetch_plan` (host-side, once
+    per plan)."""
+    return tuple(
+        (torch.from_numpy(np.ascontiguousarray(fetch_rows[d], np.int32)).to(
+            device), _shard_group(nbrs[d], mask[d], targets[d], device))
+        for d in range(fetch_rows.shape[0]))
+
+
+def fetch_rows_aggregate(
+    x: torch.Tensor,
+    fetch_rows: np.ndarray,   # (n_dev, F) padded-global row ids to fetch
+    nbrs: np.ndarray,         # (n_dev, P, ps) offsets into the fetched buffer
+    mask: np.ndarray,
+    targets: np.ndarray,      # (n_dev, P)
+    out_rows: int,
+    *,
+    use_kernel: bool = True,
+    groups: Optional[Tuple[Tuple[torch.Tensor, WorkGroup], ...]] = None,
+) -> torch.Tensor:
+    """Gather ``fetch_rows`` from the global table, then aggregate locally.
+
+    Per shard: the row gather (K5) of its ``F`` fetched rows from the
+    padded table ``x``, the gather-sum (K1) over that buffer and the
+    ordered segment add (K3) into its ``out_rows`` rows.  With exact rows
+    this is the Direct-NVSHMEM pattern of the paper's Table 1; with
+    page-expanded rows the UVM pattern of its §2.2 — the gather volume,
+    not the aggregation, changes.  Returns ``(n_dev, out_rows, D)`` in
+    ``x``'s dtype.  ``groups`` is :func:`fetch_groups` of the plan (built
+    here when not given).
+    """
+    n_dev = fetch_rows.shape[0]
+    x = x.contiguous()
+    if groups is None:
+        groups = fetch_groups(fetch_rows, nbrs, mask, targets, x.device)
+    elif len(groups) != n_dev:
+        raise ValueError(f"{len(groups)} groups given, the plan has "
+                         f"{n_dev} shards")
+    out = torch.zeros((n_dev, int(out_rows), x.shape[1]),
+                      dtype=torch.float32, device=x.device)
+    fetch = ops.gather_rows if use_kernel else ref.gather_rows_ref
+    for d, (ids, grp) in enumerate(groups):
+        _aggregate_into(out[d], fetch(x, ids), grp, use_kernel)
+    return out.to(x.dtype)
 
 
 def reference_aggregate(indptr: np.ndarray, indices: np.ndarray,

@@ -1,6 +1,6 @@
 """GNN serving launcher for the port: Zipfian traffic with phase shifts
 over the (dynamically re-tuned) MGG pipeline on one card (counterpart of
-``repro/launch/serve_gnn.py``, single replica).
+``repro/launch/serve_gnn.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --dataset products \
         --model gcn --requests 200 --rotate [--dynamic-tune]
@@ -22,23 +22,34 @@ micro-batches once ``--min-records`` are in the window);
 everything); with ``--trace`` three streamed aggregations then run
 through the live store and print their overlap efficiency and prefetch
 counts.  ``--frontier-fanout F`` bounds the receptive field the traffic
-statistics see with a sampled k-hop frontier.  ``--replicas`` belongs to
-a later slice (ROADMAP item 7) and raises ``NotImplementedError``.
+statistics see with a sampled k-hop frontier.
+
+``--replicas N`` serves through a :class:`~repro_torch.serve.ServeCluster`
+of N replicas behind a router (``--router load|locality``), each its own
+engine over its own virtual ring on the one card.  They share one tuned
+config cache (``--tune-cache``, or a temporary file with
+``--dynamic-tune``), stagger their drift retunes (drain → retune →
+rejoin) and drop no request.  With ``--trace`` each replica records onto
+its own tracer, dumped as a JSONL sidecar (``PATH.replicaI.jsonl``,
+the cluster's ``PATH.cluster.jsonl``) and merged into one Chrome trace
+at ``PATH``; ``python -m repro_torch.obs.validate PATH`` checks it.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import core as C
-from ..dist import VirtualRing
-from ..obs import MetricsRegistry, Tracer
+from ..dist import VirtualRing, resolve_device
+from ..obs import MetricsRegistry, Tracer, merge_traces
 from ..runtime import DynamicGNNEngine, ProfileConfig
-from ..serve import (GNNServeEngine, TrafficPhase, WorkloadStats,
-                     ZipfTraffic, run_trace)
+from ..serve import (GNNServeEngine, ServeCluster, TrafficPhase,
+                     WorkloadStats, ZipfTraffic, make_router, run_trace)
 from ..store import FeatureStore
 
 
@@ -78,7 +89,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="one (ps, dist, pb) per GNN layer "
                          "(implies --dynamic-tune)")
     ap.add_argument("--tune-cache", default=None,
-                    help="JSON path persisting tuned configs across runs")
+                    help="JSON path persisting tuned configs across runs "
+                         "(replicas warm-start each other's retunes "
+                         "through it)")
     ap.add_argument("--check-every", type=int, default=8,
                     help="micro-batches between traffic-drift checks")
     ap.add_argument("--min-records", type=int, default=8,
@@ -95,11 +108,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="bound the stats-side receptive field with a "
                          "sampled k-hop frontier of this per-hop fanout; "
                          "cache gating stays exact")
-    # a later slice: accepted so the flag set matches the reference's
-    later = ap.add_argument_group("later slices (raise NotImplementedError)")
-    later.add_argument("--replicas", type=int, default=1)
-    later.add_argument("--router", default="locality",
-                       choices=["load", "locality"])
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serving replicas behind the router")
+    ap.add_argument("--router", default="locality",
+                    choices=["load", "locality"],
+                    help="cluster routing policy (--replicas > 1)")
     return ap
 
 
@@ -135,17 +148,49 @@ def _profile_pipeline(srv, tracer, passes: int = 3) -> Optional[dict]:
     return stats
 
 
+def _dump_obs(args, tracer, registry, engines, replica_tracers=None):
+    """Write ``--metrics-json`` (with each dynamic engine's audit trail)
+    and ``--trace``.  With per-replica tracers each timeline is dumped as
+    a JSONL sidecar and merged into one Chrome trace: the cluster (router,
+    drain, rejoin) on one process row, each replica on its own."""
+    if args.metrics_json:
+        audits = {f"replica{i}": e.eng.audit
+                  for i, e in enumerate(engines) if e.dynamic}
+        registry.dump_json(args.metrics_json, extra={"audit": audits})
+        print(f"[serve_gnn] metrics snapshot: {args.metrics_json}")
+    if tracer is None:
+        return
+    if replica_tracers:
+        paths, labels = [], []
+        for label, t in [("cluster", tracer)] + [
+                (f"replica{i}", rt) for i, rt in enumerate(replica_tracers)]:
+            path = f"{args.trace}.{label}.jsonl"
+            t.dump_jsonl(path)
+            paths.append(path)
+            labels.append(label)
+        merge_traces(paths, labels, out=args.trace)
+        n = len(tracer) + sum(len(t) for t in replica_tracers)
+        print(f"[serve_gnn] merged chrome trace: {args.trace} ({n} events "
+              f"across {len(paths)} timelines; sidecars {args.trace}.*.jsonl)")
+    else:
+        tracer.dump_chrome(args.trace)
+        print(f"[serve_gnn] chrome trace: {args.trace} "
+              f"({len(tracer)} events — open in ui.perfetto.dev)")
+
+
+def _print_served(rep) -> None:
+    print(f"latency p50 {rep['p50'] * 1e3:.2f} ms  "
+          f"p99 {rep['p99'] * 1e3:.2f} ms")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Serve two traffic phases; returns the engine's report plus the
-    latency percentiles (seconds)."""
+    """Serve two traffic phases; returns the engine's report (the
+    cluster's with ``--replicas`` > 1) plus the latency percentiles
+    (seconds)."""
     args = _parser().parse_args(argv)
-    if args.replicas > 1:
-        raise NotImplementedError(
-            "serving replicas arrive with the cluster slice of the port "
-            "(ROADMAP item 7)")
     args.dynamic_tune = args.dynamic_tune or args.per_layer_tune
 
-    ring = VirtualRing(args.devices, args.device)
+    dev = resolve_device(args.device)
     tracer = Tracer() if args.trace else None
     registry = MetricsRegistry()
 
@@ -156,38 +201,50 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         size=(g.num_nodes, dim)).astype(np.float32)
     init, _apply, kw = C.MODEL_ZOO[args.model]
     gen = torch.Generator().manual_seed(args.seed)
-    params = init(gen, dim, ncls, device=ring.device, **kw)
+    params = init(gen, dim, ncls, device=dev, **kw)
 
-    if args.dynamic_tune:
-        layer_dims = C.aggregation_widths(args.model, params,
-                                          fused=args.fuse_update) \
-            if args.per_layer_tune else None
-        eng = DynamicGNNEngine.build(
-            g, ring, d_feat=dim,
-            ps_space=(1, 2, 4, 8, 16), dist_space=(1, 2, 4),
-            pb_space=(0,),
-            window=ProfileConfig(warmup=1, iters=2),
-            fuse_update=args.fuse_update, layer_dims=layer_dims,
-            cache_path=args.tune_cache, log_fn=print,
-            tracer=tracer, metrics=registry)
-    else:
-        eng = C.GNNEngine.build(g, ring, ps=8, dist=1,
-                                fuse_update=args.fuse_update)
-    store = None
-    if args.feature_capacity is not None:
-        # the host tier: page-locked on the card, so uploads never block
-        store = FeatureStore(x, pin=ring.device.type == "cuda")
-    srv = GNNServeEngine(eng, params, args.model, x, g,
-                         slots=args.slots,
-                         stats=WorkloadStats(window=args.stats_window),
-                         check_every=args.check_every,
-                         min_records=args.min_records,
-                         use_cache=not args.no_cache,
-                         feature_store=store,
-                         feature_capacity=args.feature_capacity,
-                         frontier_fanout=args.frontier_fanout,
-                         frontier_seed=args.seed, log_fn=print,
-                         tracer=tracer, metrics=registry)
+    cache_path = args.tune_cache
+    if args.dynamic_tune and args.replicas > 1 and cache_path is None:
+        # replicas share ONE cache for cross-replica warm starts
+        cache_path = os.path.join(tempfile.mkdtemp(prefix="mgg-serve-"),
+                                  "tuned.json")
+        print(f"[serve_gnn] shared config cache: {cache_path}")
+
+    def build_replica(idx=0, rep_tracer=None):
+        rtr = rep_tracer if rep_tracer is not None else tracer
+        ring = VirtualRing(args.devices, dev)
+        if args.dynamic_tune:
+            layer_dims = C.aggregation_widths(args.model, params,
+                                              fused=args.fuse_update) \
+                if args.per_layer_tune else None
+            eng = DynamicGNNEngine.build(
+                g, ring, d_feat=dim,
+                ps_space=(1, 2, 4, 8, 16), dist_space=(1, 2, 4),
+                pb_space=(0,),
+                window=ProfileConfig(warmup=1, iters=2),
+                fuse_update=args.fuse_update, layer_dims=layer_dims,
+                cache_path=cache_path, log_fn=print,
+                tracer=rtr, metrics=registry)
+        else:
+            eng = C.GNNEngine.build(g, ring, ps=8, dist=1,
+                                    fuse_update=args.fuse_update)
+        store = None
+        if args.feature_capacity is not None:
+            # the host tier: page-locked on the card, so uploads never block
+            store = FeatureStore(x, pin=dev.type == "cuda")
+        labels = {"replica": idx} if args.replicas > 1 else {}
+        return GNNServeEngine(eng, params, args.model, x, g,
+                              slots=args.slots,
+                              stats=WorkloadStats(window=args.stats_window),
+                              check_every=args.check_every,
+                              min_records=args.min_records,
+                              use_cache=not args.no_cache,
+                              feature_store=store,
+                              feature_capacity=args.feature_capacity,
+                              frontier_fanout=args.frontier_fanout,
+                              frontier_seed=args.seed + idx, log_fn=print,
+                              tracer=rtr, metrics=registry,
+                              obs_labels=labels)
 
     phases = [
         TrafficPhase(requests=args.requests, alpha=args.alpha,
@@ -199,15 +256,60 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                      update_frac=args.update_frac),
     ]
     traffic = ZipfTraffic(g.num_nodes, dim, phases, seed=args.seed)
+    print(f"[serve_gnn] {args.replicas} x {args.devices} virtual shards "
+          f"on {dev}")
+
+    if args.replicas > 1:
+        # each replica records onto its own tracer (pid = index + 1; the
+        # cluster keeps pid 0), merged into one timeline at the end
+        rep_tracers = ([Tracer(pid=i + 1) for i in range(args.replicas)]
+                       if tracer is not None else None)
+        replicas = [build_replica(i, rep_tracers[i] if rep_tracers else None)
+                    for i in range(args.replicas)]
+        cluster = ServeCluster(replicas, router=make_router(args.router),
+                               log_fn=print, tracer=tracer,
+                               metrics=registry)
+        results = cluster.run_trace(traffic)
+        lat = [r.latency for r in results]
+        rep = cluster.report()
+        rep.update(p50=_pct(lat, 50), p99=_pct(lat, 99), device=str(dev))
+        print(f"cluster: {rep['replicas']} replicas, "
+              f"router={rep['router']}, served {rep['served']} "
+              f"(dropped {rep['dropped']}, shadow {rep['shadow_served']})")
+        _print_served(rep)
+        print(f"staggered retunes {rep['staggered_retunes']} "
+              f"(deferred {rep['deferred_retunes']})")
+        for entry in rep["retune_log"]:
+            print(f"  {entry}")
+        for i, p in enumerate(rep["per_replica"]):
+            print(f"  replica {i}: served {p['served']}, hit rate "
+                  f"{p['cache_hit_rate']:.3f}, retunes {p['retunes']}, "
+                  f"config {p['config']}")
+        if any(p.get("tiers") for p in rep["per_replica"]):
+            print(f"tiered features (cluster): "
+                  f"{rep['host_rows_streamed']} rows streamed from host, "
+                  f"{rep['cache_rows_served']} rows served from the card's "
+                  f"cache")
+        if args.dynamic_tune:
+            for i, r in enumerate(replicas):
+                if r.eng.audit:
+                    print(f"  replica {i} audit trail:")
+                    _print_audit(r.eng.audit, indent="    ")
+        if tracer is not None:
+            rep["pipeline_profile"] = _profile_pipeline(replicas[0],
+                                                        rep_tracers[0])
+        _dump_obs(args, tracer, registry, replicas,
+                  replica_tracers=rep_tracers)
+        return rep
+
+    srv = build_replica()
     results = run_trace(srv, traffic)
     lat = [r.latency for r in results]
     rep = srv.report()
-    rep.update(p50=_pct(lat, 50), p99=_pct(lat, 99), device=str(ring.device))
-    print(f"[serve_gnn] {ring.n_dev} virtual shards on {ring.device}")
+    rep.update(p50=_pct(lat, 50), p99=_pct(lat, 99), device=str(dev))
     print(f"served {rep['served']} requests over {rep['batches']} "
           f"micro-batches (dropped {rep['dropped']})")
-    print(f"latency p50 {rep['p50'] * 1e3:.2f} ms  "
-          f"p99 {rep['p99'] * 1e3:.2f} ms")
+    _print_served(rep)
     print(f"cache hit rate {rep['cache_hit_rate']:.3f} "
           f"({rep['cache_stores']} stores, "
           f"{rep['cache_invalidations']} invalidations)")
@@ -221,15 +323,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         print(f"retunes {rep['retunes']}, rebuilds {rep['rebuilds']}, "
               f"final config {rep['config']}")
         _print_audit(srv.eng.audit)
-    if args.metrics_json:
-        audit = {"replica0": srv.eng.audit} if args.dynamic_tune else {}
-        registry.dump_json(args.metrics_json, extra={"audit": audit})
-        print(f"[serve_gnn] metrics snapshot: {args.metrics_json}")
     if tracer is not None:
         rep["pipeline_profile"] = _profile_pipeline(srv, tracer)
-        tracer.dump_chrome(args.trace)
-        print(f"[serve_gnn] chrome trace: {args.trace} "
-              f"({len(tracer)} events — open in ui.perfetto.dev)")
+    _dump_obs(args, tracer, registry, [srv])
     return rep
 
 

@@ -1,6 +1,10 @@
-"""Measured-vs-model calibration for the §4 analytical latency model: the
-model half of ``repro/obs/calibrate.py`` (numpy and stdlib only).
+"""Measured-vs-model calibration for the §4 analytical latency model
+(counterpart of ``repro/obs/calibrate.py``).
 
+* **Micro-probes** (:func:`probe_hardware`) measure what a spec claims —
+  fp32 matmul FLOP/s, host→device bandwidth, the ring's per-tile
+  bandwidth — on the live device, each probe best-effort (``None`` when
+  it fails, or for the link of a ring of one shard).
 * **Audit-trail fitting** (:func:`fit_spec`) takes the tuner's measured
   ``(config, latency)`` probes and fits per-parameter scale factors on a
   base spec by coordinate descent over a log-spaced grid, minimizing mean
@@ -15,10 +19,15 @@ training step or a served micro-batch, not aggregation alone), so the
 fitted scales absorb both hardware-constant error and the work the
 analytical model does not express.
 
-The micro-probes of the reference (matmul rate, host and ring-link
-bandwidth measured on the live backend) are ROADMAP item 8: here they
-raise ``NotImplementedError``.  tests/test_torch_tuner.py holds this
-module to the reference.
+The model half is a copy of the reference's (numpy and stdlib only;
+tests/test_torch_tuner.py holds it to the reference); the probes are
+torch.  Unlike the rest of ``repro_torch.obs`` this submodule depends on
+``repro_torch.core.autotune``, so the package imports it lazily.
+
+CLI::
+
+    PYTHONPATH=src python -m repro_torch.obs.calibrate [--base h100_sxm] \
+        [--json] [--device cpu] [--devices 8]
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from ..core.autotune import (HardwareSpec, TPU_V5E, WorkloadShape,
-                                 estimate_latency, estimate_pipeline_latency)
+                             estimate_latency, estimate_pipeline_latency)
 
 __all__ = [
     "CalibrationResult",
@@ -180,23 +189,166 @@ def fit_spec(
 
 
 # ---------------------------------------------------------------------------
-# micro-probes: ROADMAP item 8 (the reference's run on JAX)
+# micro-probes: measure what a HardwareSpec claims, on the live device
 # ---------------------------------------------------------------------------
 
-def _probes_later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} arrives with the observability slice of the port "
-        f"(ROADMAP item 8)")
+def _time_best(fn, warmup: int = 2, iters: int = 5) -> float:
+    """Best-of-N wall time of a blocking callable (probes want the
+    contention-free floor, not the median — bandwidth is a capacity).
+    On the card each probe's ``fn`` ends in ``torch.cuda.synchronize``,
+    so its time is the device's."""
+    import time
+
+    for _ in range(warmup):
+        fn()
+    best = math.inf
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
-def probe_hardware(ring=None) -> Dict[str, Optional[float]]:
-    """The reference's micro-probes (matmul rate, host and link
-    bandwidth): not ported yet."""
-    raise _probes_later("probing the hardware")
+def _blocking(device, fn):
+    """``fn`` followed by a synchronize on the card."""
+    import torch
+
+    if device.type != "cuda":
+        return fn
+
+    def run():
+        fn()
+        torch.cuda.synchronize(device)
+    return run
+
+
+def probe_matmul_flops(n: Optional[int] = None,
+                       device="cuda") -> float:
+    """Measured dense-matmul FLOP/s on one device: ``a @ a`` in fp32 with
+    TF32 off (the port's GNN matmuls' precision; ``H100_SXM.peak_flops``
+    is the fp32 rate outside the tensor cores).  ``n`` defaults to 4096
+    on the card (2n³ = 137 GFLOP, milliseconds, well past a launch) and
+    512 on the CPU."""
+    import torch
+
+    from ..dist.ring import resolve_device
+
+    dev = resolve_device(device)
+    n = int(n) if n is not None else (4096 if dev.type == "cuda" else 512)
+    a = torch.ones((n, n), dtype=torch.float32, device=dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t = _time_best(_blocking(dev, lambda: a @ a))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return 2.0 * n ** 3 / max(t, 1e-12)
+
+
+def probe_host_bw(nbytes: int = 32 << 20, device="cuda") -> float:
+    """Measured host→device transfer bandwidth (bytes/s) of a pageable
+    numpy array, as the reference's ``device_put`` — the tiered feature
+    path's cold-row link (the port's store uploads from pinned memory,
+    which is faster)."""
+    import numpy as np
+    import torch
+
+    from ..dist.ring import resolve_device
+
+    dev = resolve_device(device)
+    rows = max(1, nbytes // 1024)
+    arr = np.zeros((rows, 256), np.float32)
+    t = _time_best(_blocking(dev, lambda: torch.from_numpy(arr).to(
+        dev, copy=True)), warmup=1)
+    return arr.nbytes / max(t, 1e-12)
+
+
+def probe_link_bw(ring=None, rows: int = 2048,
+                  d: int = 256) -> Optional[float]:
+    """Measured per-step ring bandwidth in bytes/s: one
+    :meth:`VirtualRing.rotate` of the stacked ``(n_dev, rows, d)`` fp32
+    tiles, one tile's bytes over its time (every shard moves its tile at
+    once, as the reference's ppermute).  None without a ring of at least
+    two shards.  On one card the rotation is an HBM copy, the virtual
+    ring's stand-in for the wire, so this measures the card's memory, not
+    NVLink."""
+    import torch
+
+    if ring is None or ring.n_dev < 2:
+        return None
+    x = torch.ones((ring.n_dev, rows, d), dtype=torch.float32,
+                   device=ring.device)
+    dst = torch.empty_like(x)
+    t = _time_best(_blocking(ring.device,
+                             lambda: ring.wait(ring.rotate(x, dst))))
+    return rows * d * 4 / max(t, 1e-12)
+
+
+def probe_hardware(ring=None, device="cuda") -> Dict[str, Optional[float]]:
+    """All micro-probes on ``ring``'s device (else ``device``), each
+    best-effort (None on failure)."""
+    dev = ring.device if ring is not None else device
+    out: Dict[str, Optional[float]] = {}
+    for key, probe in (("peak_flops", probe_matmul_flops),
+                       ("host_bw", probe_host_bw)):
+        try:
+            out[key] = float(probe(device=dev))
+        except Exception:
+            out[key] = None
+    try:
+        out["link_bw"] = probe_link_bw(ring)
+    except Exception:
+        out["link_bw"] = None
+    return out
 
 
 def spec_from_probes(base: HardwareSpec = TPU_V5E,
                      probes: Optional[Dict[str, Optional[float]]] = None,
-                     ring=None) -> HardwareSpec:
-    """A spec from :func:`probe_hardware`'s measurements: not ported yet."""
-    raise _probes_later("a spec from probes")
+                     ring=None, device="cuda") -> HardwareSpec:
+    """A copy of ``base`` with every successfully probed field measured."""
+    if probes is None:
+        probes = probe_hardware(ring, device)
+    changed = {k: v for k, v in probes.items()
+               if v is not None and hasattr(base, k)}
+    if not changed:
+        return base
+    return dataclasses.replace(base, name=base.name + "+probed", **changed)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    import argparse
+    import json as _json
+
+    from ..core.autotune import A100_NVSWITCH, H100_SXM
+    from ..dist import VirtualRing
+
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.obs.calibrate",
+        description="micro-probe this machine and print a measured "
+                    "HardwareSpec")
+    ap.add_argument("--base", default="tpu_v5e",
+                    choices=["tpu_v5e", "a100_nvswitch", "h100_sxm"])
+    ap.add_argument("--json", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (cuda unless 'cpu' is asked for)")
+    ap.add_argument("--devices", type=int, default=8,
+                    help="virtual shards of the ring the link probe "
+                         "rotates")
+    args = ap.parse_args(argv)
+    base = {"tpu_v5e": TPU_V5E, "a100_nvswitch": A100_NVSWITCH,
+            "h100_sxm": H100_SXM}[args.base]
+    probes = probe_hardware(VirtualRing(args.devices, args.device))
+    spec = spec_from_probes(base, probes)
+    if args.json:
+        print(_json.dumps({"probes": probes,
+                           "spec": dataclasses.asdict(spec)}, indent=2))
+    else:
+        for k, v in probes.items():
+            print(f"probe {k}: "
+                  + (f"{v:.3e}" if v is not None else "unavailable"))
+        print(f"spec: {spec}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -43,8 +43,12 @@ config cache).  ``frontier_fanout`` bounds the receptive field fed to
 the traffic statistics with a sampled k-hop frontier
 (:mod:`repro_torch.sample`); the cache gating stays exact.
 
-The cluster's retune gate belongs to a later slice (ROADMAP item 7):
-asking for it raises ``NotImplementedError``.
+A :class:`~repro_torch.serve.cluster.ServeCluster` coordinates replicas
+through two hooks: ``retune_gate`` is asked before a drift retune and may
+defer it (the cluster then drains the replica and calls
+:meth:`GNNServeEngine.force_retune` itself), and ``record_stats = False``
+marks replayed shadow batches, which stay out of the drift window and
+count as ``serve.shadow_served`` instead of ``serve.served``.
 """
 from __future__ import annotations
 
@@ -93,11 +97,6 @@ class _Pending:
     t_trace: float = 0.0      # tracer clock at admission (span timelines)
 
 
-def _later(what: str, slice_name: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} arrives with the {slice_name} slice "
-                               f"of the port (ROADMAP item {item})")
-
-
 class GNNServeEngine:
     """Admission queue + fixed micro-batch slots over a (Dynamic)GNNEngine."""
 
@@ -121,15 +120,14 @@ class GNNServeEngine:
         hotset_path: Optional[str] = None,
         frontier_fanout: Optional[int] = None,
         frontier_seed: int = 0,
-        retune_gate=None,
+        retune_gate: Optional[
+            Callable[["GNNServeEngine", float], bool]] = None,
         log_fn: Callable[[str], None] = lambda _s: None,
         clock: Callable[[], float] = time.perf_counter,
         tracer=None,
         metrics: Optional[MetricsRegistry] = None,
         obs_labels: Optional[dict] = None,
     ):
-        if retune_gate is not None:
-            raise _later("the cluster retune gate", "cluster", 7)
         self.eng = engine
         self.params = params
         self.model = model
@@ -155,6 +153,12 @@ class GNNServeEngine:
         self._frontier_rng = np.random.default_rng(frontier_seed)
         self.log = log_fn
         self.clock = clock
+        # coordinator hook: called with (self, drift score) when the drift
+        # crosses the threshold; False defers the retune
+        self.retune_gate = retune_gate
+        # False while a coordinator replays shadow traffic through this
+        # engine: replayed batches stay out of the drift window
+        self.record_stats = True
         self.dynamic = isinstance(engine, DynamicGNNEngine)
         self._tuning = self.dynamic and not engine.tuner.converged
         self._baseline: Optional[TrafficSnapshot] = None
@@ -165,6 +169,7 @@ class GNNServeEngine:
         self.obs_labels = dict(obs_labels or {})
         _c = lambda name: self.metrics.counter(name, **self.obs_labels)
         self._c_served = _c("serve.served")
+        self._c_shadow = _c("serve.shadow_served")   # record_stats off
         self._c_batches = _c("serve.batches")  # ALL batches (check_every)
         self._c_retunes = _c("serve.retunes")  # traffic-drift re-opens
         self._c_rebuilds = _c("serve.rebuilds")  # plan rebuilds
@@ -219,6 +224,10 @@ class GNNServeEngine:
     @property
     def served(self) -> int:
         return self._c_served.value
+
+    @property
+    def shadow_served(self) -> int:
+        return self._c_shadow.value
 
     @property
     def batches(self) -> int:
@@ -424,9 +433,11 @@ class GNNServeEngine:
             else:
                 fk_size = f_need.size
             misses = self.cache.lookup(f_need)
-        self.stats.record(batch[-1].t_arrival, seeds, fk_size,
-                          n_requests=len(batch))
-        if self.tiers is not None and self.tiers.capacity:
+        if self.record_stats:
+            self.stats.record(batch[-1].t_arrival, seeds, fk_size,
+                              n_requests=len(batch))
+        if self.tiers is not None and self.tiers.capacity \
+                and self.record_stats:
             # refresh the feature tier from the live hot set before this
             # batch's assembly (only newly hot rows are fetched); persist
             # the admitted set when it moved
@@ -487,9 +498,13 @@ class GNNServeEngine:
                 self.tracer.complete(
                     "serve.request", p.t_trace, t_emit, cat="serve",
                     args={"request_id": p.request_id, "n_seeds": int(k),
-                          "cached": bool(use_cached)})
+                          "cached": bool(use_cached),
+                          "shadow": not self.record_stats})
             off += k
-        self._c_served.inc(len(results))
+        if self.record_stats:
+            self._c_served.inc(len(results))
+        else:   # shadow replay answers no user
+            self._c_shadow.inc(len(results))
         return results
 
     def drain(self) -> List[ServeResult]:
@@ -522,15 +537,22 @@ class GNNServeEngine:
                  f"{self.drift_threshold:.2f} → retune "
                  f"(rate {self._baseline.rate:.0f}→{snap.rate:.0f}/s, "
                  f"hot-set overlap {hot_overlap:.2f})")
+        if self.retune_gate is not None and not self.retune_gate(self, score):
+            # deferred: the coordinator drains this replica and calls
+            # force_retune() itself (the un-reset baseline keeps the drift
+            # signal alive, so a busy coordinator is asked again)
+            return
         self.force_retune()
 
     def force_retune(self, from_cache: bool = False) -> None:
         """Re-open the tuning search under live traffic, immediately.
 
-        The drift path above lands here.  ``from_cache=True`` adopts the
-        shared-ConfigCache entry another process committed (a single
+        The drift path above lands here; a ``ServeCluster`` calls it
+        directly on a drained replica.  ``from_cache=True`` adopts the
+        shared-ConfigCache entry a sibling replica committed (a single
         validation measurement instead of a re-search; see
-        ``DynamicGNNEngine.retune``).
+        ``DynamicGNNEngine.retune``).  It returns with the card idle: the
+        cluster charges its wall time to this replica alone.
         """
         if not self.dynamic or self._tuning:
             return
@@ -548,6 +570,7 @@ class GNNServeEngine:
             # moves arrive through observe_step; an unchanged config keeps
             # the live tables and the warm cache
             self._on_rebuild()
+        self._sync()
 
     # -- reporting -----------------------------------------------------------
 
@@ -558,7 +581,7 @@ class GNNServeEngine:
     def report(self) -> Dict[str, object]:
         """Thin view over the metrics registry (the reference's schema)."""
         return dict(
-            served=self._c_served.value, shadow_served=0,
+            served=self._c_served.value, shadow_served=self._c_shadow.value,
             batches=self._c_batches.value,
             pending=self.pending_requests, dropped=0,
             retunes=self._c_retunes.value, rebuilds=self._c_rebuilds.value,

@@ -3,8 +3,10 @@ the ring (forward and backward, dense and top-k compressed) on the card
 against the ring on the CPU, sampled GraphSAGE's gradients on the card
 against the CPU's, served == offline, the streamed ring over a tiered
 store (bitwise across capacities, its fetches never waiting for the
-card) and tiered serving == resident serving, and the LM's flash
-attention (K7) and its cache-less forward on the card against the CPU.
+card) and tiered serving == resident serving, a serving cluster of one
+== the bare engine, the bulk and fetch baselines' K1/K3/K5 launches ==
+their plain versions, the hardware probes, and the LM's flash attention
+(K7) and its cache-less forward on the card against the CPU.
 
 These tests need an NVIDIA card and nvcc (a CUDA kernel has no CPU mode);
 without them they skip.  On the card, run them with
@@ -29,6 +31,7 @@ from repro_torch.train import value_and_grad
 from repro_torch.train.tree import tree_leaves, tree_map
 from repro_torch.serve import GNNServeEngine, TrafficPhase, ZipfTraffic, \
     run_trace
+from repro_torch.serve import LocalityRouter, ServeCluster
 
 # six test workers share the host's cores with the reference's XLA
 # subprocesses: a few torch threads a worker
@@ -580,6 +583,107 @@ def test_tiered_serving_bitwise_resident_serving_on_card(cuda):
     for a, b in zip(*served):
         assert a.cached == b.cached
         np.testing.assert_array_equal(a.logits, b.logits)
+
+
+def test_cluster_of_one_bitwise_bare_engine_on_card(cuda):
+    """A cluster of one replica serves the bare engine's results bitwise
+    (same ids, passes and logits, feature updates included), and a
+    cluster of two serves each request of an update-free trace its
+    replica's offline forward bitwise."""
+    g = TC.power_law(2000, avg_degree=8.0, locality=0.3, seed=2)
+    x = np.random.default_rng(0).normal(size=(g.num_nodes, 32)).astype(
+        np.float32)
+    params = TC.gcn_init(torch.Generator().manual_seed(0), 32, 7,
+                         device=cuda)
+    events = list(ZipfTraffic(g.num_nodes, 32, [
+        TrafficPhase(requests=40, alpha=1.2, seeds_max=3, update_frac=0.1)],
+        seed=7))
+
+    def replica():
+        eng = TC.GNNEngine.build(g, VirtualRing(4, cuda), ps=8, dist=1)
+        return GNNServeEngine(eng, params, "gcn", x, g, slots=4)
+
+    bare = run_trace(replica(), events)
+    solo = ServeCluster([replica()], router=LocalityRouter())
+    for a, b in zip(bare, solo.run_trace(events)):
+        assert (a.request_id, a.cached) == (b.request_id, b.cached)
+        np.testing.assert_array_equal(a.logits, b.logits)
+    pair = [replica(), replica()]
+    cluster = ServeCluster(pair, router=LocalityRouter())
+    res = cluster.run_trace(ZipfTraffic(g.num_nodes, 32, [
+        TrafficPhase(requests=40, alpha=1.2, seeds_max=3)], seed=8))
+    assert len(res) == 40 and cluster.report()["dropped"] == 0
+    assert {cluster.replica_of(r.request_id) for r in res} == {0, 1}
+    with torch.inference_mode():
+        offline = [TC.unpad_embeddings(r.eng.plan, TC.gcn_apply(
+            params, r.eng, r.xp).cpu().numpy()) for r in pair]
+    for r in res:
+        np.testing.assert_array_equal(
+            r.logits, offline[cluster.replica_of(r.request_id)][r.seeds])
+
+
+@pytest.mark.parametrize("page", [None, 1, 16])
+def test_baselines_bitwise_plain_on_card(cuda, page):
+    """``bulk_aggregate`` (page None) and ``fetch_rows_aggregate`` on the
+    card: every launch of K1, K3 (and K5) bitwise its plain version on
+    each shard's group, the whole output bitwise the plain path's and
+    within 1e-5 of the CPU's."""
+    g = TC.power_law(3000, avg_degree=9.0, locality=0.3, seed=4)
+    x = np.random.default_rng(4).normal(size=(g.num_nodes, 24)).astype(
+        np.float32)
+    nbrs, mask, tgt, rows_per = TC.build_bulk_plan(g, 4, 8)
+    bounds = TC.edge_balanced_node_split(g.indptr, 4)
+    xp = torch.from_numpy(TC.pad_table(bounds, rows_per, x))
+    if page is None:
+        groups = TC.pipeline.bulk_groups(nbrs, mask, tgt, cuda)
+        run = lambda dev, gr, uk: TC.bulk_aggregate(
+            xp.to(dev), nbrs, mask, tgt, rows_per, VirtualRing(4, dev),
+            groups=gr, use_kernel=uk)
+        bufs = [xp.to(cuda)] * 4
+        grps = groups
+    else:
+        fp = TC.build_fetch_plan(g, 4, 8, page_rows=page)
+        args = (fp["fetch_rows"], fp["nbrs"], fp["mask"], fp["targets"])
+        groups = TC.pipeline.fetch_groups(*args, cuda)
+        run = lambda dev, gr, uk: TC.fetch_rows_aggregate(
+            xp.to(dev), *args, fp["rows_per_dev"], groups=gr,
+            use_kernel=uk)
+        bufs = []
+        for ids, _ in groups:
+            k5 = rows.gather_rows(xp.to(cuda), ids)
+            assert torch.equal(k5, ref.gather_rows_ref(xp.to(cuda), ids))
+            bufs.append(k5)
+        grps = [grp for _, grp in groups]
+    for buf, grp in zip(bufs, grps):
+        k1 = neighbor_agg.gather_sum_pipelined(buf, grp.nbrs, grp.mask)
+        assert torch.equal(_bits(k1), _bits(ref.neighbor_gather_sum_ref(
+            buf, grp.nbrs, grp.mask)))
+        segs = (grp.order, grp.seg_rows, grp.seg_start, grp.chunks)
+        base = torch.zeros((rows_per, buf.shape[1]), device=cuda)
+        assert torch.equal(
+            _bits(ops.segment_add_ordered(base.clone(), k1, *segs)),
+            _bits(ref.segment_add_ordered_ref(base.clone(), k1, *segs)))
+    before = neighbor_agg.launch_counts()
+    got = run(cuda, groups, True)
+    after = neighbor_agg.launch_counts()
+    assert after["gather_sum_pipelined"] - \
+        before["gather_sum_pipelined"] == 4
+    assert after["segment_add_ordered"] > before["segment_add_ordered"]
+    assert torch.equal(_bits(got), _bits(run(cuda, groups, False)))
+    torch.testing.assert_close(got.cpu(), run("cpu", None, True), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_probes_return_numbers_on_card(cuda):
+    from repro_torch.core.autotune import H100_SXM
+    from repro_torch.obs import calibrate as cal
+
+    probes = cal.probe_hardware(VirtualRing(8, cuda))
+    assert all(isinstance(v, float) and np.isfinite(v) and v > 0
+               for v in probes.values()), probes
+    spec = cal.spec_from_probes(H100_SXM, probes)
+    assert spec.name == "h100_sxm+probed" and spec.link_bw == \
+        probes["link_bw"]
 
 
 # K7: (B, S, H, KV, hd, causal, window): GQA 1, 4 and 12; a window under

@@ -162,7 +162,9 @@ def test_port_imports_no_jax():
         "        'repro_torch.runtime.profiler',\n"
         "        'repro_torch.runtime.engine', 'repro_torch.obs.calibrate',\n"
         "        'repro_torch.store.feature_store',\n"
-        "        'repro_torch.store.hotfeatures', 'repro_torch.serve.gnn'}\n"
+        "        'repro_torch.store.hotfeatures', 'repro_torch.serve.gnn',\n"
+        "        'repro_torch.serve.router', 'repro_torch.serve.cluster',\n"
+        "        'repro_torch.testing.hypo', 'repro_torch.obs.validate'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
@@ -190,8 +192,9 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_gnn.main(["--scale", "0.01", "--requests", "2",
                         "--feature-capacity", "0", "--frontier-fanout", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        serve_gnn.main(["--device", "cpu", "--replicas", "2"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_gnn.main(["--scale", "0.01", "--requests", "2",
+                        "--replicas", "2"])
     from repro_torch.launch import train_gnn
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_gnn.main(["--scale", "0.01", "--steps", "1"])

@@ -13,7 +13,11 @@ served logits rtol 2e-4 (the reference's own fused-vs-unfused tolerance).
 The 4-shard dump also holds the streamed ring over a tiered store (dense
 at capacities 0, N // 3 and N, dist 1 and 2; top-k at k = D and k < D),
 the tiered store's padded table and a tiered serving trace with feature
-updates, each held to the same tolerances.
+updates, each held to the same tolerances; the bulk and fetch baselines
+(1e-5; ``tests/test_torch_obs.py`` runs them on one shard); and a serving
+cluster of two replicas on disjoint halves of the four devices behind the
+locality router, whose routing the port's cluster of two 2-shard rings
+repeats request by request (logits rtol 2e-4).
 Inside the port, served == offline holds bitwise.  The top-k compressed
 ring runs on random normal features (no ties at the ``k`` boundary, where
 ``lax.top_k`` and ``torch.topk`` may pick other columns).
@@ -101,7 +105,37 @@ def _reference_outputs(n_dev):
             fwd(params, eng.shard(eng.pad(x))))
     if n_dev > 1:
         out.update(_reference_tiered(C, g, x, mesh, params))
+        out.update(_reference_cluster(C, g, x, params))
+        from test_torch_obs import reference_baselines
+        out.update({f"baseline_{k}": v for k, v in
+                    reference_baselines(n_dev, mesh).items()})
     return out
+
+
+def _reference_cluster(C, g, x, params):
+    """Two static replicas, each on its own half of the devices, behind
+    the locality router; one trace with feature updates."""
+    import jax
+    from repro.dist import make_mesh
+    from repro.serve import (GNNServeEngine, LocalityRouter, ServeCluster,
+                             TrafficPhase, ZipfTraffic)
+
+    devs = jax.devices()
+    half = len(devs) // 2
+    replicas = [GNNServeEngine(C.GNNEngine.build(
+        g, make_mesh((half,), ("ring",), devices=devs[h * half:
+                                                         (h + 1) * half]),
+        ps=8, dist=1), params, "gcn", x, g, slots=4) for h in range(2)]
+    cluster = ServeCluster(replicas, router=LocalityRouter())
+    results = cluster.run_trace(ZipfTraffic(
+        g.num_nodes, D, [TrafficPhase(**p) for p in SERVE_PHASES], seed=6))
+    return dict(
+        cluster_ids=np.array([r.request_id for r in results]),
+        cluster_replica=np.array([cluster.replica_of(r.request_id)
+                                  for r in results]),
+        cluster_cached=np.array([r.cached for r in results]),
+        cluster_seeds=np.concatenate([r.seeds for r in results]),
+        cluster_logits=np.concatenate([r.logits for r in results]))
 
 
 def _reference_tiered(C, g, x, mesh, params):
@@ -425,3 +459,54 @@ def test_tiered_serving_matches_reference(dump4):
                                atol=1e-5)
     np.testing.assert_array_equal(
         got, np.concatenate([r.logits for r in served[None]]))
+
+
+def test_cluster_on_disjoint_halves_matches_reference(dump4):
+    """The reference's two replicas on disjoint halves of four devices
+    against the port's two replicas on 2-shard virtual rings: the same
+    replica for every request, the same passes, logits within rtol 2e-4;
+    nothing dropped."""
+    from repro_torch.serve import LocalityRouter, ServeCluster
+
+    g = _graph(TC)
+    params = _port_params(dump4)
+    replicas = [TServe(TC.GNNEngine.build(g, VirtualRing(2, CPU), ps=8,
+                                          dist=1), params, "gcn",
+                       _features(g.num_nodes), g, slots=4)
+                for _ in range(2)]
+    cluster = ServeCluster(replicas, router=LocalityRouter())
+    res = cluster.run_trace(TTraffic(
+        g.num_nodes, D, [TPhase(**p) for p in SERVE_PHASES], seed=6))
+    np.testing.assert_array_equal([r.request_id for r in res],
+                                  dump4["cluster_ids"])
+    np.testing.assert_array_equal(
+        [cluster.replica_of(r.request_id) for r in res],
+        dump4["cluster_replica"])
+    assert set(dump4["cluster_replica"].tolist()) == {0, 1}
+    np.testing.assert_array_equal([r.cached for r in res],
+                                  dump4["cluster_cached"])
+    np.testing.assert_array_equal(np.concatenate([r.seeds for r in res]),
+                                  dump4["cluster_seeds"])
+    np.testing.assert_allclose(np.concatenate([r.logits for r in res]),
+                               dump4["cluster_logits"], rtol=2e-4,
+                               atol=1e-5)
+    rep = cluster.report()
+    assert rep["dropped"] == 0 and rep["served"] == len(res)
+
+
+def test_baselines_match_reference_four_shards(dump4):
+    """``bulk_aggregate`` and ``fetch_rows_aggregate`` (pages of 1 and 16
+    rows) on four shards within 1e-5 of the reference's, and of the dense
+    oracle once unpadded."""
+    from test_torch_obs import PAGES, port_baselines
+
+    got, bounds, rows, dense = port_baselines(4)
+    assert set(got) == {"bulk"} | {f"fetch{p}" for p in PAGES}
+    for key, val in got.items():
+        want = dump4[f"baseline_{key}"]
+        assert val.shape == want.shape, key
+        np.testing.assert_allclose(val, want, rtol=1e-5, atol=1e-5,
+                                   err_msg=key)
+        np.testing.assert_allclose(
+            TC.unpad_table(bounds, rows, val.reshape(-1, D)), dense,
+            rtol=1e-5, atol=1e-5, err_msg=key)

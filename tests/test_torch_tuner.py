@@ -368,8 +368,10 @@ def test_model_profiler_and_calibration_equal_reference():
     assert (rf.scales, rf.error, rf.base_error, rf.n_observations) == \
         (tf.scales, tf.error, tf.base_error, tf.n_observations)
     assert dataclasses.asdict(rf.spec) == dataclasses.asdict(tf.spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        TCal.probe_hardware()
+    # the probes (tests/test_torch_obs.py): the spec from one probe set
+    probes = TCal.probe_hardware(ring)
+    assert dataclasses.asdict(TCal.spec_from_probes(TA.TPU_V5E, probes)) \
+        == dataclasses.asdict(RCal.spec_from_probes(RA.TPU_V5E, probes))
 
 
 # ---------------------------------------------------------------------------
@@ -490,8 +492,9 @@ def test_dynamic_engine_history_equals_reference(mode, tmp_path):
 
 def test_cap_space_raises_naming_its_item():
     """ROADMAP item 5 landed: a ``cap_space`` is searched (its history
-    against the reference's is in ``test_torch_tiered.py``), and the
-    cluster's retune gate, item 7, still raises naming its item."""
+    against the reference's is in ``test_torch_tiered.py``).  Item 7
+    landed too: the serving engine stores the cluster's retune gate and
+    asks it before a drift retune, which a False answer defers."""
     e = DynamicGNNEngine.build(_graph(TC), VirtualRing(1, CPU), d_feat=D,
                                ps_space=(8,), dist_space=(1,), pb_space=(0,),
                                cap_space=(0, 64),
@@ -500,11 +503,24 @@ def test_cap_space_raises_naming_its_item():
         e.feature_capacity
     _feed(e, [])
     assert e.committed and e.feature_capacity in (0, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        GNNServeEngine(e, TC.gcn_init(torch.Generator().manual_seed(0), D,
-                                      NCLS), "gcn",
-                       np.zeros((N, D), np.float32), _graph(TC),
-                       retune_gate=lambda srv, score: True)
+    asked = []
+
+    def gate(srv, score):
+        asked.append(score)
+        return False                            # defer every retune
+
+    srv = GNNServeEngine(e, TC.gcn_init(torch.Generator().manual_seed(0), D,
+                                        NCLS), "gcn",
+                         np.zeros((N, D), np.float32), _graph(TC),
+                         slots=4, stats=WorkloadStats(window=8, top_k=8),
+                         check_every=2, min_records=4, retune_gate=gate)
+    assert srv.retune_gate is gate and not srv._tuning
+    phases = [TrafficPhase(requests=40, alpha=1.4, rate=100.0, seeds_max=3),
+              TrafficPhase(requests=40, alpha=1.4, rate=400.0, rotate=True,
+                           seeds_max=3)]
+    run_trace(srv, ZipfTraffic(N, D, phases, seed=11))
+    assert asked and all(score > srv.drift_threshold for score in asked)
+    assert srv.retunes == 0 and e.committed     # every retune deferred
 
 
 def test_fanout_and_batch_roundtrip_through_the_cache(tmp_path):
@@ -708,5 +724,10 @@ def test_serve_launcher_tuner_flags_on_cpu(tmp_path):
     tiered = serve_gnn.main(base + ["--requests", "20", "--feature-capacity",
                                     "0", "--frontier-fanout", "3"])
     assert tiered["served"] == 40 and tiered["tiers"]["capacity"] == 0
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve_gnn.main(base + ["--replicas", "2"])
+    cluster = serve_gnn.main(base + [
+        "--requests", "40", "--rotate", "--replicas", "2", "--router",
+        "load", "--dynamic-tune", "--check-every", "4", "--min-records",
+        "4", "--stats-window", "16"])
+    assert cluster["replicas"] == 2 and cluster["router"] == "load"
+    assert cluster["dropped"] == 0 and cluster["served"] == sum(
+        p["served"] for p in cluster["per_replica"]) > 0
