@@ -201,8 +201,32 @@ Phases, each of which passes or ends the run with a non-zero exit:
    then the serving launcher at its defaults with ``--arch xlstm-125m``,
    K8 launches counted, every request answered with 32 tokens, tokens/s,
    prefill and decode-step times.
+17. LM training at full width, after phase 12's state is freed (K9 is
+   also swept in phase 2: hd 8/16/64/192, H 1/2/4, B 1/3/8, S 1/7/256
+   against autograd through the plain loop, rtol 1e-4 and atol 1e-4 x
+   the gradient's max |.|, with its bitwise invariants, and K8's save
+   bitwise K8 without it).  (a) ``launch/train.py --arch xlstm-125m`` at
+   its defaults (seq 256, batch 8, remat on, bf16 compute) for 30 AdamW
+   steps, K8 and K9 launches counted (12 and 6 a step), the loss of the
+   last 5 steps below the first 5's, each step's ms and the peak GB;
+   (b) step 0's gradients (fp32 compute, no remat) with K8/K9 against
+   the plain loop under autograd on the card, leaf by leaf within rtol
+   2e-4, atol 2e-4 x max|leaf|, and K9 held against its plain version on
+   every sLSTM layer's inputs and gradients of that step; (c) a step at
+   B x S = 2 x 4096, timed (CUDA events, host clock) and profiled (device
+   ms by kind: K8, K9, matrix products, the rest), its parts timed
+   alone, and K9 at one layer's shapes beside its plain version, its
+   bound and every cluster size, held within 1e-3 of each gradient's rms;
+   (d) 12 steps with a failure injected at step 8 and checkpoints every
+   5 (one restart, the last checkpoint step 10), traced losses bitwise
+   the untraced ones over 5 steps, and accumulation over 4 microbatches
+   against 1 (fp32 compute, rtol 2e-4, atol 2e-5); (e)
+   ``launch/train_lm.py --tune-accum`` for 24 steps, the tuner's moves
+   and result; (f) one AdamW step of mistral-nemo-12b at full width with
+   its depth cut to 2 layers, B 1, S 4096, bf16, flash off: a finite
+   loss, the step ms and peak GB, no kernel launched.
 
-The line before the last is a JSON object of the kernels K1–K8; the last
+The line before the last is a JSON object of the kernels K1–K9; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -233,6 +257,7 @@ SOURCE["sparse_gather_sum"] = \
     "src/repro_torch/kernels/csrc/sparse_gather_sum.cu"
 SOURCE["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SOURCE["slstm_scan"] = "src/repro_torch/kernels/csrc/slstm_scan.cu"
+SOURCE["slstm_scan_backward"] = SOURCE["slstm_scan"]
 CARD_FLOPS = [  # (name fragments, {input dtype: flop/s}): NVIDIA data
     # sheets, dense; bf16 on the tensor cores, fp32 outside them
     (("H200",), {"bfloat16": 989e12, "float32": 67e12}),
@@ -251,6 +276,9 @@ REPLACES = {
     "sparse_gather_sum": "src/repro/kernels/neighbor_agg.py:142",
     "flash_attention": "src/repro/kernels/flash_attention.py:79",
     "slstm_scan": "src/repro/kernels/slstm_scan.py:83",
+    # no Pallas kernel: the reference differentiates the scan by autodiff
+    "slstm_scan_backward": "no Pallas kernel: autodiff of lax.scan, "
+                           "src/repro/models/xlstm.py:230",
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
@@ -293,6 +321,9 @@ PATH_KERNELS = {
     # xlstm-125m: the cache-less forward (bf16 compute), then the launcher
     "xlstm_forward": ("slstm_scan",),
     "xlstm_serving": ("slstm_scan",),
+    # xlstm-125m training through the launcher: K8 forward (twice a step
+    # with remat) and K9 backward on every sLSTM layer
+    "lm_training": ("slstm_scan", "slstm_scan_backward"),
 }
 PRODUCTS_SCALE = 199.3   # 12288 · 199.3 ≈ 2.449 M nodes (ogbn-products)
 REDUCED_SCALE = 10.0     # 122,880 nodes: GIN, SAGE and GAT, one step each
@@ -317,6 +348,23 @@ LOGIT_TOL = 1e-4    # batched against solo logits, each step (fp32)
 BF16_RMS_RATIO = 1.5
 # K8 sweep: head_dim, heads, batch rows, steps (each combination)
 SLSTM_SWEEP = ((8, 16, 64, 192), (1, 2, 4), (1, 3, 8), (1, 7, 256, 4096))
+# K9 sweep: the same but S 4096 (the plain version is autograd through
+# the loop), and its tolerance against the plain version: rtol K9_TOL,
+# atol K9_TOL x the tensor's max |.| at S <= 256; at S = 4096 each
+# tensor's rms difference within K9_RMS_TOL of its rms (K8's forward is
+# already within 1e-4 of the plain loop's, and the recurrence carries
+# that through S steps both ways)
+SLSTM_BWD_SWEEP = ((8, 16, 64, 192), (1, 2, 4), (1, 3, 8), (1, 7, 256))
+K9_TOL = 1e-4
+K9_RMS_TOL = 1e-3
+# phase 17: LM training, xlstm-125m at full width through the launcher at
+# its defaults (seq 256, batch 8, remat on, bf16 compute); step 0's
+# gradients with K8/K9 against the plain loop under autograd (fp32
+# compute, rtol and atol x max|leaf| TRAIN_GRAD_TOL); a step at train_4k's
+# length; the dense family one step at full width, cut to 2 layers
+TRAIN_ARCH, TRAIN_LM_STEPS, TRAIN_GRAD_TOL = "xlstm-125m", 30, 2e-4
+TRAIN_4K_B, TRAIN_4K_S = 2, 4096
+DENSE_TRAIN_ARCH, DENSE_TRAIN_LAYERS = "mistral-nemo-12b", 2
 # K1 and K6 sweeps: more partitions than one grid of K1 holds (what fits
 # the card at once), so each of its warps walks several
 GRID_P = 300_000
@@ -531,6 +579,9 @@ def main():
     n_cases += flash_cases
     slstm_cases, slstm_err = sweep_slstm(torch, ops, ref, K, dev, gen)
     n_cases += slstm_cases
+    k9_cases, k9_err, k9_rel = sweep_slstm_backward(torch, ops, ref, K, dev,
+                                                    gen)
+    n_cases += k9_cases
     say("kernels_vs_plain", cases=n_cases, max_abs_err=worst,
         tolerance="rtol 1e-5 atol 1e-5; K1-K6 bitwise",
         flash_cases=flash_cases, flash_max_abs_err=flash_err,
@@ -542,6 +593,15 @@ def main():
         slstm_bitwise=["row alone == row in its batch at bt 1, 3, 8",
                        "one launch over S == two with the state carried",
                        "two launches equal"],
+        slstm_backward_cases=k9_cases, slstm_backward_max_abs_err=k9_err,
+        slstm_backward_max_err_over_max=k9_rel,
+        slstm_backward_tolerance=f"rtol {K9_TOL}, atol {K9_TOL} x max|.| "
+                                 "of each gradient",
+        slstm_backward_bitwise=[
+            "row alone == row in its batch", "bt 1 == bt 8",
+            "one launch over S == the last steps then the first with the "
+            "gradients carried", "two launches equal",
+            "K8 with its save == K8 without (hs and states)"],
         bitwise_relaunch=True)
 
     # -- 3. the main path at full width ------------------------------------
@@ -709,6 +769,13 @@ def main():
     check(left < 1.0, f"{left:.1f} GB still allocated after phase 11")
     kernels.append(xlstm_inference(torch, K, dev, rate, flops, launches))
 
+    # -- 17. LM training: phase 12's device state goes first ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    check(left < 1.0, f"{left:.1f} GB still allocated after phase 12")
+    kernels.append(lm_training(torch, K, dev, rate, flops, launches))
+
     for k in kernels:
         by_path = {p: launches[p][k["name"]] for p in launches
                    if k["name"] in PATH_KERNELS[p]}
@@ -717,6 +784,9 @@ def main():
         k["launches_per_step"] = {p: by_path[p] / TRAIN_STEPS
                                   for p in ("training", "sampled", "sparse")
                                   if p in by_path}
+        if "lm_training" in by_path:
+            k["launches_per_step"]["lm_training"] = \
+                by_path["lm_training"] / TRAIN_LM_STEPS
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -754,6 +824,22 @@ def _time(torch, fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(prof, reps=1):
+    """Device ms a call by kernel name from a torch.profiler run over
+    ``reps`` calls: device-side events only (kernels, copies), since a
+    host op's "self" device time repeats the kernels it launched."""
+    by_kernel = {}
+    for evt in prof.key_averages():
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0:
+            by_kernel[evt.key[:80]] = us / reps / 1e3
+    return by_kernel
+
+
 def profile_pass(torch, fn, reps=3):
     """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler),
     beside the host-clock time of the same calls."""
@@ -768,17 +854,7 @@ def profile_pass(torch, fn, reps=3):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / reps * 1e3
-    by_kernel = {}
-    for evt in prof.key_averages():
-        # device-side events only (kernels, copies): a host op's "self"
-        # device time repeats the kernels it launched
-        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us > 0:
-            by_kernel[evt.key[:80]] = us / reps / 1e3
+    by_kernel = _device_ms(prof, reps)
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     return dict(profiled_wall_ms=wall_ms, device_ms_sum=busy,
@@ -3686,6 +3762,602 @@ def time_slstm(torch, K, xp, wr, st, rate, flops):
                     v for k, v in decode_dev["device_ms_by_kernel"].items()
                     if "slstm" in k),
                 decode_shape_cluster=k8m.plan(hd, 4)[0])
+
+
+# ---------------------------------------------------------------------------
+# K9 (phase 2) and LM training (phase 17)
+# ---------------------------------------------------------------------------
+
+def _k9_held(torch, got, want, what):
+    """K9's gradients (a list of tensors, None where there is none) within
+    rtol K9_TOL and atol K9_TOL x max|want| of the plain version's; returns
+    the largest absolute difference and the largest difference over the
+    tensor's max |.|."""
+    err, rel = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None:
+            continue
+        scale = b.abs().max().item() or 1.0
+        check(a.shape == b.shape and torch.allclose(
+            a, b, rtol=K9_TOL, atol=K9_TOL * scale),
+            f"{what}: gradient {i} disagrees with the plain version "
+            f"(max|diff| {(a - b).abs().max().item():.3g}, max|.| "
+            f"{scale:.3g})")
+        d = (a - b).abs().max().item()
+        err, rel = max(err, d), max(rel, d / scale)
+    return err, rel
+
+
+def _rms_ratio(torch, a, b):
+    """rms(a - b) / rms(b)."""
+    return ((a - b).double().pow(2).mean().sqrt()
+            / b.double().pow(2).mean().sqrt().clamp_min(1e-30)).item()
+
+
+def _k9_inputs(torch, gen, b, s, h, hd, dev):
+    """A K8 case (``_slstm_case``) and random gradients of hs and of the
+    final states."""
+    xp, wr, st = _slstm_case(torch, gen, b, s, h, hd, dev)
+    dhs = torch.from_numpy(gen.normal(size=(b, s, h, hd)).astype(
+        np.float32)).to(dev)
+    dst = {k: torch.from_numpy(gen.normal(size=(b, h, hd)).astype(
+        np.float32)).to(dev) for k in "hcnm"}
+    return xp, wr, st, dhs, dst
+
+
+def _kernel_grads(torch, ops, xp, wr, st, dhs, dst):
+    """The gradients through ``ops.slstm_scan`` on the card (K8 with its
+    save, K9, the dwr matmul): [dxp, dwr, dh0, dc0, dn0, dm0]."""
+    x, w = xp.clone().requires_grad_(), wr.clone().requires_grad_()
+    s0 = {k: v.clone().requires_grad_() for k, v in st.items()}
+    with torch.enable_grad():
+        hs, new = ops.slstm_scan(x, w, s0)
+        return list(torch.autograd.grad(
+            [hs] + [new[k] for k in "hcnm"], [x, w] + [s0[k] for k in "hcnm"],
+            [dhs] + [dst[k] for k in "hcnm"]))
+
+
+def _plain_grads(ref, xp, wr, st, dhs, dst):
+    dxp, dwr, d0 = ref.slstm_scan_grad_ref(xp, wr, st, dhs, dst)
+    return [dxp, dwr] + [d0[k] for k in "hcnm"]
+
+
+def sweep_slstm_backward(torch, ops, ref, K, dev, gen):
+    """Phase 2's K9 sweep: hd 8/16/64/192, H 1/2/4, B 1/3/8, S 1/7/256,
+    each from a random state with random gradients of hs and of the final
+    states.  K8's save leaves hs and the states bitwise and holds the
+    plain loop's gates and states within SLSTM_TOL; K9 (through
+    ``ops.slstm_scan`` under autograd) within K9_TOL of the plain
+    version; and K9's bitwise invariants: two launches equal, a row alone
+    equal to it in its batch, bt 1 equal to bt 8, one launch over S equal
+    to the launch over the last steps then the one over the first with
+    the gradients carried.  Returns (cases, the largest absolute
+    difference, the largest difference over the tensor's max |.|)."""
+    k9m = K.slstm_scan
+    worst, rel, n = 0.0, 0.0, 0
+    hds, hs_, bs, ss = SLSTM_BWD_SWEEP
+    for hd in hds:
+        for h in hs_:
+            for b in bs:
+                for s in ss:
+                    xp, wr, st, dhs, dst = _k9_inputs(torch, gen, b, s, h, hd,
+                                                      dev)
+                    what = f"sLSTM backward B={b} S={s} H={h} hd={hd}"
+                    hs, new, saved = k9m.slstm_scan(xp, wr, st, save=True)
+                    check(_slstm_same(torch, (hs, new),
+                                      k9m.slstm_scan(xp, wr, st)),
+                          f"{what}: K8 with its save differs from K8")
+                    plain = ref.slstm_scan_save_ref(xp, wr, st)
+                    check(all(torch.allclose(saved[k], plain[k],
+                                             rtol=SLSTM_TOL, atol=SLSTM_TOL)
+                              for k in "gcnm"),
+                          f"{what}: K8's saved gates or states disagree "
+                          "with the plain loop's")
+                    e, r = _k9_held(
+                        torch, _kernel_grads(torch, ops, xp, wr, st, dhs, dst),
+                        _plain_grads(ref, xp, wr, st, dhs, dst), what)
+                    worst, rel = max(worst, e), max(rel, r)
+                    whole = k9m.slstm_scan_backward(dhs, dst, wr, saved, st)
+                    same = lambda a, c: torch.equal(a[0], c[0]) and all(
+                        torch.equal(a[1][k], c[1][k]) for k in "hcnm")
+                    check(same(whole, k9m.slstm_scan_backward(
+                        dhs, dst, wr, saved, st)),
+                        f"{what}: two launches differ")
+                    check(same(whole, k9m.slstm_scan_backward(
+                        dhs, dst, wr, saved, st, bt=1)),
+                        f"{what}: bt 1 differs from bt 8")
+                    i = b - 1
+                    row = lambda d: {k: v[i:i + 1].contiguous()
+                                     for k, v in d.items()}
+                    solo = k9m.slstm_scan_backward(
+                        dhs[i:i + 1].contiguous(), row(dst), wr, row(saved),
+                        row(st))
+                    check(same(solo, (whole[0][i:i + 1], row(whole[1]))),
+                          f"{what}: a row alone differs from it in its batch")
+                    if s > 1:
+                        cut = s // 3 or 1
+                        part = lambda d, sl: {k: v[:, sl].contiguous()
+                                              for k, v in d.items()}
+                        mid = {k: saved[k][:, cut - 1].contiguous()
+                               for k in "cnm"}
+                        dx2, carried = k9m.slstm_scan_backward(
+                            dhs[:, cut:].contiguous(), dst, wr,
+                            part(saved, slice(cut, None)), mid)
+                        dx1, d0 = k9m.slstm_scan_backward(
+                            dhs[:, :cut].contiguous(), carried, wr,
+                            part(saved, slice(None, cut)), st)
+                        check(same((torch.cat([dx1, dx2], 1), d0), whole),
+                              f"{what}: split at {cut} differs")
+                    n += 1
+                    del xp, wr, st, dhs, dst, saved, plain, whole
+    return n, worst, rel
+
+
+def _peak_gb(torch):
+    return round(torch.cuda.max_memory_allocated() / 1e9, 3)
+
+
+def _to_dev(torch, batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def lm_training(torch, K, dev, rate, flops, launches):
+    """Phase 17: LM training at full width on one card (xlstm-125m, then
+    one step of mistral-nemo-12b cut to 2 layers); returns K9's kernels
+    entry."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch import train_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.train import (AdamWConfig, LMDataConfig, Trainer,
+                                   TrainState, adamw_init, lm_batch,
+                                   make_loss_fn, make_train_step)
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.trainer import _grads_of
+    from repro_torch.train.tree import tree_flatten_with_names, tree_leaves
+    import gc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config(TRAIN_ARCH)
+    pat = cfg.xlstm_pattern
+    n_slstm = cfg.n_layers // len(pat) * pat.count("s")
+
+    # (a) the launcher at its defaults (seq 256, batch 8, remat on, bf16)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = ltrain.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_LM_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["lm_training"] = K.launch_counts()
+    got = launches["lm_training"]
+    want = {"slstm_scan": 2 * n_slstm * TRAIN_LM_STEPS,
+            "slstm_scan_backward": n_slstm * TRAIN_LM_STEPS}
+    check(all(got[k] == v for k, v in want.items()),
+          f"K8/K9 launches over {TRAIN_LM_STEPS} steps: {got}, expected "
+          f"{want} (remat: K8 twice an sLSTM layer a step)")
+    losses = rep["losses"]
+    check(rep["device"].startswith("cuda") and len(losses) == TRAIN_LM_STEPS
+          and all(np.isfinite(losses)), "the launcher did not train")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"the loss did not fall: first 5 {first:.4f}, last "
+                        f"5 {last:.4f}")
+    say("lm_training_launcher", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads,
+        slstm_hd=cfg.d_model // cfg.n_heads, vocab=cfg.vocab,
+        compute=cfg.compute_dtype, param_dtype=cfg.param_dtype,
+        remat=cfg.remat, seq=256, batch=8, steps=TRAIN_LM_STEPS,
+        launches={k: got[k] for k in want},
+        launches_per_step={k: got[k] / TRAIN_LM_STEPS for k in want},
+        loss_first5_mean=first, loss_last5_mean=last, losses=losses,
+        step_ms=rep["step_ms"],
+        step_ms_median=float(np.median(rep["step_ms"][1:])),
+        peak_gb=_peak_gb(torch), wall_s=round(wall, 3))
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) step 0's gradients: K8/K9 against the plain loop under autograd,
+    # on the card, in fp32 compute (the comparison measures the kernels,
+    # not bf16 rounding) and without remat (one K8 an sLSTM layer)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32", remat=False)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(gen, f32, vocab_multiple=16)
+    batch = _to_dev(torch, lm_batch(LMDataConfig(
+        vocab=cfg.vocab, seq_len=256, global_batch=8, doc_len=256), 0), dev)
+    loss_fn = make_loss_fn(f32, T.DistCtx())
+    fwd_in, bwd = [], []
+    plain_scan, orig_bwd = ops.slstm_scan, ops._SLSTMScan.backward
+
+    def recording_scan(xp, wr, st):
+        fwd_in.append((xp.detach(), wr.detach(),
+                       {k: v.detach().clone() for k, v in st.items()}))
+        return plain_scan(xp, wr, st)
+
+    def recording_bwd(ctx, *grads):
+        out = orig_bwd(ctx, *grads)
+        bwd.append(([g.detach().clone() for g in grads],
+                    [None if o is None else o.detach() for o in out[:6]]))
+        return out
+
+    ops.slstm_scan = recording_scan
+    ops._SLSTMScan.backward = staticmethod(recording_bwd)
+    try:
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k_loss, _, k_grads = _grads_of(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        kernel_ms = (time.perf_counter() - t0) * 1e3
+        counts = K.launch_counts()
+    finally:
+        ops.slstm_scan = plain_scan
+        ops._SLSTMScan.backward = staticmethod(orig_bwd)
+    check(counts["slstm_scan"] == n_slstm and counts["slstm_scan_backward"]
+          == n_slstm and len(fwd_in) == len(bwd) == n_slstm,
+          f"step 0 on the kernels: {counts}, {len(fwd_in)} forward and "
+          f"{len(bwd)} backward calls recorded")
+    ops.slstm_scan = lambda xp, wr, st: ref.slstm_scan_ref(xp, wr, st)
+    try:
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_loss, _, p_grads = _grads_of(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(not any(K.launch_counts().values()),
+              "the plain step launched a kernel")
+    finally:
+        ops.slstm_scan = plain_scan
+    check(torch.allclose(k_loss, p_loss, rtol=TRAIN_GRAD_TOL,
+                         atol=TRAIN_GRAD_TOL),
+          f"step 0's loss: {k_loss.item()} (kernels) against "
+          f"{p_loss.item()} (plain)")
+    leaf_err = {}
+    for (name, a), b in zip(tree_flatten_with_names(k_grads),
+                            tree_leaves(p_grads)):
+        scale = b.abs().max().item() or 1.0
+        leaf_err[name] = (a - b).abs().max().item() / scale
+        check(torch.allclose(a, b, rtol=TRAIN_GRAD_TOL,
+                             atol=TRAIN_GRAD_TOL * scale),
+              f"step 0's gradient {name}: kernels against plain, max|diff| "
+              f"{leaf_err[name] * scale:.3g}, max|.| {scale:.3g}")
+    # K9 against its plain version on every sLSTM layer's inputs of that
+    # step (the backward runs the layers in reverse)
+    k9_err, k9_rel = 0.0, 0.0
+    for i, (xp, wr, st) in enumerate(fwd_in):
+        grads, out = bwd[n_slstm - 1 - i]
+        dst = dict(zip("hcnm", grads[1:]))
+        want = _plain_grads(ref, xp, wr, st, grads[0], dst)
+        e, r = _k9_held(torch, out, want, f"K9 on sLSTM layer {i} of step 0")
+        k9_err, k9_rel = max(k9_err, e), max(k9_rel, r)
+    say("lm_training_gradients", compute="float32", remat=False, seq=256,
+        batch=8, loss_kernels=k_loss.item(), loss_plain=p_loss.item(),
+        step_grad_ms_kernels=kernel_ms, step_grad_ms_plain=plain_ms,
+        tolerance=f"rtol {TRAIN_GRAD_TOL}, atol {TRAIN_GRAD_TOL} x "
+                  "max|leaf|", max_err_over_max_by_leaf=leaf_err,
+        k9_layers=len(fwd_in), k9_max_abs_err=k9_err,
+        k9_max_err_over_max=k9_rel,
+        k9_tolerance=f"rtol {K9_TOL}, atol {K9_TOL} x max|.|")
+    del params, batch, k_grads, p_grads, fwd_in, bwd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) a step at train_4k's length (B x S = 2 x 4096), the launcher's
+    # configuration: timed (CUDA events and the host clock) and profiled
+    b4, s4 = TRAIN_4K_B, TRAIN_4K_S
+    c4 = dataclasses.replace(cfg, ssm_chunk=min(cfg.ssm_chunk, s4))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(gen, c4, vocab_multiple=16)
+    opt = adamw_init(params)
+    batch = _to_dev(torch, lm_batch(LMDataConfig(
+        vocab=cfg.vocab, seq_len=s4, global_batch=b4, doc_len=s4), 0), dev)
+    step = make_train_step(c4, T.DistCtx(), AdamWConfig(
+        lr=3e-4, warmup_steps=20, total_steps=TRAIN_LM_STEPS))
+    run = lambda: step(params, opt, batch)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    loss4 = run()[2]["loss"].item()
+    torch.cuda.synchronize()
+    counts4 = K.launch_counts()
+    peak4 = _peak_gb(torch)
+    check(np.isfinite(loss4) and counts4["slstm_scan"] == 2 * n_slstm
+          and counts4["slstm_scan_backward"] == n_slstm,
+          f"the 2 x 4096 step: loss {loss4}, launches {counts4}")
+    step4_ms = _time(torch, run, reps=2, warmup=0)
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    step4_host_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_step(torch, run)
+    del opt
+    parts = time_step_parts(torch, c4, params, batch, dev)
+    say("lm_training_4k", batch=b4, seq=s4, compute=c4.compute_dtype,
+        remat=c4.remat, loss=loss4, step_ms=step4_ms,
+        step_ms_host=step4_host_ms, peak_gb=peak4,
+        launches_per_step={k: counts4[k] for k in PATH_KERNELS[
+            "lm_training"]}, **prof, parts_ms=parts)
+    del params, batch, run, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    k9 = time_slstm_backward(torch, K, ops, ref, dev, rate, flops)
+    k9["max_abs_err"] = k9_err
+    k9["max_err_over_max"] = k9_rel
+
+    # (d) the trainer's guarantees, at full width, seq 128, batch 2
+    dsmall = LMDataConfig(vocab=cfg.vocab, seq_len=128, global_batch=2,
+                          doc_len=128)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(gen, cfg, vocab_multiple=16)
+    step = make_train_step(cfg, T.DistCtx(), AdamWConfig(
+        lr=3e-4, warmup_steps=20, total_steps=12))
+    calls = dict(n=0)
+
+    def flaky(p, o, bt):
+        calls["n"] += 1
+        if calls["n"] == 9:                   # step 8
+            raise RuntimeError("injected failure at step 8")
+        return step(p, o, bt)
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_phase17_")
+    try:
+        tr = Trainer(flaky, ltrain.lm_batches(cfg, dsmall, dev),
+                     TrainState(params, adamw_init(params)), workdir=workdir,
+                     ckpt_every=5, log_fn=lambda *_: None)
+        restart_losses = tr.run(12)
+        latest = ck.latest_step(workdir)
+        check(tr.state.step == 12 and tr.restarts == 1 and latest == 10
+              and len(restart_losses) == 15,
+              f"the injected failure: step {tr.state.step}, restarts "
+              f"{tr.restarts}, latest checkpoint {latest}, "
+              f"{len(restart_losses)} losses")
+        del tr
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    def traced_run(**obs):
+        tr = Trainer(step, ltrain.lm_batches(cfg, dsmall, dev),
+                     TrainState(params, adamw_init(params)),
+                     log_fn=lambda *_: None, **obs)
+        return tr.run(5)
+
+    base = traced_run()
+    tracer, reg = Tracer(), MetricsRegistry()
+    traced = traced_run(tracer=tracer, metrics=reg)
+    check(base == traced, f"traced losses {traced} differ from {base}")
+    n_spans = sum(e["name"] == "train.step" for e in tracer.events())
+    check(n_spans == 5, f"{n_spans} train.step spans")
+    # accumulation in fp32 compute, as the reference's test: with bf16
+    # products a microbatch's gradient differs from its share of the full
+    # batch's by bf16 rounding, which flips the first AdamW step's sign
+    # where a gradient is near 0
+    big = _to_dev(torch, lm_batch(LMDataConfig(
+        vocab=cfg.vocab, seq_len=256, global_batch=8, doc_len=256), 0), dev)
+    accum = {a: make_train_step(f32, T.DistCtx(), AdamWConfig(lr=1e-3),
+                                accum_steps=a)(params, adamw_init(params),
+                                               big)[0] for a in (1, 4)}
+    diffs = [(a - b).abs().max().item() for a, b in zip(
+        tree_leaves(accum[1]), tree_leaves(accum[4]))]
+    check(all(torch.allclose(a, b, rtol=2e-4, atol=2e-5) for a, b in zip(
+        tree_leaves(accum[1]), tree_leaves(accum[4]))),
+        f"accum 4 against 1: max|diff| {max(diffs):.3g}")
+    say("lm_training_trainer", restart=dict(
+            steps=12, injected_at=8, ckpt_every=5, restarts=1,
+            latest_checkpoint=10, losses=restart_losses),
+        tracing_bitwise=True, traced_losses=traced, train_step_spans=n_spans,
+        accum4_vs_1_max_abs_diff=max(diffs),
+        accum_tolerance="rtol 2e-4, atol 2e-5 (the reference's test)",
+        seq=128, batch=2, accum_seq=256, accum_batch=8,
+        accum_compute="float32")
+    del params, accum, big
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) examples/train_lm.py's port with --tune-accum
+    rep = train_lm.main(["--tune-accum", "--steps", "24"])
+    say("lm_training_tune_accum", steps=24, seq=128, batch=4,
+        converged=rep["converged"], accum=rep["accum"],
+        measured=rep["measured"], step_fn_swaps=rep["retunes"],
+        why_not=None if rep["converged"] else
+        f"{rep['measured']} measurements of a window of 3 steps each did "
+        "not close the search within 24 steps",
+        losses=rep["losses"], step_ms=rep["step_ms"])
+    check(all(np.isfinite(rep["losses"])), "train_lm's losses not finite")
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) the dense family: one AdamW step of mistral-nemo-12b at full
+    # width, its depth cut to DENSE_TRAIN_LAYERS, B 1, S 4096, bf16 compute
+    dcfg = dataclasses.replace(configs.get_config(DENSE_TRAIN_ARCH),
+                               n_layers=DENSE_TRAIN_LAYERS)
+    check(not dcfg.use_flash_attention, "flash attention on for training")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(gen, dcfg, vocab_multiple=16)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = _to_dev(torch, lm_batch(LMDataConfig(
+        vocab=dcfg.vocab, seq_len=4096, global_batch=1, doc_len=4096), 0),
+        dev)
+    step = make_train_step(dcfg, T.DistCtx(), AdamWConfig(
+        lr=3e-4, warmup_steps=20, total_steps=TRAIN_LM_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(params, adamw_init(params), batch)
+    loss = out[2]["loss"].item()
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    check(np.isfinite(loss), f"mistral-nemo-12b step loss {loss}")
+    check(not any(K.launch_counts().values()),
+          f"a kernel ran in the dense step: {K.launch_counts()}")
+    say("lm_training_dense", arch=dcfg.name,
+        cut=f"depth {DENSE_TRAIN_LAYERS} of "
+            f"{configs.get_config(DENSE_TRAIN_ARCH).n_layers} layers, full "
+            "width", params=n_params, d_model=dcfg.d_model, d_ff=dcfg.d_ff,
+        vocab=dcfg.vocab, batch=1, seq=4096, compute=dcfg.compute_dtype,
+        flash=False, remat=dcfg.remat, loss=loss,
+        step_ms_host_first_call=dense_ms, peak_gb=_peak_gb(torch))
+    del params, batch, out, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k9
+
+
+def profile_step(torch, fn):
+    """One call of ``fn`` under torch.profiler: device ms by kind (K8, K9,
+    matrix products, the rest) and the ten largest kernels, beside the
+    profiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = _device_ms(prof)
+
+    def kind(name):
+        low = name.lower()
+        if "slstm_bwd" in low:
+            return "K9 slstm_scan_backward"
+        if "slstm_cluster" in low:
+            return "K8 slstm_scan"
+        if any(w in low for w in ("gemm", "xmma", "cutlass", "sm90_")):
+            return "matrix products"
+        return "other (elementwise, reductions, copies)"
+
+    by_kind = {}
+    for k, v in by_kernel.items():
+        by_kind[kind(k)] = by_kind.get(kind(k), 0.0) + v
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    busy = sum(by_kernel.values())
+    return dict(profiled_wall_ms=wall_ms, device_ms_sum=busy,
+                device_idle_share=max(0.0, 1 - busy / wall_ms),
+                device_ms_by_kind=by_kind, device_ms_top=dict(top))
+
+
+def time_step_parts(torch, cfg, params, batch, dev):
+    """CUDA-event times of the parts of the 2 x 4096 step at its shapes:
+    one sLSTM layer's dwr product, one mLSTM mixer and one sLSTM mixer
+    forward and backward (bf16 compute, as the step), and the head (the
+    tied unembedding and the cross-entropy) forward and backward."""
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.layers import unembed_logits
+    from repro_torch.train.tree import tree_map
+
+    b, s = batch["tokens"].shape
+    heads, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
+    g = np.random.default_rng(2)
+    h_prev = torch.from_numpy(g.normal(size=(b, s, heads, hd)).astype(
+        np.float32)).to(dev)
+    dxp = torch.from_numpy(g.normal(size=(b, s, heads, 4 * hd)).astype(
+        np.float32)).to(dev)
+    out = dict(dwr_matmul_ms=_time(torch, lambda: torch.einsum(
+        "bshk,bshg->hkg", h_prev, dxp), reps=5, warmup=1))
+    del h_prev, dxp
+    x = torch.from_numpy(g.normal(size=(b, s, cfg.d_model)).astype(
+        np.float32)).to(dev).to(cfg.cdtype)
+    for name, fn in (("mlstm", X.mlstm_apply), ("slstm", X.slstm_apply)):
+        key = "xl_0_m" if name == "mlstm" else "xl_1_s"
+        p = tree_map(lambda t: t[0].detach().requires_grad_(),
+                     params[key]["mix"])
+        xin = x.detach().requires_grad_()
+
+        def fb(p=p, xin=xin, fn=fn):
+            with torch.enable_grad():
+                y, _ = fn(p, xin, cfg)
+                y.float().sum().backward()
+
+        out[f"{name}_layer_fwd_bwd_ms"] = _time(torch, fb, reps=2, warmup=1)
+    emb = params["embed"]["w"].detach().requires_grad_()
+    tok = batch["tokens"]
+
+    def head():
+        with torch.enable_grad():
+            logits = unembed_logits({"w": emb}, x, cfg.vocab)
+            logp = torch.log_softmax(logits[:, :-1], -1)
+            ll = torch.gather(logp, -1, tok[:, 1:, None].long())
+            (-ll.mean()).backward()
+
+    out["head_fwd_bwd_ms"] = _time(torch, head, reps=2, warmup=1)
+    return out
+
+
+def time_slstm_backward(torch, K, ops, ref, dev, rate, flops):
+    """K9 at phase 17 (c)'s shapes (one sLSTM layer of the B x S = 2 x 4096
+    step: dhs (B, S, H, hd), the saved gates (B, S, H, hd, 4) and states),
+    beside its plain version (autograd through the plain loop: the forward
+    and the backward, as the plain path runs them), held by K9_RMS_TOL.  No
+    PyTorch call computes this backward, so there is no library time.
+    Bound: the step-to-step products' 2·B·S·H·hd·4·hd flops over the fp32
+    peak, or dhs, the saved gates and states, wr and the states read once
+    and dxp and the initial states' gradients written once over the memory
+    rate, whichever is larger.  Also the plan's cluster size and shared
+    memory a block, µs a step, and every cluster size that fits timed in
+    turns and held bitwise to the plan's."""
+    k9m = K.slstm_scan
+    gen = np.random.default_rng(17)
+    b, s, h, hd = TRAIN_4K_B, TRAIN_4K_S, 4, 192
+    xp, wr, st, dhs, dst = _k9_inputs(torch, gen, b, s, h, hd, dev)
+    bt = min(k9m.MAX_BT, b)
+    cluster, smem = k9m.plan(hd, bt, backward=True)
+    sizes = k9m.cluster_sizes(hd, bt, backward=True)
+    with torch.inference_mode():
+        _, _, saved = k9m.slstm_scan(xp, wr, st, save=True)
+        k9 = lambda: k9m.slstm_scan_backward(dhs, dst, wr, saved, st)
+        t_k9 = _time(torch, k9, reps=5, warmup=1)
+        want = k9()
+        by_c = {c: [] for c in sizes}
+        for order in (sizes, sizes[::-1]):
+            for c in order:
+                got = k9m._launch_backward(dhs, dst, wr, saved, st, bt, c)
+                check(torch.equal(got[0], want[0]) and all(
+                    torch.equal(got[1][k], want[1][k]) for k in "hcnm"),
+                    f"K9 at {c} blocks a cluster differs from the plan's "
+                    f"{cluster}")
+                by_c[c].append(_time(torch, lambda c=c: k9m._launch_backward(
+                    dhs, dst, wr, saved, st, bt, c), reps=3, warmup=1))
+    kern = _kernel_grads(torch, ops, xp, wr, st, dhs, dst)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = _plain_grads(ref, xp, wr, st, dhs, dst)
+    torch.cuda.synchronize()
+    t_plain = (time.perf_counter() - t0) * 1e3
+    rms = [_rms_ratio(torch, a, c) for a, c in zip(kern, plain)]
+    check(max(rms) <= K9_RMS_TOL,
+          f"K9 at S = {s}: rms differences over rms {rms} above {K9_RMS_TOL}")
+    n_flops = 2 * b * s * h * hd * 4 * hd
+    nbytes = 4 * (b * s * h * hd * (1 + 4 + 3) + wr.numel() + 7 * b * h * hd
+                  + b * s * h * 4 * hd + 4 * b * h * hd)
+    t_flops = n_flops / flops["float32"] * 1e3
+    t_bytes = nbytes / rate * 1e3
+    return dict(name="slstm_scan_backward", route="cuda",
+                source=SOURCE["slstm_scan_backward"],
+                replaces=REPLACES["slstm_scan_backward"], ms=t_k9,
+                plain_ms=t_plain, plain="autograd through the plain loop "
+                                        "(its forward and backward)",
+                bound_ms=max(t_flops, t_bytes),
+                bound_by="operations" if t_flops >= t_bytes else "bytes",
+                library_ms=None,
+                library="none: no PyTorch call computes the sLSTM's "
+                        "backward (nn.LSTM/cuDNN is the classic LSTM)",
+                dtype="float32", shape=dict(batch=b, seq=s, heads=h,
+                                            head_dim=hd),
+                flops=n_flops, bytes=nbytes, peak_flops=flops["float32"],
+                cluster=cluster, smem_bytes_per_block=smem,
+                us_per_step=t_k9 * 1e3 / s,
+                ms_by_cluster={str(c): v for c, v in by_c.items()},
+                rms_diff_over_rms_at_4096=rms,
+                rms_tolerance=K9_RMS_TOL)
 
 
 if __name__ == "__main__":

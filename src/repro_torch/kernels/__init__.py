@@ -7,8 +7,9 @@
 * rows — the wrapper around csrc/rows.cu: K5 row gather;
 * flash_attention — the wrapper around csrc/flash_attention.cu: K7
   flash attention (forward, GQA, causal and sliding-window);
-* slstm_scan — the wrapper around csrc/slstm_scan.cu: K8 the sLSTM
-  recurrence over a sequence (forward);
+* slstm_scan — the wrappers around csrc/slstm_scan.cu: K8 the sLSTM
+  recurrence over a sequence (forward, with an optional save) and K9 its
+  backward;
 * ref — the plain PyTorch versions the CPU path and the tests run;
 * ops — the front door that picks one by the tensor's device, and the
   gather-sums' autograd Functions.
@@ -28,6 +29,6 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """Launches per kernel (K1–K8) since the last reset."""
+    """Launches per kernel (K1–K9) since the last reset."""
     return {**neighbor_agg.launch_counts(), **rows.launch_counts(),
             **flash_attention.launch_counts(), **slstm_scan.launch_counts()}

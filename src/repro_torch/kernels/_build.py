@@ -86,11 +86,16 @@ _SIGNATURES = {
     # bf16, stream
     "mgg_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
                             _L, _L, _L, _L, _L, _L, _I, _I, _I, _P],
-    # xp, wr, h0, c0, n0, m0, hs, hN, cN, nN, mN, B, S, H, hd, bt, cluster,
-    # stream
-    "mgg_slstm_scan": [_P] * 11 + [_I] * 6 + [_P],
+    # xp, wr, h0, c0, n0, m0, hs, hN, cN, nN, mN, the save gS, cS, nS, mS
+    # (null: none), B, S, H, hd, bt, cluster, stream
+    "mgg_slstm_scan": [_P] * 15 + [_I] * 6 + [_P],
     # hd, bt, cluster
     "mgg_slstm_smem_bytes": [_I, _I, _I],
+    # dhs, dhN, dcN, dnN, dmN, wr, gS, cS, nS, mS, c0, n0, m0, dxp, dh0,
+    # dc0, dn0, dm0, B, S, H, hd, bt, cluster, stream
+    "mgg_slstm_scan_backward": [_P] * 18 + [_I] * 6 + [_P],
+    # hd, bt, cluster
+    "mgg_slstm_bwd_smem_bytes": [_I, _I, _I],
     # out, B, S, H, hd, bt, cluster, stream
     "mgg_slstm_cluster_probe": [_P] + [_I] * 6 + [_P],
 }

@@ -1,4 +1,5 @@
-// sLSTM sequence scan for Hopper (sm_90a), bound with ctypes.
+// sLSTM sequence scan (K8) and its backward (K9) for Hopper (sm_90a),
+// bound with ctypes.
 //
 // K8 slstm_scan  replaces src/repro/kernels/slstm_scan.py:83
 //                slstm_scan_call (_kernel): the sLSTM recurrence over S
@@ -104,8 +105,60 @@
 //    state written at the end is the fp32 state the next step would read;
 //  * two launches are equal: no atomics, no order that depends on timing.
 //
+// The save (for K9).  Given four more output pointers, K8 also writes each
+// step's gates (the pre-activations z, i, f, o of each unit, as one float4:
+// (B, S, H, hd, 4)) and the states c, n, m after the step ((B, S, H, hd)).
+// It is a second instance of the kernel (kSave); without the pointers the
+// launch is the one above, bit for bit.
+//
+// K9 slstm_scan_backward  replaces no Pallas kernel: the reference trains
+//                the sLSTM through autodiff of lax.scan over _slstm_cell
+//                (repro/models/xlstm.py:230), and K8 has no VJP.  It is
+//                the reverse-time scan of that chain rule, step t from
+//                S - 1 down to 0, from the saved gates g_t and the states
+//                before the step (c, n, m):
+//   dh   = dhs[t] + dg_{t+1} . wr^T        (dhN at t = S - 1)
+//   the forward's step recomputed from g_t and (c, n, m) with K8's rounding
+//   do   = dh c'/N,  dc' += dh o/N,  dN = -dh o c'/N^2,  N = max(|n'|, 1)
+//   dn' += dN sign(n') [|n'| > 1], half of it at |n'| == 1
+//   df'  = dc' c + dn' n,  di' = dc' z + dn',  dz = dc' i'
+//   dc   = dc' f',  dn = dn' f'
+//   dm'  = dm - df' f' - di' i', to log_f + m if larger, to log_i if
+//          larger, half to each at a tie (lax.max's rule)
+//   dgz  = dz (1 - z^2), dgi = dlog_i, dgf = dlog_f sigmoid(-gf),
+//   dgo  = do o (1 - o)
+// and writes dg_t as dxp[t] (g = xp + h wr, so dxp = dg) and, after step
+// 0, the gradients of the states before it (dh0 = dg_0 . wr^T).  dwr =
+// sum over (b, t) of h_{t-1}^T dg_t is one product over saved tensors,
+// outside the recurrence: the wrapper's caller runs it as a matmul.
+// What bounds it.  As K8: on paper 2·hd·4·hd flops a (row, head) a step
+// (the step-to-step product), 0.144 ms at B = 2, S = 4096, H = 4, hd = 192
+// over 67 TFLOP/s fp32; in practice one step's latency: S dependent
+// steps, each a product of the previous step's dg.
+// Design.  K8's skeleton with the roles of wr's rows and columns swapped:
+// a cluster of C blocks a (row tile, head), block c holding the rows of wr
+// of its units U_c (all 4·hd columns) in shared memory, forming its units'
+// dg elementwise (thread s of a unit, row s, as in K8), and sending each
+// unit's dg (four floats, one st.async.v4) to every block of the cluster
+// onto the same two mbarriers; each block then sums (dg . wr^T)[u] for its
+// units, kSplit = 8 threads a unit over the j range (slice s holds units
+// v = 8i + s, i ascending, their four gates in order, with __fmaf_rn from
+// 0), the slices added pairwise by __shfl_xor_sync as in K8.  A step moves
+// 4·hd floats a row between the blocks, four times K8's h.  The step's
+// inputs (g_t, dhs[t], the states before it) are loaded one step ahead
+// into registers.  Shared memory: dg 2 · BT · hdk · 4 floats and wr
+// hdk / 8 · nt float4s (122,896 bytes at BT = 8, hd = 192, C = 8;
+// mgg_slstm_bwd_smem_bytes).
+// Invariants, bitwise, by construction as K8's: the association depends
+// only on hd (not on bt, C, the row or timing); two launches are equal; a
+// row alone equals the row in its batch; one launch over S equals the
+// launch over the last S2 steps then the one over the first S1 with the
+// gradients dh (its dh0), dc, dn, dm carried, the states before the second
+// launch's steps being those saved at step S1 - 1.
+//
 // Every launch runs on the caller's stream and allocates nothing.
-// mgg_slstm_scan returns cudaErrorInvalidValue for hd outside 1..256, bt
+// mgg_slstm_scan and mgg_slstm_scan_backward return
+// cudaErrorInvalidValue for hd outside 1..256, bt
 // outside 1..8, C not 1, 2, 4 or 8, a block with no unit or more than
 // kMaxUnits, or shared memory above the card's opt-in limit;
 // cudaErrorLaunchOutOfResources when cudaOccupancyMaxActiveClusters says
@@ -300,7 +353,7 @@ __device__ __forceinline__ float pick(const float (&a)[BT], int r) {
   return v;
 }
 
-template <int BT>
+template <int BT, bool kSave>
 __global__ void __launch_bounds__(kMaxThreads)
 slstm_cluster_kernel(const float* __restrict__ xp,
                      const float* __restrict__ wr,
@@ -309,7 +362,9 @@ slstm_cluster_kernel(const float* __restrict__ xp,
                      const float* __restrict__ n0,
                      const float* __restrict__ m0, float* __restrict__ hs,
                      float* __restrict__ hN, float* __restrict__ cN,
-                     float* __restrict__ nN, float* __restrict__ mN, int B,
+                     float* __restrict__ nN, float* __restrict__ mN,
+                     float4* __restrict__ gS, float* __restrict__ cS,
+                     float* __restrict__ nS, float* __restrict__ mS, int B,
                      int S, int H, int hd, int bt, int C) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -427,10 +482,14 @@ slstm_cluster_kernel(const float* __restrict__ xp,
     cp_async_wait<kStages - 1>();           // step t's xp has landed
     if (p.owner) {
       const float* x = x_at(t);
-      const float z = tanhf(__fadd_rn(x[0], pick(acc[0], p.s)));
-      const float log_i = __fadd_rn(x[1], pick(acc[1], p.s));
-      const float log_f = log_sigmoid(__fadd_rn(x[2], pick(acc[2], p.s)));
-      const float o = sigmoid(__fadd_rn(x[3], pick(acc[3], p.s)));
+      const float gz = __fadd_rn(x[0], pick(acc[0], p.s));
+      const float gi = __fadd_rn(x[1], pick(acc[1], p.s));
+      const float gf = __fadd_rn(x[2], pick(acc[2], p.s));
+      const float go = __fadd_rn(x[3], pick(acc[3], p.s));
+      const float z = tanhf(gz);
+      const float log_i = gi;
+      const float log_f = log_sigmoid(gf);
+      const float o = sigmoid(go);
       const float fm = __fadd_rn(log_f, mr);
       const float m_new = fmaxf(fm, log_i);
       const float i_p = expf(__fsub_rn(log_i, m_new));
@@ -443,8 +502,15 @@ slstm_cluster_kernel(const float* __restrict__ xp,
       const uint32_t a = h_own + nb * BT * L.hdk * 4;
       const uint32_t bar = smem_u32(&full[nb]);
       for (int q = 0; q < C; ++q) st_async(a, bar, q, hr);
-      hs[(p.b0 + p.s) * hs_row + (static_cast<size_t>(t) * H + p.head) * hd +
-         p.u] = hr;
+      const size_t at = (p.b0 + p.s) * hs_row +
+                        (static_cast<size_t>(t) * H + p.head) * hd + p.u;
+      hs[at] = hr;
+      if (kSave) {          // what K9 reads: the gates and the states
+        gS[at] = make_float4(gz, gi, gf, go);
+        cS[at] = cr;
+        nS[at] = nr;
+        mS[at] = mr;
+      }
     }
   }
   if (S > 0)                  // the last step's h has reached this block
@@ -492,9 +558,253 @@ cluster_probe_kernel(float* __restrict__ out, int B, int S, int H, int hd,
   out[(static_cast<size_t>(p.b0 + p.s) * H + p.head) * hd + p.u] = v;
 }
 
+// ---------------------------------------------------------------------------
+// K9: the scan's backward.  Block c of a cluster owns the units U_c of a
+// (row tile, head), as in K8, but holds the ROWS of wr for them: thread
+// kSplit·uu + s holds, for unit u = rank·U + uu, the float4s
+// wr[head, u, e·hd + v] (e = 0..3, the gates z, i, f, o) of the units
+// v = kSplit·i + s, i = 0, 1, ... (zeros past hd).  The exchanged vector
+// is dg, the four gate gradients of every unit, kept unit-major
+// (hdk, 4) a row so that a unit's four gates travel as one float4.
+// ---------------------------------------------------------------------------
+
+// A block of K9's shared memory, in floats.
+struct BwdLayout {
+  int units, nt, hdk;
+  int w_off, bar_off, total;
+};
+
+__host__ __device__ __forceinline__ BwdLayout bwd_layout(int hd, int BT,
+                                                         int C) {
+  BwdLayout L;
+  L.units = (hd + C - 1) / C;
+  L.nt = (kSplit * L.units + 31) & ~31;
+  L.hdk = (hd + kChunk - 1) / kChunk * kChunk;
+  L.w_off = 2 * BT * 4 * L.hdk;                    // dg (2, BT, hdk, 4)
+  L.bar_off = L.w_off + L.hdk / kSplit * 4 * L.nt;  // wr (hdk/kSplit, nt, 4)
+  L.total = L.bar_off + 4;                          // two mbarriers
+  return L;
+}
+
+// v (16 bytes) into block `rank`'s shared memory at the offset `local`
+// has in this block's, completing 16 bytes on that block's mbarrier.
+__device__ __forceinline__ void st_async4(uint32_t local, uint32_t bar,
+                                          uint32_t rank, float4 v) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n"
+      :: "r"(map_rank(local, rank)), "f"(v.x), "f"(v.y), "f"(v.z),
+         "f"(v.w), "r"(map_rank(bar, rank))
+      : "memory");
+}
+
+// One step's inputs of an owner: the forward's gates (g z, i, f, o), the
+// incoming gradient of h, and the states before the step.
+struct StepIn {
+  float4 g;
+  float dh, c, n, m;
+};
+
+template <int BT>
+__global__ void __launch_bounds__(kMaxThreads)
+slstm_bwd_cluster_kernel(
+    const float* __restrict__ dhs, const float* __restrict__ dhN,
+    const float* __restrict__ dcN, const float* __restrict__ dnN,
+    const float* __restrict__ dmN, const float* __restrict__ wr,
+    const float4* __restrict__ gS, const float* __restrict__ cS,
+    const float* __restrict__ nS, const float* __restrict__ mS,
+    const float* __restrict__ c0, const float* __restrict__ n0,
+    const float* __restrict__ m0, float* __restrict__ dxp,
+    float* __restrict__ dh0, float* __restrict__ dc0,
+    float* __restrict__ dn0, float* __restrict__ dm0, int B, int S, int H,
+    int hd, int bt, int C) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const Place p = place(B, hd, bt, BT, C);
+  const BwdLayout L = bwd_layout(hd, BT, C);
+  const int G = 4 * hd;
+  const int tid = threadIdx.x;
+  float* dg_s = sm;                             // (2, BT, hdk, 4)
+  const float4* w_s = reinterpret_cast<const float4*>(sm + L.w_off);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bar_off);
+  const int n_it = L.hdk / kSplit;              // float4s of wr a thread
+  const uint32_t bytes = static_cast<uint32_t>(p.rows * hd * 16);
+
+  // this thread's slice of its unit's row of wr, once
+  if (p.live) {
+    const float* src = wr + (static_cast<size_t>(p.head) * hd + p.u) * G;
+    for (int i = 0; i < n_it; ++i) {
+      const int v = kSplit * i + p.s;
+      float* dst = reinterpret_cast<float*>(sm + L.w_off) +
+                   (static_cast<size_t>(i) * L.nt + tid) * 4;
+      for (int e = 0; e < 4; ++e) {
+        if (v < hd)
+          cp_async4(dst + e, src + e * hd + v);
+        else
+          dst[e] = 0.f;
+      }
+    }
+  }
+  cp_async_commit();
+  // dg: both buffers zero (the padding past hd stays zero)
+  for (int idx = tid; idx < 2 * BT * 4 * L.hdk; idx += blockDim.x)
+    dg_s[idx] = 0.f;
+
+  // the carried gradients of (row s, unit u), in registers
+  const size_t so = (static_cast<size_t>(p.b0 + p.s) * H + p.head) * hd +
+                    p.u;
+  float dh_last = 0.f, dc = 0.f, dn = 0.f, dm = 0.f;
+  if (p.owner) {
+    dh_last = dhN[so];
+    dc = dcN[so];
+    dn = dnN[so];
+    dm = dmN[so];
+  }
+  // step t's inputs; the states before step 0 are c0, n0, m0
+  const size_t row0 = static_cast<size_t>(p.b0 + p.s) * S * H * hd +
+                      static_cast<size_t>(p.head) * hd + p.u;
+  auto load = [&](int t) {
+    StepIn in = {make_float4(0.f, 0.f, 0.f, 0.f), 0.f, 0.f, 0.f, 0.f};
+    if (p.owner && t >= 0) {
+      const size_t at = row0 + static_cast<size_t>(t) * H * hd;
+      in.g = gS[at];
+      in.dh = dhs[at];
+      if (t > 0) {
+        const size_t prev = at - static_cast<size_t>(H) * hd;
+        in.c = cS[prev];
+        in.n = nS[prev];
+        in.m = mS[prev];
+      } else {
+        in.c = c0[so];
+        in.n = n0[so];
+        in.m = m0[so];
+      }
+    }
+    return in;
+  };
+  cp_async_wait<0>();                           // the wr slice has landed
+  exchange_init(full, bytes);
+  if (!p.warp_live) return;                     // nothing to send or sum
+
+  const float4* wt = w_s + tid;
+  const uint32_t dg_own = smem_u32(dg_s + (p.s * L.hdk + p.u) * 4);
+  const size_t x_step = static_cast<size_t>(H) * G;   // dxp, per t
+  float* dx_row = dxp + static_cast<size_t>(p.b0 + p.s) * S * x_step +
+                  static_cast<size_t>(p.head) * G + p.u;
+  StepIn cur = load(S - 1);
+  // iteration tau handles step t = S - 1 - tau; iteration S only sums the
+  // gradient of h0 from step 0's dg
+  for (int tau = 0; tau <= S; ++tau) {
+    const int t = S - 1 - tau;
+    const StepIn nxt = load(t - 1);
+    float rec = 0.f;                            // (dg_{t+1} · wr^T)[u]
+    if (tau > 0) {
+      if (tau < S)
+        exchange_wait(full, tau, bytes);
+      else                            // step 0's dg has reached this block
+        mbar_wait(&full[S & 1], ((S - 1) >> 1) & 1);
+      const float* dgb = dg_s + (tau & 1) * BT * L.hdk * 4 + 4 * p.s;
+      float acc[BT];
+#pragma unroll
+      for (int r = 0; r < BT; ++r) acc[r] = 0.f;
+      if (p.live) {
+#pragma unroll 4
+        for (int i = 0; i < n_it; ++i) {
+          const float4 w = wt[i * L.nt];
+#pragma unroll
+          for (int r = 0; r < BT; ++r) {
+            const float4 d = *reinterpret_cast<const float4*>(
+                dgb + (r * L.hdk + kSplit * i) * 4);
+            acc[r] = __fmaf_rn(d.x, w.x, acc[r]);
+            acc[r] = __fmaf_rn(d.y, w.y, acc[r]);
+            acc[r] = __fmaf_rn(d.z, w.z, acc[r]);
+            acc[r] = __fmaf_rn(d.w, w.w, acc[r]);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 1; m < kSplit; m <<= 1)
+#pragma unroll
+        for (int r = 0; r < BT; ++r)
+          acc[r] = __fadd_rn(acc[r], __shfl_xor_sync(kFull, acc[r], m));
+      rec = pick(acc, p.s);
+    }
+    if (tau == S) {
+      if (p.owner) {
+        dh0[so] = S > 0 ? rec : dh_last;
+        dc0[so] = dc;
+        dn0[so] = dn;
+        dm0[so] = dm;
+      }
+      break;
+    }
+    if (p.owner) {
+      // the forward's step, from its own gates and states (K8's rounding)
+      const float z = tanhf(cur.g.x);
+      const float log_i = cur.g.y;
+      const float log_f = log_sigmoid(cur.g.z);
+      const float o = sigmoid(cur.g.w);
+      const float fm = __fadd_rn(log_f, cur.m);
+      const float m_new = fmaxf(fm, log_i);
+      const float i_p = expf(__fsub_rn(log_i, m_new));
+      const float f_p = expf(__fsub_rn(fm, m_new));
+      const float c_new = __fadd_rn(__fmul_rn(f_p, cur.c), __fmul_rn(i_p, z));
+      const float n_new = __fadd_rn(__fmul_rn(f_p, cur.n), i_p);
+      const float an = fabsf(n_new);
+      const float nrm = fmaxf(an, 1.f);
+      // h' = (o c') / N, N = max(|n'|, 1): half the gradient at a tie
+      const float dh = __fadd_rn(cur.dh, tau == 0 ? dh_last : rec);
+      const float q = __fdiv_rn(dh, nrm);
+      const float d_o = __fmul_rn(q, c_new);
+      const float dcp = __fadd_rn(dc, __fmul_rn(q, o));
+      const float d_nrm = -__fdiv_rn(__fmul_rn(dh, __fmul_rn(o, c_new)),
+                                     __fmul_rn(nrm, nrm));
+      const float at_n = an > 1.f ? 1.f : an == 1.f ? 0.5f : 0.f;
+      const float dnp = __fadd_rn(
+          dn, __fmul_rn(__fmul_rn(d_nrm, at_n), copysignf(1.f, n_new)));
+      // c' = f' c + i' z, n' = f' n + i'
+      const float dfp = __fadd_rn(__fmul_rn(dcp, cur.c),
+                                  __fmul_rn(dnp, cur.n));
+      const float dip = __fadd_rn(__fmul_rn(dcp, z), dnp);
+      const float dz = __fmul_rn(dcp, i_p);
+      dc = __fmul_rn(dcp, f_p);
+      dn = __fmul_rn(dnp, f_p);
+      // f' = exp(fm - m'), i' = exp(log_i - m'), m' = max(fm, log_i):
+      // half the gradient to each side at a tie
+      const float d1 = __fmul_rn(dfp, f_p);
+      const float d2 = __fmul_rn(dip, i_p);
+      const float dmn = __fsub_rn(__fsub_rn(dm, d1), d2);
+      const float to_fm = fm > log_i ? 1.f : fm == log_i ? 0.5f : 0.f;
+      const float d_fm = __fadd_rn(d1, __fmul_rn(dmn, to_fm));
+      const float d_li = __fadd_rn(d2, __fmul_rn(dmn, __fsub_rn(1.f, to_fm)));
+      dm = d_fm;                                // fm = log_f + m
+      const float4 dg = make_float4(
+          __fmul_rn(dz, __fsub_rn(1.f, __fmul_rn(z, z))),     // tanh
+          d_li,                                               // log_i = gi
+          __fmul_rn(d_fm, sigmoid(-cur.g.z)),                 // log_sigmoid
+          __fmul_rn(__fmul_rn(d_o, o), __fsub_rn(1.f, o)));   // sigmoid
+      const int nb = (tau + 1) & 1;
+      const uint32_t a = dg_own + nb * BT * L.hdk * 16;
+      const uint32_t bar = smem_u32(&full[nb]);
+      for (int q = 0; q < C; ++q) st_async4(a, bar, q, dg);
+      float* dx = dx_row + static_cast<size_t>(t) * x_step;
+      dx[0] = dg.x;
+      dx[hd] = dg.y;
+      dx[2 * hd] = dg.z;
+      dx[3 * hd] = dg.w;
+    }
+    cur = nxt;
+  }
+}
+
 int smem_bytes(int hd, int bt, int C) {
   return static_cast<int>(sizeof(float)) *
          layout(hd, bt_instance(bt), C).total;
+}
+
+int bwd_smem_bytes(int hd, int bt, int C) {
+  return static_cast<int>(sizeof(float)) *
+         bwd_layout(hd, bt_instance(bt), C).total;
 }
 
 // Whether a cluster of C blocks with this kernel and shared memory can be
@@ -549,12 +859,12 @@ int placeable(const void* fn, int C, int threads, int smem) {
   return rc;
 }
 
+// One launch of `kernel` over a grid of (C · tiles, H) blocks of `nt`
+// threads and `smem` bytes, C blocks a cluster.
 template <typename... Params, typename... Args>
-int launch_cluster(void (*kernel)(Params...), int tiles, int H, int hd,
-                   int BT, int C, cudaStream_t stream, Args... args) {
-  const Layout L = layout(hd, BT, C);
-  const int smem = static_cast<int>(sizeof(float)) * L.total;
-  int rc = placeable(reinterpret_cast<const void*>(kernel), C, L.nt, smem);
+int launch_cluster(void (*kernel)(Params...), int tiles, int H, int nt,
+                   int smem, int C, cudaStream_t stream, Args... args) {
+  int rc = placeable(reinterpret_cast<const void*>(kernel), C, nt, smem);
   if (rc != cudaSuccess) return rc;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -563,7 +873,7 @@ int launch_cluster(void (*kernel)(Params...), int tiles, int H, int hd,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.gridDim = dim3(C * tiles, H, 1);
-  cfg.blockDim = dim3(L.nt, 1, 1);
+  cfg.blockDim = dim3(nt, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -595,25 +905,79 @@ int mgg_slstm_smem_bytes(int hd, int bt, int C) {
 // xp (B, S, H, 4·hd), wr (H, hd, 4·hd), h0/c0/n0/m0 (B, H, hd): fp32,
 // contiguous.  hs (B, S, H, hd), hN/cN/nN/mN (B, H, hd): fp32, contiguous,
 // allocated by the caller.  C blocks a cluster.
+// With gS, cS, nS and mS not null (all four), it also saves each step's
+// gates gS (B, S, H, hd, 4: z, i, f, o pre-activations, unit-major) and
+// states cS, nS, mS (B, S, H, hd) after the step, fp32, for K9; with them
+// null it is the launch without the save.
 int mgg_slstm_scan(const float* xp, const float* wr, const float* h0,
                    const float* c0, const float* n0, const float* m0,
                    float* hs, float* hN, float* cN, float* nN, float* mN,
-                   int B, int S, int H, int hd, int bt, int C,
-                   cudaStream_t stream) {
+                   float* gS, float* cS, float* nS, float* mS, int B, int S,
+                   int H, int hd, int bt, int C, cudaStream_t stream) {
+  const bool save = gS != nullptr;
+  if (!valid(hd, bt, C) || S < 0 || B < 0 || H < 0 ||
+      save != (cS != nullptr) || save != (nS != nullptr) ||
+      save != (mS != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H == 0) return static_cast<int>(cudaGetLastError());
+  const int tiles = (B + bt - 1) / bt;
+#define MGG_SLSTM(BT, SAVE)                                                \
+  launch_cluster(slstm_cluster_kernel<BT, SAVE>, tiles, H,                 \
+                 layout(hd, BT, C).nt, smem_bytes(hd, BT, C), C, stream,   \
+                 xp, wr, h0, c0, n0, m0, hs, hN, cN, nN, mN,               \
+                 reinterpret_cast<float4*>(gS), cS, nS, mS, B, S, H, hd,   \
+                 bt, C)
+#define MGG_SLSTM_BT(SAVE)                   \
+  switch (bt_instance(bt)) {                 \
+    case 1: return MGG_SLSTM(1, SAVE);       \
+    case 2: return MGG_SLSTM(2, SAVE);       \
+    case 4: return MGG_SLSTM(4, SAVE);       \
+    default: return MGG_SLSTM(8, SAVE);      \
+  }
+  if (save) MGG_SLSTM_BT(true)
+  MGG_SLSTM_BT(false)
+#undef MGG_SLSTM_BT
+#undef MGG_SLSTM
+}
+
+// Bytes of shared memory a block of K9 uses at (hd, bt, C); -1 for a shape
+// the kernel does not take.
+int mgg_slstm_bwd_smem_bytes(int hd, int bt, int C) {
+  return valid(hd, bt, C) ? bwd_smem_bytes(hd, bt, C) : -1;
+}
+
+// K9.  dhs (B, S, H, hd): the gradient of hs; dhN/dcN/dnN/dmN (B, H, hd):
+// of the states after the last step; wr (H, hd, 4·hd); gS, cS, nS, mS:
+// what mgg_slstm_scan saved; c0/n0/m0 (B, H, hd): the states before step
+// 0.  Writes dxp (B, S, H, 4·hd) and dh0/dc0/dn0/dm0 (B, H, hd), the
+// gradients of xp and of the states before step 0.  fp32, contiguous.
+int mgg_slstm_scan_backward(const float* dhs, const float* dhN,
+                            const float* dcN, const float* dnN,
+                            const float* dmN, const float* wr,
+                            const float* gS, const float* cS,
+                            const float* nS, const float* mS,
+                            const float* c0, const float* n0,
+                            const float* m0, float* dxp, float* dh0,
+                            float* dc0, float* dn0, float* dm0, int B, int S,
+                            int H, int hd, int bt, int C,
+                            cudaStream_t stream) {
   if (!valid(hd, bt, C) || S < 0 || B < 0 || H < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0) return static_cast<int>(cudaGetLastError());
   const int tiles = (B + bt - 1) / bt;
-#define MGG_SLSTM(BT)                                                       \
-  launch_cluster(slstm_cluster_kernel<BT>, tiles, H, hd, BT, C, stream, xp, \
-                 wr, h0, c0, n0, m0, hs, hN, cN, nN, mN, B, S, H, hd, bt, C)
+#define MGG_SLSTM_BWD(BT)                                                 \
+  launch_cluster(slstm_bwd_cluster_kernel<BT>, tiles, H,                  \
+                 bwd_layout(hd, BT, C).nt, bwd_smem_bytes(hd, BT, C), C,  \
+                 stream, dhs, dhN, dcN, dnN, dmN, wr,                     \
+                 reinterpret_cast<const float4*>(gS), cS, nS, mS, c0, n0, \
+                 m0, dxp, dh0, dc0, dn0, dm0, B, S, H, hd, bt, C)
   switch (bt_instance(bt)) {
-    case 1: return MGG_SLSTM(1);
-    case 2: return MGG_SLSTM(2);
-    case 4: return MGG_SLSTM(4);
-    default: return MGG_SLSTM(8);
+    case 1: return MGG_SLSTM_BWD(1);
+    case 2: return MGG_SLSTM_BWD(2);
+    case 4: return MGG_SLSTM_BWD(4);
+    default: return MGG_SLSTM_BWD(8);
   }
-#undef MGG_SLSTM
+#undef MGG_SLSTM_BWD
 }
 
 // K8's cluster shape at (B, H, hd, bt, C) running only its per-step
@@ -624,9 +988,9 @@ int mgg_slstm_cluster_probe(float* out, int B, int S, int H, int hd, int bt,
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0) return static_cast<int>(cudaGetLastError());
   const int tiles = (B + bt - 1) / bt;
-#define MGG_PROBE(BT)                                                     \
-  launch_cluster(cluster_probe_kernel<BT>, tiles, H, hd, BT, C, stream, out, \
-                 B, S, H, hd, bt, C)
+#define MGG_PROBE(BT)                                                 \
+  launch_cluster(cluster_probe_kernel<BT>, tiles, H, layout(hd, BT, C).nt, \
+                 smem_bytes(hd, BT, C), C, stream, out, B, S, H, hd, bt, C)
   switch (bt_instance(bt)) {
     case 1: return MGG_PROBE(1);
     case 2: return MGG_PROBE(2);

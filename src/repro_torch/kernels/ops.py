@@ -21,7 +21,9 @@ same backward followed by a column gather at the ids
 (:func:`sparse_gather_sum_grad`, the reference's ``ops.py:112-120``),
 which :class:`_SparseGatherSum` and the compressed ring's backward share.
 :func:`flash_attention` routes the LM's cache-less attention to K7, and
-:func:`slstm_scan` the xLSTM's sLSTM recurrence to K8.
+:func:`slstm_scan` the xLSTM's sLSTM recurrence to K8; when an input needs
+a gradient, through :class:`_SLSTMScan`, whose backward is K9 (the
+reference's autodiff of ``lax.scan`` over the cell).
 """
 from __future__ import annotations
 
@@ -352,9 +354,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
 
 
+class _SLSTMScan(torch.autograd.Function):
+    """The sLSTM recurrence with its backward.  With ``use_kernel``: K8
+    forward, saving each step's gates and states, and K9 backward, then
+    ``dwr = Σ_{b,t} h_{t-1}ᵀ · dxp[b, t]`` as one matmul (outside the
+    recurrence, as the reference leaves its products to XLA).  Without:
+    the plain loop forward and autograd through it backward (on any
+    device, for the tests)."""
+
+    @staticmethod
+    def forward(ctx, xp, wr, h0, c0, n0, m0, use_kernel):
+        ctx.use_kernel = use_kernel
+        state = dict(h=h0, c=c0, n=n0, m=m0)
+        if use_kernel:
+            hs, new, saved = _slstm.slstm_scan(
+                xp.detach(), wr.detach(),
+                {k: v.detach() for k, v in state.items()}, save=True)
+            ctx.save_for_backward(wr, h0, c0, n0, m0, hs,
+                                  *(saved[k] for k in "gcnm"))
+        else:
+            hs, new = ref.slstm_scan_ref(xp, wr, state)
+            ctx.save_for_backward(xp, wr, h0, c0, n0, m0)
+        return (hs, *(new[k] for k in "hcnm"))
+
+    @staticmethod
+    def backward(ctx, dhs, dh, dc, dn, dm):
+        dstate = dict(h=dh, c=dc, n=dn, m=dm)
+        if not ctx.use_kernel:
+            xp, wr, h0, c0, n0, m0 = ctx.saved_tensors
+            dxp, dwr, d0 = ref.slstm_scan_grad_ref(
+                xp, wr, dict(h=h0, c=c0, n=n0, m=m0), dhs, dstate)
+        else:
+            wr, h0, c0, n0, m0, hs, g, cs, ns, ms = (
+                t.detach() for t in ctx.saved_tensors)
+            dxp, d0 = _slstm.slstm_scan_backward(
+                dhs.detach().contiguous(),
+                {k: v.detach().contiguous() for k, v in dstate.items()}, wr,
+                dict(g=g, c=cs, n=ns, m=ms), dict(c=c0, n=n0, m=m0))
+            dwr = None
+            if ctx.needs_input_grad[1]:
+                b, s, heads, hd = hs.shape
+                h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+                dwr = torch.einsum("bshk,bshg->hkg", h_prev,
+                                   dxp.view(b, s, heads, 4 * hd))
+        need = ctx.needs_input_grad
+        return (dxp if need[0] else None, dwr if need[1] else None,
+                *(d0[k] if need[2 + i] else None
+                  for i, k in enumerate("hcnm")), None)
+
+
 def slstm_scan(xp: torch.Tensor, wr: torch.Tensor, state: dict):
     """The sLSTM recurrence over a sequence (``ref.slstm_scan_ref``'s
-    contract): the plain loop on the CPU, K8 on the card."""
+    contract): the plain loop on the CPU (under autograd when an input
+    needs a gradient); on the card K8, or, when an input needs a gradient,
+    :class:`_SLSTMScan` (K8 with its save, then K9)."""
     if _route(xp, "sLSTM scan") == "cpu":
         return ref.slstm_scan_ref(xp, wr, state)
-    return _slstm.slstm_scan(xp, wr, state)
+    if not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xp, wr, *state.values()))):
+        return _slstm.slstm_scan(xp, wr, state)
+    hs, *new = _SLSTMScan.apply(xp, wr, *(state[k] for k in "hcnm"), True)
+    return hs, dict(zip("hcnm", new))

@@ -6,7 +6,7 @@ kernel against them on the card.  They repeat the kernels' arithmetic
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -15,7 +15,7 @@ import torch.nn.functional as F
 __all__ = ["neighbor_gather_sum_ref", "segment_add_ordered_ref",
            "scatter_sum_ordered_ref", "gather_rows_ref", "topk_decompress",
            "sparse_gather_sum_ref", "flash_attention", "slstm_cell",
-           "slstm_scan_ref"]
+           "slstm_scan_ref", "slstm_scan_save_ref", "slstm_scan_grad_ref"]
 
 
 def neighbor_gather_sum_ref(buf: torch.Tensor, nbrs: torch.Tensor,
@@ -171,16 +171,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def _at_least_fp32(t: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def slstm_cell(xt: torch.Tensor, wr: torch.Tensor,
                st: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """One sLSTM step, op for op the reference's ``_slstm_cell``
     (``repro/models/xlstm.py:191-210``): xt ``(B, H, 4·hd)`` fp32, each
     head ``[z | i | f | o]``; wr ``(H, hd, 4·hd)``; ``st`` h/c/n/m ``(B, H,
-    hd)`` fp32 → the new states."""
+    hd)`` fp32 → the new states (fp64 inputs stay fp64, for gradcheck).
+    The normaliser is ``maximum(|n|, 1)`` as the reference writes it, so
+    that at ``|n| == 1`` the gradient splits half and half, as
+    ``jnp.maximum``'s does (``clamp`` would pass all of it)."""
     hd = wr.shape[1]
+    dt = _at_least_fp32(xt)
     h, c, n, m = st["h"], st["c"], st["n"], st["m"]
-    rec = torch.einsum("bhd,hdg->bhg", h.float(), wr.float())
-    gates = xt.float() + rec
+    rec = torch.einsum("bhd,hdg->bhg", h.to(dt), wr.to(dt))
+    gates = xt.to(dt) + rec
     zt = torch.tanh(gates[..., 0 * hd:1 * hd])
     log_i = gates[..., 1 * hd:2 * hd]
     log_f = F.logsigmoid(gates[..., 2 * hd:3 * hd])
@@ -190,7 +198,7 @@ def slstm_cell(xt: torch.Tensor, wr: torch.Tensor,
     f_p = torch.exp(log_f + m - m_new)
     c = f_p * c + i_p * zt
     n = f_p * n + i_p
-    h = ot * c / torch.clamp(n.abs(), min=1.0)
+    h = ot * c / torch.maximum(n.abs(), n.new_ones(()))
     return dict(h=h, c=c, n=n, m=m_new)
 
 
@@ -207,11 +215,65 @@ def slstm_scan_ref(xp: torch.Tensor, wr: torch.Tensor,
     """
     b, s = xp.shape[0], xp.shape[1]
     heads, hd = wr.shape[0], wr.shape[1]
+    dt = _at_least_fp32(xp)
     xs = xp.reshape(b, s, heads, 4 * hd)
-    st = {k: state[k].float() for k in ("h", "c", "n", "m")}
-    hs = torch.empty((b, s, heads, hd), dtype=torch.float32,
-                     device=xp.device)
+    st = {k: state[k].to(dt) for k in ("h", "c", "n", "m")}
+    hs = []
     for t in range(s):
         st = slstm_cell(xs[:, t], wr, st)
-        hs[:, t] = st["h"]
+        hs.append(st["h"])
+    hs = torch.stack(hs, dim=1) if hs else xp.new_empty(
+        (b, 0, heads, hd), dtype=dt)
     return hs, st
+
+
+def slstm_scan_save_ref(xp: torch.Tensor, wr: torch.Tensor,
+                        state: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """Plain version of K8's save: the loop of :func:`slstm_cell` keeping
+    each step's gate pre-activations ``g`` ``(B, S, H, hd, 4)`` (z, i, f, o
+    a unit) and the states ``c``, ``n``, ``m`` ``(B, S, H, hd)`` after each
+    step."""
+    b, s = xp.shape[0], xp.shape[1]
+    heads, hd = wr.shape[0], wr.shape[1]
+    dt = _at_least_fp32(xp)
+    xs = xp.reshape(b, s, heads, 4 * hd).to(dt)
+    st = {k: state[k].to(dt) for k in ("h", "c", "n", "m")}
+    out = dict(g=[], c=[], n=[], m=[])
+    for t in range(s):
+        out["g"].append(xs[:, t] + torch.einsum("bhd,hdg->bhg", st["h"],
+                                                wr.to(dt)))
+        st = slstm_cell(xs[:, t], wr, st)
+        for k in "cnm":
+            out[k].append(st[k])
+    if not s:
+        return dict(g=xs.new_empty((b, 0, heads, hd, 4)),
+                    **{k: xs.new_empty((b, 0, heads, hd)) for k in "cnm"})
+    g = torch.stack(out["g"], 1).reshape(b, s, heads, 4, hd)
+    return dict(g=g.transpose(-1, -2).contiguous(),
+                **{k: torch.stack(out[k], 1) for k in "cnm"})
+
+
+def slstm_scan_grad_ref(xp: torch.Tensor, wr: torch.Tensor,
+                        state: Dict[str, torch.Tensor], dhs: torch.Tensor,
+                        dstate: Optional[Dict[str, torch.Tensor]] = None):
+    """Plain version of K9: the gradients of :func:`slstm_scan_ref` by
+    autograd through its loop, as the reference's come from autodiff of
+    ``lax.scan``.  ``dhs`` ``(B, S, H, hd)`` and ``dstate`` h/c/n/m ``(B,
+    H, hd)`` (None: zeros) are the gradients of hs and of the states after
+    the last step → (dxp ``(B, S, 4·D)``, dwr ``(H, hd, 4·hd)``, the
+    gradients h/c/n/m of ``state``)."""
+    with torch.enable_grad():
+        xp_ = xp.detach().requires_grad_(True)
+        wr_ = wr.detach().requires_grad_(True)
+        st_ = {k: state[k].detach().requires_grad_(True) for k in "hcnm"}
+        hs, st = slstm_scan_ref(xp_, wr_, st_)
+        outs = [hs] + [st[k] for k in "hcnm"]
+        cots = [dhs] + [torch.zeros_like(st[k]) if dstate is None
+                        or dstate.get(k) is None else dstate[k]
+                        for k in "hcnm"]
+        ins = [xp_, wr_] + [st_[k] for k in "hcnm"]
+        grads = torch.autograd.grad(outs, ins, cots, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(ins, grads)]
+    return grads[0], grads[1], dict(zip("hcnm", grads[2:]))

@@ -1,4 +1,4 @@
-"""Thin wrapper around the CUDA sLSTM scan kernel (``csrc/slstm_scan.cu``).
+"""Thin wrappers around the CUDA sLSTM scan kernels (``csrc/slstm_scan.cu``).
 
 Counterpart of ``repro/kernels/slstm_scan.py``: :func:`slstm_scan` is K8,
 for ``slstm_scan_call`` — the sLSTM recurrence over a whole sequence with
@@ -10,8 +10,14 @@ in its blocks' shared memory; :func:`plan` picks the cluster size.  The
 wrapper takes CUDA tensors only, checks them, allocates the outputs,
 launches on PyTorch's current stream, raises if the launch failed and adds
 one to its ``launches`` count.  A tensor that needs a gradient is refused:
-the kernel has no backward, as the reference's has none.  The front door
-that routes a CPU tensor to the plain version is ``kernels/ops.py``.
+the gradient goes through ``ops._SLSTMScan``, whose forward is K8 with
+``save=True`` (each step's gates and states kept for the backward) and
+whose backward is :func:`slstm_scan_backward`, K9: the reverse-time scan
+that the reference gets from autodiff of ``lax.scan``
+(``repro/models/xlstm.py:230``), in the same cluster shape with the roles
+of ``wr``'s rows and columns swapped (its own plan,
+``plan(..., backward=True)``).  The front door that routes a CPU tensor to
+the plain version is ``kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -23,9 +29,9 @@ import torch
 from . import _build
 from .neighbor_agg import _raise_on, _stream
 
-__all__ = ["slstm_scan", "plan", "cluster_sizes", "smem_bytes",
-           "cluster_probe", "MAX_HEAD_DIM", "MAX_BT", "MAX_UNITS",
-           "CLUSTER_SIZES", "SMEM_LIMIT", "reset_launch_counts",
+__all__ = ["slstm_scan", "slstm_scan_backward", "plan", "cluster_sizes",
+           "smem_bytes", "cluster_probe", "MAX_HEAD_DIM", "MAX_BT",
+           "MAX_UNITS", "CLUSTER_SIZES", "SMEM_LIMIT", "reset_launch_counts",
            "launch_counts"]
 
 MAX_HEAD_DIM = 256    # the kernel's instances: hd 1..256
@@ -43,52 +49,57 @@ def _bt_instance(bt: int) -> int:
     return next(n for n in (1, 2, 4, 8) if bt <= n)
 
 
-def smem_bytes(hd: int, bt: int, cluster: int) -> int:
-    """Shared memory a block of K8 uses at (hd, bt, cluster): h twice, the
+def smem_bytes(hd: int, bt: int, cluster: int,
+               backward: bool = False) -> int:
+    """Shared memory a block uses at (hd, bt, cluster).  K8: h twice, the
     block's slice of wr and the xp ring, in fp32, with k padded to a
     multiple of 4·K_SPLIT, and two mbarriers (the kernel's ``layout``;
-    ``mgg_slstm_smem_bytes`` gives the same number)."""
+    ``mgg_slstm_smem_bytes`` gives the same number).  K9 (``backward``):
+    dg twice (4 floats a padded unit a row), the block's rows of wr and
+    two mbarriers (``bwd_layout``, ``mgg_slstm_bwd_smem_bytes``)."""
     bt_i = _bt_instance(bt)
     units = -(-hd // cluster)
     threads = -(-K_SPLIT * units // 32) * 32
     hdk = -(-hd // (4 * K_SPLIT)) * 4 * K_SPLIT
+    if backward:
+        return 4 * (2 * bt_i * 4 * hdk + hdk // K_SPLIT * 4 * threads + 4)
     floats = (2 * bt_i * hdk + hdk // (4 * K_SPLIT) * 16 * threads
               + XP_STAGES * bt_i * 4 * units + 4)
     return 4 * floats
 
 
-def cluster_sizes(hd: int, bt: int) -> list:
-    """The cluster sizes K8 can run at (hd, bt): every block holds at least
-    one unit (the kernel's exchange of h needs every block to send) and at
-    most ``MAX_UNITS``, and fits ``SMEM_LIMIT``."""
+def cluster_sizes(hd: int, bt: int, backward: bool = False) -> list:
+    """The cluster sizes K8 (K9 with ``backward``) can run at (hd, bt):
+    every block holds at least one unit (the kernels' exchange needs every
+    block to send) and at most ``MAX_UNITS``, and fits ``SMEM_LIMIT``."""
     return [c for c in CLUSTER_SIZES
             if (c - 1) * -(-hd // c) < hd and -(-hd // c) <= MAX_UNITS
-            and smem_bytes(hd, bt, c) <= SMEM_LIMIT]
+            and smem_bytes(hd, bt, c, backward) <= SMEM_LIMIT]
 
 
 @functools.lru_cache(maxsize=None)
-def plan(hd: int, bt: int) -> Tuple[int, int]:
-    """(cluster size, shared-memory bytes a block) for head_dim ``hd`` at
-    ``bt`` rows a cluster: of :func:`cluster_sizes` of two blocks or more,
-    the smallest that leaves a block at most ``UNITS_PER_BLOCK`` units,
-    else the largest; a cluster of one block only where no larger one
-    gives every block a unit (hd 1).  A block's step is its share of the
-    product out of shared memory, so fewer units a block is faster
-    (PERF.md §6 times 2, 4 and 8 blocks at hd 32 to 256).  Raises
-    ValueError when no size fits."""
+def plan(hd: int, bt: int, backward: bool = False) -> Tuple[int, int]:
+    """(cluster size, shared-memory bytes a block) of K8 (K9 with
+    ``backward``) for head_dim ``hd`` at ``bt`` rows a cluster: of
+    :func:`cluster_sizes` of two blocks or more, the smallest that leaves
+    a block at most ``UNITS_PER_BLOCK`` units, else the largest; a cluster
+    of one block only where no larger one gives every block a unit (hd 1).
+    A block's step is its share of the product out of shared memory, so
+    fewer units a block is faster (PERF.md §6 times 2, 4 and 8 blocks at
+    hd 32 to 256).  Raises ValueError when no size fits."""
     if hd < 1 or not 1 <= bt <= MAX_BT:
         raise ValueError(f"sLSTM scan: head_dim {hd} or bt {bt} out of range")
-    fits = cluster_sizes(hd, bt)
+    fits = cluster_sizes(hd, bt, backward)
     if not fits:
         c = CLUSTER_SIZES[-1]
         raise ValueError(
             f"sLSTM scan: head_dim {hd} at bt {bt} fits no portable cluster "
             f"({c} blocks hold {-(-hd // c)} units of at most {MAX_UNITS} "
-            f"and need {smem_bytes(hd, bt, c)} bytes of shared memory a "
-            f"block, the limit is {SMEM_LIMIT})")
+            f"and need {smem_bytes(hd, bt, c, backward)} bytes of shared "
+            f"memory a block, the limit is {SMEM_LIMIT})")
     fits = [c for c in fits if c > 1] or fits
     c = next((c for c in fits if -(-hd // c) <= UNITS_PER_BLOCK), fits[-1])
-    return c, smem_bytes(hd, bt, c)
+    return c, smem_bytes(hd, bt, c, backward)
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -103,33 +114,44 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
     if t.requires_grad:
         raise ValueError(f"{name} requires a gradient: the sLSTM scan "
-                         "kernel is forward only")
+                         "kernels are forward only (the gradient goes "
+                         "through ops.slstm_scan)")
 
 
-def slstm_scan(xp: torch.Tensor, wr: torch.Tensor,
-               state: Dict[str, torch.Tensor], *, bt: int = MAX_BT
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """K8: the sLSTM recurrence over xp ``(B, S, 4·D)`` fp32 (head-major:
-    ``reshape(B, S, H, 4·hd)``, each head ``[z | i | f | o]``) with the
-    recurrent weights wr ``(H, hd, 4·hd)`` fp32, from ``state`` h/c/n/m
-    ``(B, H, hd)`` fp32 → (hs ``(B, S, H, hd)`` fp32, the states after the
-    last step).  ``bt`` batch rows share a cluster (and its copy of wr);
-    the result does not depend on it."""
-    if xp.device.type != "cuda":
-        raise ValueError(f"CUDA kernel called on a {xp.device} tensor")
-    if wr.dim() != 3 or xp.dim() != 3:
-        raise ValueError(f"xp {tuple(xp.shape)} and wr {tuple(wr.shape)}: "
-                         "expected (B, S, 4·D) and (H, hd, 4·hd)")
+def _shape_checks(xp_like: torch.Tensor, wr: torch.Tensor, bt: int) -> int:
+    """The checks both wrappers share; returns ``bt`` cut to the batch."""
+    if xp_like.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on a {xp_like.device} tensor")
+    if wr.dim() != 3:
+        raise ValueError(f"wr {tuple(wr.shape)}: expected (H, hd, 4·hd)")
     hd = wr.shape[1]
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd} not in 1..{MAX_HEAD_DIM}")
     if not 1 <= bt <= MAX_BT:
         raise ValueError(f"bt {bt} not in 1..{MAX_BT}")
-    bt = min(bt, max(xp.shape[0], 1))
-    return _launch(xp, wr, state, bt, plan(hd, bt)[0])
+    return min(bt, max(xp_like.shape[0], 1))
 
 
-def _launch(xp, wr, state, bt: int, cluster: int):
+def slstm_scan(xp: torch.Tensor, wr: torch.Tensor,
+               state: Dict[str, torch.Tensor], *, bt: int = MAX_BT,
+               save: bool = False):
+    """K8: the sLSTM recurrence over xp ``(B, S, 4·D)`` fp32 (head-major:
+    ``reshape(B, S, H, 4·hd)``, each head ``[z | i | f | o]``) with the
+    recurrent weights wr ``(H, hd, 4·hd)`` fp32, from ``state`` h/c/n/m
+    ``(B, H, hd)`` fp32 → (hs ``(B, S, H, hd)`` fp32, the states after the
+    last step).  ``bt`` batch rows share a cluster (and its copy of wr);
+    the result does not depend on it.  With ``save`` it returns a third
+    item, what K9 reads: ``g`` ``(B, S, H, hd, 4)``, each step's gate
+    pre-activations z, i, f, o a unit, and ``c``, ``n``, ``m`` ``(B, S, H,
+    hd)``, the states after each step; hs and the states are the same bits
+    as without it."""
+    if xp.dim() != 3:
+        raise ValueError(f"xp {tuple(xp.shape)}: expected (B, S, 4·D)")
+    bt = _shape_checks(xp, wr, bt)
+    return _launch(xp, wr, state, bt, plan(wr.shape[1], bt)[0], save)
+
+
+def _launch(xp, wr, state, bt: int, cluster: int, save: bool = False):
     """One launch of K8 at ``cluster`` blocks a cluster (the plan's, or
     another portable size that fits, to time one against the other)."""
     heads, hd = wr.shape[0], wr.shape[1]
@@ -142,20 +164,84 @@ def _launch(xp, wr, state, bt: int, cluster: int):
     hs = torch.empty((b, s, heads, hd), dtype=torch.float32, device=dev)
     new = dict(zip("hcnm", torch.empty((4, b, heads, hd),
                                        dtype=torch.float32, device=dev)))
+    saved = None
+    if save:
+        saved = dict(g=torch.empty((b, s, heads, hd, 4), dtype=torch.float32,
+                                   device=dev),
+                     **dict(zip("cnm", torch.empty(
+                         (3, b, s, heads, hd), dtype=torch.float32,
+                         device=dev))))
+    ptrs = [saved[k].data_ptr() for k in "gcnm"] if save else [None] * 4
     rc = _build.library("slstm_scan").mgg_slstm_scan(
         xp.data_ptr(), wr.data_ptr(), *(state[k].data_ptr() for k in "hcnm"),
-        hs.data_ptr(), *(new[k].data_ptr() for k in "hcnm"), b, s, heads, hd,
-        bt, cluster, _stream(dev))
+        hs.data_ptr(), *(new[k].data_ptr() for k in "hcnm"), *ptrs, b, s,
+        heads, hd, bt, cluster, _stream(dev))
     if rc:
         placed = "; no such cluster fits on this card" if rc == 701 else ""
         _raise_on(rc, f"slstm_scan (a cluster of {cluster} blocks, "
                       f"{smem_bytes(hd, bt, cluster)} bytes of shared "
                       f"memory each{placed})")
     slstm_scan.launches += 1
-    return hs, new
+    return (hs, new, saved) if save else (hs, new)
 
 
 slstm_scan.launches = 0
+
+
+def slstm_scan_backward(dhs: torch.Tensor, dstate: Dict[str, torch.Tensor],
+                        wr: torch.Tensor, saved: Dict[str, torch.Tensor],
+                        state: Dict[str, torch.Tensor], *,
+                        bt: int = MAX_BT
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """K9: the sLSTM scan's backward.  ``dhs`` ``(B, S, H, hd)`` the
+    gradient of hs, ``dstate`` h/c/n/m ``(B, H, hd)`` of the states after
+    the last step, ``wr`` ``(H, hd, 4·hd)``, ``saved`` what
+    ``slstm_scan(..., save=True)`` returned, ``state`` c/n/m ``(B, H, hd)``
+    the states before the first step; all fp32 → (dxp ``(B, S, H·4·hd)``,
+    the gradients h/c/n/m of the states before the first step).  The
+    gradient of wr is ``Σ_{b,t} h_{t-1}ᵀ · dxp[b, t]``, a product the
+    caller runs (``ops._SLSTMScan``).  ``bt`` does not change the
+    result."""
+    if dhs.dim() != 4:
+        raise ValueError(f"dhs {tuple(dhs.shape)}: expected (B, S, H, hd)")
+    bt = _shape_checks(dhs, wr, bt)
+    return _launch_backward(dhs, dstate, wr, saved, state, bt,
+                            plan(wr.shape[1], bt, backward=True)[0])
+
+
+def _launch_backward(dhs, dstate, wr, saved, state, bt: int, cluster: int):
+    """One launch of K9 at ``cluster`` blocks a cluster."""
+    heads, hd = wr.shape[0], wr.shape[1]
+    b, s = dhs.shape[0], dhs.shape[1]
+    dev = dhs.device
+    _check("dhs", dhs, (b, s, heads, hd), dev)
+    _check("wr", wr, (heads, hd, 4 * hd), dev)
+    _check("saved['g']", saved["g"], (b, s, heads, hd, 4), dev)
+    for k in "cnm":
+        _check(f"saved[{k!r}]", saved[k], (b, s, heads, hd), dev)
+        _check(f"state[{k!r}]", state[k], (b, heads, hd), dev)
+    for k in "hcnm":
+        _check(f"dstate[{k!r}]", dstate[k], (b, heads, hd), dev)
+    dxp = torch.empty((b, s, heads * 4 * hd), dtype=torch.float32,
+                      device=dev)
+    d0 = dict(zip("hcnm", torch.empty((4, b, heads, hd),
+                                      dtype=torch.float32, device=dev)))
+    rc = _build.library("slstm_scan").mgg_slstm_scan_backward(
+        dhs.data_ptr(), *(dstate[k].data_ptr() for k in "hcnm"),
+        wr.data_ptr(), *(saved[k].data_ptr() for k in "gcnm"),
+        *(state[k].data_ptr() for k in "cnm"), dxp.data_ptr(),
+        *(d0[k].data_ptr() for k in "hcnm"), b, s, heads, hd, bt, cluster,
+        _stream(dev))
+    if rc:
+        placed = "; no such cluster fits on this card" if rc == 701 else ""
+        _raise_on(rc, f"slstm_scan_backward (a cluster of {cluster} blocks, "
+                      f"{smem_bytes(hd, bt, cluster, True)} bytes of shared "
+                      f"memory each{placed})")
+    slstm_scan_backward.launches += 1
+    return dxp, d0
+
+
+slstm_scan_backward.launches = 0
 
 
 def cluster_probe(b: int, s: int, heads: int, hd: int, bt: int,
@@ -174,7 +260,9 @@ def cluster_probe(b: int, s: int, heads: int, hd: int, bt: int,
 
 def reset_launch_counts() -> None:
     slstm_scan.launches = 0
+    slstm_scan_backward.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"slstm_scan": slstm_scan.launches}
+    return {"slstm_scan": slstm_scan.launches,
+            "slstm_scan_backward": slstm_scan_backward.launches}

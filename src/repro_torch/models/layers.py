@@ -238,7 +238,8 @@ def _chunked_softmax_attention(
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bshc,bchd->bshd", p, vb)
         m = m_new
-    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return (acc / torch.maximum(l, l.new_full((), 1e-30))[..., None]).to(
+        q.dtype)
 
 
 def _write_cache(cache: KVCache, k: Tensor, v: Tensor, pos: Tensor) -> None:

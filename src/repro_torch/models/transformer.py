@@ -7,14 +7,19 @@ for the dense and recurrent families:
           the sLSTM recurrence on K8 on the card)
 
 Entry points: ``forward`` (the cache-less whole-sequence forward, where
-flash attention runs under ``cfg.use_flash_attention``), ``prefill`` and
+flash attention runs under ``cfg.use_flash_attention``), ``loss_fn`` (the
+next-token cross-entropy that training differentiates), ``prefill`` and
 ``decode_step`` (the ring-buffer KV cache, or the xlstm's fp32 recurrent
 states), ``init_params`` and ``init_cache``.  The parameter tree is the
 reference's leaf for leaf: blocks are stacked with a leading layer (or
 group) axis, and the reference's ``lax.scan`` over them is a loop over
-that axis.  Caches are updated in place.  ``loss_fn`` (training) is not
-ported yet; the ``moe`` and ``hybrid`` families raise
-``NotImplementedError`` naming their ROADMAP item.
+that axis.  ``remat`` (the reference's ``jax.checkpoint`` around each
+block or group) is ``torch.utils.checkpoint`` around each dense block and
+each xlstm group when autograd records the cache-less forward: it changes
+memory, not values.  Caches are updated in place.  The ``moe`` and
+``hybrid`` families raise ``NotImplementedError`` naming their ROADMAP
+item.  Training runs with ``use_flash_attention`` off, as the
+reference's must: K7 is forward only.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..train.tree import tree_map
 from . import xlstm as xlstm_lib
@@ -29,8 +35,8 @@ from .layers import (KVCache, attention_apply, attention_init, dense_init,
                      embed_init, embed_lookup, kv_cache_init, layer_norm,
                      mlp_apply, mlp_init, rms_norm, unembed_logits)
 
-__all__ = ["DistCtx", "init_params", "forward", "prefill", "decode_step",
-           "init_cache", "cache_length"]
+__all__ = ["DistCtx", "init_params", "forward", "loss_fn", "prefill",
+           "decode_step", "init_cache", "cache_length"]
 
 # the families of later slices, and the ROADMAP item that ports each
 _LATER = {"moe": "ROADMAP item 10.2 (the moe family)",
@@ -98,6 +104,11 @@ def _dense_block(bp, h, cfg, positions, cache, ctx):
     return ctx.constrain(h), new_cache
 
 
+def _dense_block_nc(bp, h, cfg, positions, ctx):
+    """A dense block without a cache (what ``remat`` checkpoints)."""
+    return _dense_block(bp, h, cfg, positions, None, ctx)[0]
+
+
 # ---------------------------------------------------------------------------
 # the xlstm groups
 # ---------------------------------------------------------------------------
@@ -122,20 +133,33 @@ def _xlstm_block(bp, h, cfg, kind, state, ctx):
     return ctx.constrain(h + y), new_state
 
 
-def _xlstm_forward(params, cfg, h, cache, ctx):
+def _xlstm_group(params, cfg, g, h, ctx):
+    """Group ``g`` without a cache: one block of every stack in order."""
+    for name, kind in _xlstm_stacks(cfg)[1]:
+        h, _ = _xlstm_block(tree_map(lambda x: x[g], params[name]), h, cfg,
+                            kind, None, ctx)
+    return h
+
+
+def _xlstm_forward(params, cfg, h, cache, ctx, remat=False):
     """The reference's scan over groups (``transformer.py:394-425``): each
     group applies one block of every stack in pattern order; a cache's
-    states are read and overwritten in place."""
+    states are read and overwritten in place.  With ``remat`` (no cache)
+    each group is checkpointed, as the reference's ``group_fn_nc``."""
     n_groups, stacks = _xlstm_stacks(cfg)
     for g in range(n_groups):
+        if cache is None:
+            h = checkpoint(_xlstm_group, params, cfg, g, h, ctx,
+                           use_reentrant=False,
+                           preserve_rng_state=False) if remat \
+                else _xlstm_group(params, cfg, g, h, ctx)
+            continue
         for name, kind in stacks:
             bp = tree_map(lambda x: x[g], params[name])
-            st = None if cache is None else {
-                k: v[g] for k, v in cache[name].items()}
+            st = {k: v[g] for k, v in cache[name].items()}
             h, new = _xlstm_block(bp, h, cfg, kind, st, ctx)
-            if st is not None:
-                for k, v in new.items():
-                    st[k].copy_(v)
+            for k, v in new.items():
+                st[k].copy_(v)
     return h
 
 
@@ -215,9 +239,14 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     cache=None,
     vis: Optional[torch.Tensor] = None,   # vlm: (B, n_vis, d_model)
+    remat: Optional[bool] = None,
 ):
-    """Returns (logits, new_cache); the cache is updated in place."""
+    """Returns (logits, new_cache); the cache is updated in place.
+    ``remat`` (default ``cfg.remat``) checkpoints each dense block or
+    xlstm group when autograd records a cache-less forward."""
     _ported(cfg)
+    remat = (cfg.remat if remat is None else remat) and cache is None \
+        and torch.is_grad_enabled()
     b, s = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -234,13 +263,17 @@ def forward(
     h = ctx.constrain(h)
 
     if cfg.family == "xlstm":
-        h = _xlstm_forward(params, cfg, h, cache, ctx)
+        h = _xlstm_forward(params, cfg, h, cache, ctx, remat)
     else:
         kv = None if cache is None else cache["kv"]
         for i in range(cfg.n_layers):
             bp = tree_map(lambda x: x[i], params["blocks"])
-            h, _ = _dense_block(bp, h, cfg, positions,
-                                None if kv is None else kv.layer(i), ctx)
+            if remat:
+                h = checkpoint(_dense_block_nc, bp, h, cfg, positions, ctx,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                h, _ = _dense_block(bp, h, cfg, positions,
+                                    None if kv is None else kv.layer(i), ctx)
 
     h = _norm(h, params["final_norm"], cfg)
     if n_vis:
@@ -254,16 +287,36 @@ def forward(
     return logits, cache
 
 
+def loss_fn(params, cfg, batch: Dict[str, torch.Tensor], *,
+            ctx: DistCtx = DistCtx()):
+    """Next-token CE (mean over non-masked positions), the reference's
+    ``loss_fn`` (``transformer.py:442``): ``batch`` holds ``tokens`` (B,
+    S), optionally ``loss_mask`` (B, S) and, for the vlm family, ``vis``
+    → ``(loss, dict(loss, ntokens))``."""
+    tokens = batch["tokens"]
+    logits, _ = forward(params, cfg, tokens, ctx=ctx, vis=batch.get("vis"))
+    tgt = tokens[:, 1:]
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    ll = torch.gather(logp, -1, tgt[..., None].long())[..., 0]
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(ll) if mask is None \
+        else mask[:, 1:].to(ll.dtype)
+    ntokens = mask.sum()
+    loss = -(ll * mask).sum() / torch.maximum(ntokens, ntokens.new_ones(()))
+    return loss, dict(loss=loss, ntokens=ntokens)
+
+
 def prefill(params, cfg, tokens, cache, *, ctx: DistCtx = DistCtx(),
             vis=None):
     """Run the prompt; fills caches; returns (last-position logits, cache)."""
     logits, new_cache = forward(params, cfg, tokens, ctx=ctx, cache=cache,
-                                vis=vis)
+                                vis=vis, remat=False)
     return logits[:, -1], new_cache
 
 
 def decode_step(params, cfg, token, pos, cache, *, ctx: DistCtx = DistCtx()):
     """One decode step. token: (B,) int; pos: (B,) absolute position."""
     logits, new_cache = forward(params, cfg, token[:, None], ctx=ctx,
-                                positions=pos[:, None], cache=cache)
+                                positions=pos[:, None], cache=cache,
+                                remat=False)
     return logits[:, 0], new_cache

@@ -135,7 +135,7 @@ def mlstm_apply(
         num = num + torch.einsum("bihd,bhde,bih->bihe", qf, c, w_inter)
         den = scores.sum(dim=2)                                # (B,c,H)
         den = den + torch.einsum("bihd,bhd,bih->bih", qf, n, w_inter)
-        hs.append(num / torch.clamp(den.abs(), min=1.0)[..., None])
+        hs.append(num / torch.maximum(den.abs(), den.new_ones(()))[..., None])
         # carry update (stabilised at the chunk-final max)
         m_last = m_new[:, -1]                                  # (B,H)
         wk_c = torch.exp(cum_f[:, -1:, :] - cum_f + li - m_last[:, None, :])

@@ -12,22 +12,24 @@
 
 With the same layout, a checkpoint the port writes is one the reference's
 ``restore`` reads, and the other way round.  bf16 leaves are stored as
-their raw 16 bits, as the reference stores them.  The asynchronous
-``CheckpointManager`` waits for the LM slice.
+their raw 16 bits, as the reference stores them.  ``CheckpointManager``
+saves every ``every`` steps on a background thread from a host copy taken
+before the thread starts, so the caller may go on updating the tensors.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
-from typing import Any, Dict, Optional
+import threading
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .tree import tree_flatten_with_names, tree_unflatten
+from .tree import tree_flatten_with_names, tree_map, tree_unflatten
 
-__all__ = ["save", "restore", "latest_step"]
+__all__ = ["save", "restore", "latest_step", "CheckpointManager"]
 
 
 def _to_numpy(leaf) -> tuple:
@@ -101,3 +103,60 @@ def restore(ckpt_dir: str, step: int, target: Any, device="cpu") -> Any:
             t = torch.from_numpy(arr)
         leaves.append(t.to(device))
     return tree_unflatten(target, leaves)
+
+
+class CheckpointManager:
+    """Periodic (optionally asynchronous) checkpoints with restart support
+    (the reference's ``CheckpointManager``, ``checkpoint.py:121``)."""
+
+    def __init__(self, ckpt_dir: str, *, every: int = 100, keep: int = 3,
+                 async_save: bool = True):
+        self.dir = ckpt_dir
+        self.every = every
+        self.keep = keep
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def maybe_save(self, step: int, tree: Any, extra=None) -> bool:
+        """Save ``tree`` as ``step`` when ``step`` is a multiple of
+        ``every``; returns whether it did.  The host copy is taken here,
+        the files are written on a thread (``wait`` joins it)."""
+        if step % self.every:
+            return False
+        self.wait()
+        host = tree_map(lambda x: torch.as_tensor(x).detach().to(
+            "cpu", copy=True), tree)
+        if not self.async_save:
+            save(self.dir, step, host, keep=self.keep, extra=extra)
+            return True
+
+        def write():
+            try:
+                save(self.dir, step, host, keep=self.keep, extra=extra)
+            except BaseException as e:      # raised again by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+        return True
+
+    def wait(self) -> None:
+        """Join the last save; raise what it raised."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def restore_latest(self, target: Any, device="cpu"
+                       ) -> Tuple[Optional[int], Any]:
+        """``(step, tree)`` of the newest checkpoint, loaded into the
+        structure of ``target`` on ``device``; ``(None, None)`` when there
+        is none."""
+        self.wait()
+        step = latest_step(self.dir)
+        if step is None:
+            return None, None
+        return step, restore(self.dir, step, target, device)

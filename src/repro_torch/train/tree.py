@@ -57,16 +57,24 @@ def tree_unflatten(tree: Any, leaves) -> Any:
     return take(tree)
 
 
-def value_and_grad(fn: Callable[[Any], torch.Tensor], params: Any
-                   ) -> Tuple[torch.Tensor, Any]:
+def value_and_grad(fn: Callable[[Any], Any], params: Any, *,
+                   has_aux: bool = False) -> Tuple[Any, Any]:
     """``(fn(params), d fn / d params)``: the gradient tree has the
     structure of ``params``; a leaf that ``fn`` does not reach gets zeros.
     ``params`` are not modified (the gradient flows through detached
-    copies that require it)."""
+    copies that require it).  With ``has_aux``, ``fn`` returns ``(loss,
+    aux)`` and the value is ``(loss, aux)`` with aux's tensors detached,
+    as ``jax.value_and_grad(..., has_aux=True)``."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
-        loss = fn(tree_unflatten(params, leaves))
+        out = fn(tree_unflatten(params, leaves))
+        loss = out[0] if has_aux else out
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if gr is None else gr
              for p, gr in zip(leaves, grads)]
-    return loss.detach(), tree_unflatten(params, grads)
+    grads = tree_unflatten(params, grads)
+    if not has_aux:
+        return loss.detach(), grads
+    aux = tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor)
+                   else t, out[1])
+    return (loss.detach(), aux), grads

@@ -6,7 +6,9 @@ store (bitwise across capacities, its fetches never waiting for the
 card) and tiered serving == resident serving, a serving cluster of one
 == the bare engine, the bulk and fetch baselines' K1/K3/K5 launches ==
 their plain versions, the hardware probes, and the LM's flash attention
-(K7) and its cache-less forward on the card against the CPU.
+(K7) and its cache-less forward on the card against the CPU, and the
+sLSTM scan's save (K8) and backward (K9) against their plain versions,
+with K9's bitwise invariants and the xlstm's training on the card.
 
 These tests need an NVIDIA card and nvcc (a CUDA kernel has no CPU mode);
 without them they skip.  On the card, run them with
@@ -943,6 +945,172 @@ def test_slstm_scan_refuses_what_it_does_not_take(cuda):
         k8.slstm_scan(z, torch.zeros(1, 260, 1040, device=cuda),
                       {k: torch.zeros(1, 1, 260, device=cuda)
                        for k in "hcnm"})
+
+
+def _grads_close(got, want, what, rtol=1e-4):
+    """K9 against its plain version: rtol 1e-4, atol 1e-4 × max |want|."""
+    torch.testing.assert_close(got, want, rtol=rtol,
+                               atol=rtol * want.abs().max().item(),
+                               msg=what)
+
+
+def _k9(xp, wr, st, dhs, dst, bt=k8.MAX_BT):
+    _, _, saved = k8.slstm_scan(xp, wr, st, save=True)
+    return k8.slstm_scan_backward(dhs, dst, wr, saved, st, bt=bt)
+
+
+def _same_bwd(a, b):
+    return torch.equal(a[0], b[0]) and all(torch.equal(a[1][k], b[1][k])
+                                           for k in "hcnm")
+
+
+@pytest.mark.parametrize("b,s,h,hd", SLSTM_SHAPES)
+def test_slstm_save_leaves_k8_bitwise_and_holds_the_plain_states(
+        cuda, b, s, h, hd):
+    xp, wr, st = _slstm_inputs(np.random.default_rng(s + hd + 1), b, s, h,
+                               hd, cuda)
+    plain = k8.slstm_scan(xp, wr, st)
+    hs, new, saved = k8.slstm_scan(xp, wr, st, save=True)
+    assert _same(plain, (hs, new))
+    want = ref.slstm_scan_save_ref(xp, wr, st)
+    for k in "gcnm":
+        torch.testing.assert_close(saved[k], want[k], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,hd", SLSTM_SHAPES)
+def test_slstm_scan_backward_matches_plain(cuda, b, s, h, hd):
+    rng = np.random.default_rng(s + hd + 2)
+    xp, wr, st = _slstm_inputs(rng, b, s, h, hd, cuda)
+    dhs = torch.from_numpy(rng.normal(size=(b, s, h, hd)).astype(
+        np.float32)).to(cuda)
+    dst = _slstm_inputs(rng, b, 1, h, hd, cuda)[2]
+    want = ref.slstm_scan_grad_ref(xp, wr, st, dhs, dst)
+    before = k8.slstm_scan_backward.launches
+    x, w = xp.clone().requires_grad_(), wr.clone().requires_grad_()
+    s0 = {k: v.clone().requires_grad_() for k, v in st.items()}
+    hs, new = ops.slstm_scan(x, w, s0)
+    got = torch.autograd.grad([hs] + [new[k] for k in "hcnm"],
+                              [x, w] + [s0[k] for k in "hcnm"],
+                              [dhs] + [dst[k] for k in "hcnm"])
+    assert k8.slstm_scan_backward.launches == before + 1
+    _grads_close(got[0], want[0], "dxp")
+    _grads_close(got[1], want[1], "dwr")
+    for i, k in enumerate("hcnm"):
+        _grads_close(got[2 + i], want[2][k], f"d{k}0")
+
+
+@pytest.mark.parametrize("hd", [16, 100, 192, 256])
+def test_slstm_scan_backward_bitwise_invariants(cuda, hd):
+    """Two launches equal; a row's gradients do not depend on B, bt or the
+    other rows; one launch over S equals the launch over the last steps
+    then the one over the first with the gradients carried; every cluster
+    size gives the same bits."""
+    b, s, h = 5, 40, 2
+    rng = np.random.default_rng(hd)
+    xp, wr, st = _slstm_inputs(rng, b, s, h, hd, cuda)
+    dhs = torch.from_numpy(rng.normal(size=(b, s, h, hd)).astype(
+        np.float32)).to(cuda)
+    dst = _slstm_inputs(rng, b, 1, h, hd, cuda)[2]
+    _, _, saved = k8.slstm_scan(xp, wr, st, save=True)
+    whole = k8.slstm_scan_backward(dhs, dst, wr, saved, st)
+    assert _same_bwd(whole, k8.slstm_scan_backward(dhs, dst, wr, saved, st))
+    for bt in (1, 3, 8):
+        assert _same_bwd(k8.slstm_scan_backward(dhs, dst, wr, saved, st,
+                                                bt=bt), whole), bt
+    for c in k8.cluster_sizes(hd, b, backward=True):
+        assert _same_bwd(k8._launch_backward(dhs, dst, wr, saved, st, b, c),
+                         whole), c
+    for i in (0, 3):
+        row = lambda d: {k: v[i:i + 1].contiguous()         # noqa: E731
+                         for k, v in d.items()}
+        solo = k8.slstm_scan_backward(dhs[i:i + 1].contiguous(), row(dst),
+                                      wr, row(saved), row(st))
+        assert _same_bwd(solo, (whole[0][i:i + 1], row(whole[1])))
+    for cut in (1, 17):
+        part = lambda d, sl: {k: v[:, sl].contiguous()      # noqa: E731
+                              for k, v in d.items()}
+        mid = dict(c=saved["c"][:, cut - 1].contiguous(),
+                   n=saved["n"][:, cut - 1].contiguous(),
+                   m=saved["m"][:, cut - 1].contiguous())
+        dx2, carried = k8.slstm_scan_backward(
+            dhs[:, cut:].contiguous(), dst, wr,
+            part(saved, slice(cut, None)), mid)
+        dx1, d0 = k8.slstm_scan_backward(
+            dhs[:, :cut].contiguous(), carried, wr,
+            part(saved, slice(None, cut)), st)
+        assert _same_bwd((torch.cat([dx1, dx2], dim=1), d0), whole), cut
+
+
+def test_slstm_backward_plan_is_the_kernels_layout(cuda):
+    from repro_torch.kernels import _build
+    lib = _build.library("slstm_scan")
+    optin = torch.cuda.get_device_properties(cuda) \
+        .shared_memory_per_block_optin
+    for hd in range(1, k8.MAX_HEAD_DIM + 1):
+        for bt in range(1, k8.MAX_BT + 1):
+            for c in k8.CLUSTER_SIZES:
+                want = k8.smem_bytes(hd, bt, c, backward=True) \
+                    if c in k8.cluster_sizes(hd, bt, backward=True) else -1
+                assert lib.mgg_slstm_bwd_smem_bytes(hd, bt, c) == want, \
+                    (hd, bt, c)
+            assert k8.plan(hd, bt, backward=True)[1] <= optin
+
+
+def test_slstm_function_gradcheck_and_card_gradients(cuda):
+    """``_SLSTMScan``'s plain path passes gradcheck in fp64 on the card,
+    and its kernel path (K8 with the save, K9, the dwr matmul) gives the
+    plain path's fp32 gradients."""
+    rng = np.random.default_rng(11)
+    b, s, h, hd = 2, 5, 1, 3
+    xp, wr, st = _slstm_inputs(rng, b, s, h, hd, cuda)
+    args64 = [xp.double().requires_grad_(), wr.double().requires_grad_()] \
+        + [st[k].double().requires_grad_() for k in "hcnm"]
+    assert torch.autograd.gradcheck(
+        lambda *a: ops._SLSTMScan.apply(*a, False), args64, eps=1e-6,
+        atol=1e-6, rtol=1e-5)
+    xp, wr, st = _slstm_inputs(rng, 3, 64, 2, 192, cuda)
+    outs = []
+    for use_kernel in (True, False):
+        args = [xp.clone().requires_grad_(), wr.clone().requires_grad_()] \
+            + [st[k].clone().requires_grad_() for k in "hcnm"]
+        hs, *_ = ops._SLSTMScan.apply(*args, use_kernel)
+        outs.append(torch.autograd.grad((hs * hs).sum(), args))
+    for g, w in zip(*outs):
+        _grads_close(g, w, "card against plain")
+
+
+def test_xlstm_training_on_card_matches_cpu(cuda):
+    """The smoke xlstm-125m's loss and gradients, fp32, remat on: K8 and
+    K9 on the card (two K8 and one K9 launch an sLSTM layer) against the
+    plain loop on the CPU; then the launcher's steps on the card."""
+    import dataclasses
+    from repro_torch.launch import train as ltrain
+    from repro_torch.train import LMDataConfig, lm_batch, make_loss_fn
+    from repro_torch.train.trainer import _grads_of
+    cfg = dataclasses.replace(LMC.get_smoke_config("xlstm-125m"),
+                              compute_dtype="float32", remat=True)
+    params = LMT.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = {k: torch.from_numpy(v) for k, v in lm_batch(LMDataConfig(
+        vocab=cfg.vocab, seq_len=40, global_batch=3, doc_len=16), 0).items()}
+    loss_fn = make_loss_fn(cfg, LMT.DistCtx())
+    want = _grads_of(loss_fn, params, batch)
+    n_slstm = cfg.n_layers // 2
+    k8.reset_launch_counts()
+    got = _grads_of(loss_fn, tree_map(lambda t: t.to(cuda), params),
+                    {k: v.to(cuda) for k, v in batch.items()})
+    assert k8.launch_counts() == {"slstm_scan": 2 * n_slstm,
+                                  "slstm_scan_backward": n_slstm}
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=2e-4, atol=2e-4)
+    for g, w in zip(tree_leaves(got[2]), tree_leaves(want[2])):
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-4,
+                                   atol=2e-4 * w.abs().max().item())
+    k8.reset_launch_counts()
+    out = ltrain.main(["--arch", "xlstm-125m", "--smoke", "--steps", "2",
+                       "--seq", "32", "--batch", "2"])
+    assert out["device"].startswith("cuda") and len(out["losses"]) == 2
+    assert np.isfinite(out["losses"]).all()
+    assert k8.launch_counts() == {"slstm_scan": 4 * n_slstm,
+                                  "slstm_scan_backward": 2 * n_slstm}
 
 
 def test_xlstm_forward_on_card_matches_cpu(cuda):
