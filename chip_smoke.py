@@ -202,10 +202,10 @@ Phases, each of which passes or ends the run with a non-zero exit:
    K8 launches counted, every request answered with 32 tokens, tokens/s,
    prefill and decode-step times.
 17. LM training at full width, after phase 12's state is freed (K9 is
-   also swept in phase 2: hd 8/16/64/192, H 1/2/4, B 1/3/8, S 1/7/256
-   against autograd through the plain loop, rtol 1e-4 and atol 1e-4 x
-   the gradient's max |.|, with its bitwise invariants, and K8's save
-   bitwise K8 without it).  (a) ``launch/train.py --arch xlstm-125m`` at
+   also swept in phase 2: hd 8/16/64/192/256, H 1/2/4, B 1/3/8, S
+   1/7/256 against autograd through the plain loop, rtol 1e-4 and atol
+   1e-4 x the gradient's max |.|, with its bitwise invariants, and K8's
+   save bitwise K8 without it).  (a) ``launch/train.py --arch xlstm-125m`` at
    its defaults (seq 256, batch 8, remat on, bf16 compute) for 30 AdamW
    steps, K8 and K9 launches counted (12 and 6 a step), the loss of the
    last 5 steps below the first 5's, each step's ms and the peak GB;
@@ -216,7 +216,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
    B x S = 2 x 4096, timed (CUDA events, host clock) and profiled (device
    ms by kind: K8, K9, matrix products, the rest), its parts timed
    alone, and K9 at one layer's shapes beside its plain version, its
-   bound and every cluster size, held within 1e-3 of each gradient's rms;
+   bound, its rows a cluster, every cluster size, its exchange alone (the
+   backward cluster probe) and the launcher's shape (B 8, S 256), held
+   within 1e-3 of each gradient's rms;
    (d) 12 steps with a failure injected at step 8 and checkpoints every
    5 (one restart, the last checkpoint step 10), traced losses bitwise
    the untraced ones over 5 steps, and accumulation over 4 microbatches
@@ -349,12 +351,14 @@ BF16_RMS_RATIO = 1.5
 # K8 sweep: head_dim, heads, batch rows, steps (each combination)
 SLSTM_SWEEP = ((8, 16, 64, 192), (1, 2, 4), (1, 3, 8), (1, 7, 256, 4096))
 # K9 sweep: the same but S 4096 (the plain version is autograd through
-# the loop), and its tolerance against the plain version: rtol K9_TOL,
+# the loop) and with hd 256 (wr's rows in registers, 32 float4s a thread),
+# and its tolerance against the plain version: rtol K9_TOL,
 # atol K9_TOL x the tensor's max |.| at S <= 256; at S = 4096 each
 # tensor's rms difference within K9_RMS_TOL of its rms (K8's forward is
 # already within 1e-4 of the plain loop's, and the recurrence carries
 # that through S steps both ways)
-SLSTM_BWD_SWEEP = ((8, 16, 64, 192), (1, 2, 4), (1, 3, 8), (1, 7, 256))
+SLSTM_BWD_SWEEP = ((8, 16, 64, 192, 256), (1, 2, 4), (1, 3, 8),
+                   (1, 7, 256))
 K9_TOL = 1e-4
 K9_RMS_TOL = 1e-3
 # phase 17: LM training, xlstm-125m at full width through the launcher at
@@ -598,7 +602,8 @@ def main():
         slstm_backward_tolerance=f"rtol {K9_TOL}, atol {K9_TOL} x max|.| "
                                  "of each gradient",
         slstm_backward_bitwise=[
-            "row alone == row in its batch", "bt 1 == bt 8",
+            "row alone == row in its batch",
+            "bt 1 == bt 8 == the plan's rows (bwd_rows)",
             "one launch over S == the last steps then the first with the "
             "gradients carried", "two launches equal",
             "K8 with its save == K8 without (hs and states)"],
@@ -3823,13 +3828,14 @@ def _plain_grads(ref, xp, wr, st, dhs, dst):
 
 
 def sweep_slstm_backward(torch, ops, ref, K, dev, gen):
-    """Phase 2's K9 sweep: hd 8/16/64/192, H 1/2/4, B 1/3/8, S 1/7/256,
+    """Phase 2's K9 sweep: hd 8/16/64/192/256, H 1/2/4, B 1/3/8, S 1/7/256,
     each from a random state with random gradients of hs and of the final
     states.  K8's save leaves hs and the states bitwise and holds the
     plain loop's gates and states within SLSTM_TOL; K9 (through
     ``ops.slstm_scan`` under autograd) within K9_TOL of the plain
     version; and K9's bitwise invariants: two launches equal, a row alone
-    equal to it in its batch, bt 1 equal to bt 8, one launch over S equal
+    equal to it in its batch, bt 1 and bt 8 equal to the plan's rows
+    (``bwd_rows``), one launch over S equal
     to the launch over the last steps then the one over the first with
     the gradients carried.  Returns (cases, the largest absolute
     difference, the largest difference over the tensor's max |.|)."""
@@ -3863,9 +3869,10 @@ def sweep_slstm_backward(torch, ops, ref, K, dev, gen):
                     check(same(whole, k9m.slstm_scan_backward(
                         dhs, dst, wr, saved, st)),
                         f"{what}: two launches differ")
-                    check(same(whole, k9m.slstm_scan_backward(
-                        dhs, dst, wr, saved, st, bt=1)),
-                        f"{what}: bt 1 differs from bt 8")
+                    for bt in (1, 8):
+                        check(same(whole, k9m.slstm_scan_backward(
+                            dhs, dst, wr, saved, st, bt=bt)),
+                            f"{what}: bt {bt} differs from the plan's rows")
                     i = b - 1
                     row = lambda d: {k: v[i:i + 1].contiguous()
                                      for k, v in d.items()}
@@ -4301,14 +4308,18 @@ def time_slstm_backward(torch, K, ops, ref, dev, rate, flops):
     Bound: the step-to-step products' 2·B·S·H·hd·4·hd flops over the fp32
     peak, or dhs, the saved gates and states, wr and the states read once
     and dxp and the initial states' gradients written once over the memory
-    rate, whichever is larger.  Also the plan's cluster size and shared
-    memory a block, µs a step, and every cluster size that fits timed in
-    turns and held bitwise to the plan's."""
+    rate, whichever is larger.  Also the plan's rows and blocks a cluster,
+    shared memory a block and where wr's rows sit, µs a step, every cluster
+    size that fits timed in turns and held bitwise to the plan's, K9's
+    exchange alone (the backward cluster probe: a float4 a unit a row to
+    every block, the floor of a step) at each size, and K9 at the
+    launcher's shape (B 8, S 256)."""
     k9m = K.slstm_scan
     gen = np.random.default_rng(17)
     b, s, h, hd = TRAIN_4K_B, TRAIN_4K_S, 4, 192
     xp, wr, st, dhs, dst = _k9_inputs(torch, gen, b, s, h, hd, dev)
-    bt = min(k9m.MAX_BT, b)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bt = k9m.bwd_rows(b, h, sms)
     cluster, smem = k9m.plan(hd, bt, backward=True)
     sizes = k9m.cluster_sizes(hd, bt, backward=True)
     with torch.inference_mode():
@@ -4326,6 +4337,18 @@ def time_slstm_backward(torch, K, ops, ref, dev, rate, flops):
                     f"{cluster}")
                 by_c[c].append(_time(torch, lambda c=c: k9m._launch_backward(
                     dhs, dst, wr, saved, st, bt, c), reps=3, warmup=1))
+        probe_ms = {}
+        for c in sizes:
+            run = lambda c=c: k9m.cluster_probe(b, s, h, hd, bt, c, dev,
+                                                backward=True)
+            check(bool((run() == s).all().item()),
+                  f"K9's exchange probe at {c} blocks lost a store")
+            probe_ms[c] = _time(torch, run, reps=5, warmup=1)
+        xl, wl, sl, dl, tl = _k9_inputs(torch, gen, 8, 256, h, hd, dev)
+        _, _, savl = k9m.slstm_scan(xl, wl, sl, save=True)
+        t_launcher = _time(torch, lambda: k9m.slstm_scan_backward(
+            dl, tl, wl, savl, sl), reps=20, warmup=2)
+        del xl, wl, sl, dl, tl, savl
     kern = _kernel_grads(torch, ops, xp, wr, st, dhs, dst)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4353,9 +4376,19 @@ def time_slstm_backward(torch, K, ops, ref, dev, rate, flops):
                 dtype="float32", shape=dict(batch=b, seq=s, heads=h,
                                             head_dim=hd),
                 flops=n_flops, bytes=nbytes, peak_flops=flops["float32"],
-                cluster=cluster, smem_bytes_per_block=smem,
+                cluster=cluster, rows_per_cluster=bt,
+                smem_bytes_per_block=smem,
+                wr_in_registers=k9m.bwd_wr_in_registers(hd, cluster),
                 us_per_step=t_k9 * 1e3 / s,
                 ms_by_cluster={str(c): v for c, v in by_c.items()},
+                exchange_probe_ms=probe_ms[cluster],
+                exchange_probe_us_per_step=probe_ms[cluster] * 1e3 / s,
+                exchange_probe_ms_by_cluster={str(c): v
+                                              for c, v in probe_ms.items()},
+                launcher_shape=dict(batch=8, seq=256, heads=h, head_dim=hd,
+                                    rows_per_cluster=k9m.bwd_rows(8, h, sms)),
+                launcher_shape_ms=t_launcher,
+                launcher_shape_us_per_step=t_launcher * 1e3 / 256,
                 rms_diff_over_rms_at_4096=rms,
                 rms_tolerance=K9_RMS_TOL)
 

@@ -98,6 +98,8 @@ _SIGNATURES = {
     "mgg_slstm_bwd_smem_bytes": [_I, _I, _I],
     # out, B, S, H, hd, bt, cluster, stream
     "mgg_slstm_cluster_probe": [_P] + [_I] * 6 + [_P],
+    # out, B, S, H, hd, bt, cluster, stream
+    "mgg_slstm_bwd_cluster_probe": [_P] + [_I] * 6 + [_P],
 }
 
 

@@ -134,27 +134,62 @@
 // What bounds it.  As K8: on paper 2·hd·4·hd flops a (row, head) a step
 // (the step-to-step product), 0.144 ms at B = 2, S = 4096, H = 4, hd = 192
 // over 67 TFLOP/s fp32; in practice one step's latency: S dependent
-// steps, each a product of the previous step's dg.
+// steps, each a product of the previous step's dg, whose exchange moves
+// 4·hd floats a row to every block of the cluster, four times K8's h.
+// Its floor, the exchange alone (mgg_slstm_bwd_cluster_probe, K9's lanes
+// and bytes): 0.30 us a step at that shape against 0.25 for K8's, on one
+// "NVIDIA H100 80GB HBM3, 700.00 W" (tools/k9_variants.py, PERF.md §6).
 // Design.  K8's skeleton with the roles of wr's rows and columns swapped:
 // a cluster of C blocks a (row tile, head), block c holding the rows of wr
-// of its units U_c (all 4·hd columns) in shared memory, forming its units'
-// dg elementwise (thread s of a unit, row s, as in K8), and sending each
-// unit's dg (four floats, one st.async.v4) to every block of the cluster
-// onto the same two mbarriers; each block then sums (dg . wr^T)[u] for its
-// units, kSplit = 8 threads a unit over the j range (slice s holds units
-// v = 8i + s, i ascending, their four gates in order, with __fmaf_rn from
-// 0), the slices added pairwise by __shfl_xor_sync as in K8.  A step moves
-// 4·hd floats a row between the blocks, four times K8's h.  The step's
-// inputs (g_t, dhs[t], the states before it) are loaded one step ahead
-// into registers.  Shared memory: dg 2 · BT · hdk · 4 floats and wr
-// hdk / 8 · nt float4s (122,896 bytes at BT = 8, hd = 192, C = 8;
+// of its units U_c (all 4·hd columns), forming its units' dg elementwise
+// and sending each unit's dg (four floats, one st.async.v4) to every block
+// of the cluster onto the same two mbarriers; each block then sums
+// (dg . wr^T)[u] for its units, kSplit = 8 threads a unit over the j range
+// (slice s holds units v = 8i + s, i ascending, their four gates in order,
+// with __fmaf_rn from 0), the slices added pairwise by __shfl_xor_sync as
+// in K8.  What the design does about the step's latency:
+//  * wr's rows sit in registers, hdk / 8 float4s a thread (96 floats at
+//    hd 192), one instance a padded hd, wherever hdk <= 256 and the block
+//    has at most 256 threads (its __launch_bounds__; no instance spills);
+//    else in shared memory, read in the same order, so both give the same
+//    bits.  In shared memory the product read 73.7 KB of wr a block a
+//    step;
+//  * before the step's wait each thread recomputes the forward's step from
+//    its saved gates and states (forward_step: the transcendentals, the
+//    quotients' factors, the tie rules), none of which depends on the
+//    exchanged dg, and pins it there (computed()); after the wait only dh
+//    = dhs[t] + dg_{t+1} . wr^T and its chain rule (grad_step: two
+//    quotients, some fifteen products and sums) remain;
+//  * each thread keeps the inputs of the next kBwdAhead = 2 steps (gates,
+//    dhs, the states before the step) in flight in registers;
+//  * every lane of a unit computes the update of row s % rows (the same
+//    operations on the same inputs as the owner, lane s < rows), so the C
+//    stores of each (row, unit) spread over its lanes;
+//  * the wrapper's plan (kernels/slstm_scan.py::bwd_rows) picks the rows a
+//    cluster: the fewest that keep at most one cluster a 16 SMs.  A step's
+//    product sums every row of the cluster, so fewer rows is a shorter
+//    step: at B 2, 2 rows a cluster cost 0.30 us a step more than 1, of
+//    which 0.08 remain without the product (the exchange probe: +0.06).
+// At that shape a step takes about 0.93 us (3.8 ms a launch) against 1.91
+// us for the first, simple design (wr in shared memory, the recompute
+// after the wait, inputs one step ahead, the owner's C stores, 2 rows a
+// cluster), with the same bits; 0.61 us without its product, whose dg
+// reads (24 float4s a row a thread a step) are most of the rest.
+// Measured and dropped (patched builds of this source, timed in one call
+// of tools/k9_variants.py): four accumulators a row (a 24-fma chain for
+// 96; other bits) -2 % at B 2, S 4096, -1 % at B 8, S 256; the quotients
+// as products by reciprocals (other bits) +4 %; inputs three steps ahead
+// +1 %; a cluster of 16 (a non-portable size) +6 %, faster only where a
+// batch fills fewer clusters (B 1: -10 %).  Shared memory: dg 2 · BT · hdk
+// · 4 floats, wr hdk / 8 · nt float4s where it is not in registers, two
+// mbarriers (49,168 bytes at BT = 8, hd = 192, C = 8;
 // mgg_slstm_bwd_smem_bytes).
 // Invariants, bitwise, by construction as K8's: the association depends
-// only on hd (not on bt, C, the row or timing); two launches are equal; a
-// row alone equals the row in its batch; one launch over S equals the
-// launch over the last S2 steps then the one over the first S1 with the
-// gradients dh (its dh0), dc, dn, dm carried, the states before the second
-// launch's steps being those saved at step S1 - 1.
+// only on hd (not on bt, C, where wr sits, the row or timing); two launches
+// are equal; a row alone equals the row in its batch; one launch over S
+// equals the launch over the last S2 steps then the one over the first S1
+// with the gradients dh (its dh0), dc, dn, dm carried, the states before
+// the second launch's steps being those saved at step S1 - 1.
 //
 // Every launch runs on the caller's stream and allocates nothing.
 // mgg_slstm_scan and mgg_slstm_scan_backward return
@@ -563,14 +598,21 @@ cluster_probe_kernel(float* __restrict__ out, int B, int S, int H, int hd,
 // (row tile, head), as in K8, but holds the ROWS of wr for them: thread
 // kSplit·uu + s holds, for unit u = rank·U + uu, the float4s
 // wr[head, u, e·hd + v] (e = 0..3, the gates z, i, f, o) of the units
-// v = kSplit·i + s, i = 0, 1, ... (zeros past hd).  The exchanged vector
-// is dg, the four gate gradients of every unit, kept unit-major
-// (hdk, 4) a row so that a unit's four gates travel as one float4.
+// v = kSplit·i + s, i = 0, 1, ... (zeros past hd), in registers where the
+// block is small enough (kBwdRegHdk, kBwdRegThreads), else in shared
+// memory.  The exchanged vector is dg, the four gate gradients of every
+// unit, kept unit-major (hdk, 4) a row so that a unit's four gates travel
+// as one float4.
 // ---------------------------------------------------------------------------
+
+constexpr int kBwdRegHdk = 256;      // wr in registers up to this padded hd
+constexpr int kBwdRegThreads = 256;  // in blocks of at most this many threads
+constexpr int kBwdAhead = 2;         // steps whose inputs are in flight
 
 // A block of K9's shared memory, in floats.
 struct BwdLayout {
   int units, nt, hdk;
+  bool w_regs;   // wr's rows in registers, not in shared memory
   int w_off, bar_off, total;
 };
 
@@ -580,10 +622,11 @@ __host__ __device__ __forceinline__ BwdLayout bwd_layout(int hd, int BT,
   L.units = (hd + C - 1) / C;
   L.nt = (kSplit * L.units + 31) & ~31;
   L.hdk = (hd + kChunk - 1) / kChunk * kChunk;
+  L.w_regs = L.hdk <= kBwdRegHdk && L.nt <= kBwdRegThreads;
   L.w_off = 2 * BT * 4 * L.hdk;                    // dg (2, BT, hdk, 4)
-  L.bar_off = L.w_off + L.hdk / kSplit * 4 * L.nt;  // wr (hdk/kSplit, nt, 4)
+  L.bar_off = L.w_off + (L.w_regs ? 0 : L.hdk / kSplit * 4 * L.nt);
   L.total = L.bar_off + 4;                          // two mbarriers
-  return L;
+  return L;                                 // wr (hdk/kSplit, nt, 4)
 }
 
 // v (16 bytes) into block `rank`'s shared memory at the offset `local`
@@ -598,6 +641,15 @@ __device__ __forceinline__ void st_async4(uint32_t local, uint32_t bar,
       : "memory");
 }
 
+// K9's pointers and sizes (one kernel parameter).
+struct BwdArgs {
+  const float *dhs, *dhN, *dcN, *dnN, *dmN, *wr;
+  const float4* gS;
+  const float *cS, *nS, *mS, *c0, *n0, *m0;
+  float *dxp, *dh0, *dc0, *dn0, *dm0;
+  int B, S, H, hd, bt, C;
+};
+
 // One step's inputs of an owner: the forward's gates (g z, i, f, o), the
 // incoming gradient of h, and the states before the step.
 struct StepIn {
@@ -605,23 +657,120 @@ struct StepIn {
   float dh, c, n, m;
 };
 
-template <int BT>
-__global__ void __launch_bounds__(kMaxThreads)
-slstm_bwd_cluster_kernel(
-    const float* __restrict__ dhs, const float* __restrict__ dhN,
-    const float* __restrict__ dcN, const float* __restrict__ dnN,
-    const float* __restrict__ dmN, const float* __restrict__ wr,
-    const float4* __restrict__ gS, const float* __restrict__ cS,
-    const float* __restrict__ nS, const float* __restrict__ mS,
-    const float* __restrict__ c0, const float* __restrict__ n0,
-    const float* __restrict__ m0, float* __restrict__ dxp,
-    float* __restrict__ dh0, float* __restrict__ dc0,
-    float* __restrict__ dn0, float* __restrict__ dm0, int B, int S, int H,
-    int hd, int bt, int C) {
+// What the chain rule of a step needs of its forward: the step recomputed
+// from its gates and the states before it with K8's rounding, and the
+// factors that depend on nothing else.  None of it depends on the
+// gradient exchanged in the step.
+struct Fwd {
+  float c, n, z, o, i_p, f_p, c_new, nrm, oc, nrm2, at_n, sgn, to_fm,
+      to_li, dtanh, dlsig, one_m_o;
+};
+
+__device__ __forceinline__ Fwd forward_step(const StepIn& in) {
+  Fwd f;
+  f.c = in.c;
+  f.n = in.n;
+  f.z = tanhf(in.g.x);
+  const float log_i = in.g.y;
+  const float log_f = log_sigmoid(in.g.z);
+  f.o = sigmoid(in.g.w);
+  const float fm = __fadd_rn(log_f, in.m);
+  const float m_new = fmaxf(fm, log_i);
+  f.i_p = expf(__fsub_rn(log_i, m_new));
+  f.f_p = expf(__fsub_rn(fm, m_new));
+  f.c_new = __fadd_rn(__fmul_rn(f.f_p, in.c), __fmul_rn(f.i_p, f.z));
+  const float n_new = __fadd_rn(__fmul_rn(f.f_p, in.n), f.i_p);
+  const float an = fabsf(n_new);
+  f.nrm = fmaxf(an, 1.f);                   // N = max(|n'|, 1)
+  f.oc = __fmul_rn(f.o, f.c_new);
+  f.nrm2 = __fmul_rn(f.nrm, f.nrm);
+  // half the gradient at a tie, of N's max and of m' = max(fm, log_i)
+  f.at_n = an > 1.f ? 1.f : an == 1.f ? 0.5f : 0.f;
+  f.sgn = copysignf(1.f, n_new);
+  f.to_fm = fm > log_i ? 1.f : fm == log_i ? 0.5f : 0.f;
+  f.to_li = __fsub_rn(1.f, f.to_fm);
+  f.dtanh = __fsub_rn(1.f, __fmul_rn(f.z, f.z));     // z = tanh(gz)
+  f.dlsig = sigmoid(-in.g.z);                         // log_sigmoid(gf)
+  f.one_m_o = __fsub_rn(1.f, f.o);                    // o = sigmoid(go)
+  return f;
+}
+
+// Pins f's values before what follows: an empty asm that reads them,
+// kept in order with the volatile asm of the exchange wait after it.
+__device__ __forceinline__ void computed(const Fwd& f) {
+  asm volatile("" :: "f"(f.c), "f"(f.n), "f"(f.z), "f"(f.o), "f"(f.i_p),
+               "f"(f.f_p), "f"(f.c_new), "f"(f.nrm), "f"(f.oc),
+               "f"(f.nrm2), "f"(f.at_n), "f"(f.sgn), "f"(f.to_fm),
+               "f"(f.to_li), "f"(f.dtanh), "f"(f.dlsig), "f"(f.one_m_o));
+}
+
+// The chain rule of one step once dh, the gradient of its h, is known:
+// updates the carried dc, dn, dm to those of the states before the step
+// and returns dg.  h' = o c'/N; c' = f' c + i' z, n' = f' n + i';
+// f' = exp(fm - m'), i' = exp(log_i - m'), fm = log_f + m.
+__device__ __forceinline__ float4 grad_step(const Fwd& f, float dh,
+                                           float& dc, float& dn,
+                                           float& dm) {
+  const float q = __fdiv_rn(dh, f.nrm);
+  const float d_nrm = -__fdiv_rn(__fmul_rn(dh, f.oc), f.nrm2);
+  const float d_o = __fmul_rn(q, f.c_new);
+  const float dcp = __fadd_rn(dc, __fmul_rn(q, f.o));
+  const float dnp = __fadd_rn(dn, __fmul_rn(__fmul_rn(d_nrm, f.at_n), f.sgn));
+  const float dfp = __fadd_rn(__fmul_rn(dcp, f.c), __fmul_rn(dnp, f.n));
+  const float dip = __fadd_rn(__fmul_rn(dcp, f.z), dnp);
+  const float dz = __fmul_rn(dcp, f.i_p);
+  dc = __fmul_rn(dcp, f.f_p);
+  dn = __fmul_rn(dnp, f.f_p);
+  const float d1 = __fmul_rn(dfp, f.f_p);
+  const float d2 = __fmul_rn(dip, f.i_p);
+  const float dmn = __fsub_rn(__fsub_rn(dm, d1), d2);
+  const float d_fm = __fadd_rn(d1, __fmul_rn(dmn, f.to_fm));
+  const float d_li = __fadd_rn(d2, __fmul_rn(dmn, f.to_li));
+  dm = d_fm;
+  return make_float4(__fmul_rn(dz, f.dtanh), d_li, __fmul_rn(d_fm, f.dlsig),
+                     __fmul_rn(__fmul_rn(d_o, f.o), f.one_m_o));
+}
+
+// (dg · wr^T)[u] of the BT rows for this thread's unit u, its slice:
+// float4 i of wr (its registers w_r[i] when NIT > 0, else shared memory
+// wt[i · nt]) against dg of the units kSplit·i + slice, i ascending, with
+// __fmaf_rn from 0.
+template <int BT, int NIT>
+__device__ __forceinline__ void bwd_product(
+    const float* dgb, int hdk, const float4 (&w_r)[NIT > 0 ? NIT : 1],
+    const float4* wt, int nt, int n_it, float (&acc)[BT]) {
+#pragma unroll
+  for (int r = 0; r < BT; ++r) acc[r] = 0.f;
+  auto step = [&](int i, const float4 w) {
+#pragma unroll
+    for (int r = 0; r < BT; ++r) {
+      const float4 d = *reinterpret_cast<const float4*>(
+          dgb + (r * hdk + kSplit * i) * 4);
+      acc[r] = __fmaf_rn(d.x, w.x, acc[r]);
+      acc[r] = __fmaf_rn(d.y, w.y, acc[r]);
+      acc[r] = __fmaf_rn(d.z, w.z, acc[r]);
+      acc[r] = __fmaf_rn(d.w, w.w, acc[r]);
+    }
+  };
+  if (NIT > 0) {
+#pragma unroll
+    for (int i = 0; i < (NIT > 0 ? NIT : 1); ++i) step(i, w_r[i]);
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < n_it; ++i) step(i, wt[i * nt]);
+  }
+}
+
+// NIT > 0: wr's rows in registers, NIT = hdk / kSplit float4s a thread;
+// NIT = 0: in shared memory.
+template <int BT, int NIT>
+__global__ void __launch_bounds__(NIT > 0 ? kBwdRegThreads : kMaxThreads)
+slstm_bwd_cluster_kernel(const BwdArgs a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  const Place p = place(B, hd, bt, BT, C);
-  const BwdLayout L = bwd_layout(hd, BT, C);
+  const int hd = a.hd, S = a.S, H = a.H;
+  const Place p = place(a.B, hd, a.bt, BT, a.C);
+  const BwdLayout L = bwd_layout(hd, BT, a.C);
   const int G = 4 * hd;
   const int tid = threadIdx.x;
   float* dg_s = sm;                             // (2, BT, hdk, 4)
@@ -630,18 +779,32 @@ slstm_bwd_cluster_kernel(
   const int n_it = L.hdk / kSplit;              // float4s of wr a thread
   const uint32_t bytes = static_cast<uint32_t>(p.rows * hd * 16);
 
-  // this thread's slice of its unit's row of wr, once
-  if (p.live) {
-    const float* src = wr + (static_cast<size_t>(p.head) * hd + p.u) * G;
-    for (int i = 0; i < n_it; ++i) {
-      const int v = kSplit * i + p.s;
-      float* dst = reinterpret_cast<float*>(sm + L.w_off) +
-                   (static_cast<size_t>(i) * L.nt + tid) * 4;
-      for (int e = 0; e < 4; ++e) {
-        if (v < hd)
-          cp_async4(dst + e, src + e * hd + v);
-        else
-          dst[e] = 0.f;
+  // this thread's slice of its unit's row of wr, once: float4 i holds
+  // wr[head, u, e·hd + v], v = kSplit·i + s (zeros past hd)
+  float4 w_r[NIT > 0 ? NIT : 1];
+  {
+    const float* src = a.wr + (static_cast<size_t>(p.head) * hd + p.u) * G;
+    if (NIT > 0) {
+#pragma unroll
+      for (int i = 0; i < (NIT > 0 ? NIT : 1); ++i) {
+        const int v = kSplit * i + p.s;
+        w_r[i] = p.live && v < hd
+                     ? make_float4(__ldg(src + v), __ldg(src + hd + v),
+                                   __ldg(src + 2 * hd + v),
+                                   __ldg(src + 3 * hd + v))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {
+      for (int i = 0; i < n_it; ++i) {
+        const int v = kSplit * i + p.s;
+        float* dst = reinterpret_cast<float*>(sm + L.w_off) +
+                     (static_cast<size_t>(i) * L.nt + tid) * 4;
+        for (int e = 0; e < 4; ++e) {
+          if (p.live && v < hd)
+            cp_async4(dst + e, src + e * hd + v);
+          else
+            dst[e] = 0.f;
+        }
       }
     }
   }
@@ -650,151 +813,166 @@ slstm_bwd_cluster_kernel(
   for (int idx = tid; idx < 2 * BT * 4 * L.hdk; idx += blockDim.x)
     dg_s[idx] = 0.f;
 
-  // the carried gradients of (row s, unit u), in registers
-  const size_t so = (static_cast<size_t>(p.b0 + p.s) * H + p.head) * hd +
+  // the row this thread computes: row s % rows on every lane of a live
+  // unit, the `copies` lanes of a row sending to blocks first, first +
+  // copies, ...
+  const int row = p.s % p.rows;
+  const bool comp = p.live;
+  const int copies = (kSplit - 1 - row) / p.rows + 1;
+  const int first = p.s / p.rows;
+  // the carried gradients of (row, unit u), in registers
+  const size_t so = (static_cast<size_t>(p.b0 + row) * H + p.head) * hd +
                     p.u;
   float dh_last = 0.f, dc = 0.f, dn = 0.f, dm = 0.f;
-  if (p.owner) {
-    dh_last = dhN[so];
-    dc = dcN[so];
-    dn = dnN[so];
-    dm = dmN[so];
+  if (comp) {
+    dh_last = a.dhN[so];
+    dc = a.dcN[so];
+    dn = a.dnN[so];
+    dm = a.dmN[so];
   }
   // step t's inputs; the states before step 0 are c0, n0, m0
-  const size_t row0 = static_cast<size_t>(p.b0 + p.s) * S * H * hd +
+  const size_t row0 = static_cast<size_t>(p.b0 + row) * S * H * hd +
                       static_cast<size_t>(p.head) * hd + p.u;
   auto load = [&](int t) {
     StepIn in = {make_float4(0.f, 0.f, 0.f, 0.f), 0.f, 0.f, 0.f, 0.f};
-    if (p.owner && t >= 0) {
+    if (comp && t >= 0) {
       const size_t at = row0 + static_cast<size_t>(t) * H * hd;
-      in.g = gS[at];
-      in.dh = dhs[at];
+      in.g = __ldg(a.gS + at);
+      in.dh = __ldg(a.dhs + at);
       if (t > 0) {
         const size_t prev = at - static_cast<size_t>(H) * hd;
-        in.c = cS[prev];
-        in.n = nS[prev];
-        in.m = mS[prev];
+        in.c = __ldg(a.cS + prev);
+        in.n = __ldg(a.nS + prev);
+        in.m = __ldg(a.mS + prev);
       } else {
-        in.c = c0[so];
-        in.n = n0[so];
-        in.m = m0[so];
+        in.c = __ldg(a.c0 + so);
+        in.n = __ldg(a.n0 + so);
+        in.m = __ldg(a.m0 + so);
       }
     }
     return in;
   };
+  // the inputs of the next kBwdAhead steps, in flight: ahead[j] is step
+  // S - 1 - tau - j at iteration tau
+  StepIn ahead[kBwdAhead];
+#pragma unroll
+  for (int j = 0; j < kBwdAhead; ++j) ahead[j] = load(S - 1 - j);
   cp_async_wait<0>();                           // the wr slice has landed
   exchange_init(full, bytes);
   if (!p.warp_live) return;                     // nothing to send or sum
 
   const float4* wt = w_s + tid;
-  const uint32_t dg_own = smem_u32(dg_s + (p.s * L.hdk + p.u) * 4);
+  const uint32_t dg_own = smem_u32(dg_s + (row * L.hdk + p.u) * 4);
   const size_t x_step = static_cast<size_t>(H) * G;   // dxp, per t
-  float* dx_row = dxp + static_cast<size_t>(p.b0 + p.s) * S * x_step +
+  float* dx_row = a.dxp + static_cast<size_t>(p.b0 + row) * S * x_step +
                   static_cast<size_t>(p.head) * G + p.u;
-  StepIn cur = load(S - 1);
   // iteration tau handles step t = S - 1 - tau; iteration S only sums the
   // gradient of h0 from step 0's dg
   for (int tau = 0; tau <= S; ++tau) {
     const int t = S - 1 - tau;
-    const StepIn nxt = load(t - 1);
+    const StepIn cur = ahead[0];
+#pragma unroll
+    for (int j = 0; j + 1 < kBwdAhead; ++j) ahead[j] = ahead[j + 1];
+    ahead[kBwdAhead - 1] = load(t - kBwdAhead);
+    // everything of the update that does not depend on the exchanged dg,
+    // before the wait
+    const Fwd f = forward_step(cur);
+    computed(f);
     float rec = 0.f;                            // (dg_{t+1} · wr^T)[u]
     if (tau > 0) {
       if (tau < S)
         exchange_wait(full, tau, bytes);
       else                            // step 0's dg has reached this block
         mbar_wait(&full[S & 1], ((S - 1) >> 1) & 1);
-      const float* dgb = dg_s + (tau & 1) * BT * L.hdk * 4 + 4 * p.s;
       float acc[BT];
-#pragma unroll
-      for (int r = 0; r < BT; ++r) acc[r] = 0.f;
-      if (p.live) {
-#pragma unroll 4
-        for (int i = 0; i < n_it; ++i) {
-          const float4 w = wt[i * L.nt];
-#pragma unroll
-          for (int r = 0; r < BT; ++r) {
-            const float4 d = *reinterpret_cast<const float4*>(
-                dgb + (r * L.hdk + kSplit * i) * 4);
-            acc[r] = __fmaf_rn(d.x, w.x, acc[r]);
-            acc[r] = __fmaf_rn(d.y, w.y, acc[r]);
-            acc[r] = __fmaf_rn(d.z, w.z, acc[r]);
-            acc[r] = __fmaf_rn(d.w, w.w, acc[r]);
-          }
-        }
-      }
+      bwd_product<BT, NIT>(dg_s + (tau & 1) * BT * L.hdk * 4 + 4 * p.s,
+                           L.hdk, w_r, wt, L.nt, n_it, acc);
+      // the slices of a unit, pairwise in a fixed order; every slice's
+      // thread ends with the same bits
 #pragma unroll
       for (int m = 1; m < kSplit; m <<= 1)
 #pragma unroll
         for (int r = 0; r < BT; ++r)
           acc[r] = __fadd_rn(acc[r], __shfl_xor_sync(kFull, acc[r], m));
-      rec = pick(acc, p.s);
+      rec = pick(acc, row);
     }
     if (tau == S) {
       if (p.owner) {
-        dh0[so] = S > 0 ? rec : dh_last;
-        dc0[so] = dc;
-        dn0[so] = dn;
-        dm0[so] = dm;
+        a.dh0[so] = S > 0 ? rec : dh_last;
+        a.dc0[so] = dc;
+        a.dn0[so] = dn;
+        a.dm0[so] = dm;
       }
       break;
     }
-    if (p.owner) {
-      // the forward's step, from its own gates and states (K8's rounding)
-      const float z = tanhf(cur.g.x);
-      const float log_i = cur.g.y;
-      const float log_f = log_sigmoid(cur.g.z);
-      const float o = sigmoid(cur.g.w);
-      const float fm = __fadd_rn(log_f, cur.m);
-      const float m_new = fmaxf(fm, log_i);
-      const float i_p = expf(__fsub_rn(log_i, m_new));
-      const float f_p = expf(__fsub_rn(fm, m_new));
-      const float c_new = __fadd_rn(__fmul_rn(f_p, cur.c), __fmul_rn(i_p, z));
-      const float n_new = __fadd_rn(__fmul_rn(f_p, cur.n), i_p);
-      const float an = fabsf(n_new);
-      const float nrm = fmaxf(an, 1.f);
-      // h' = (o c') / N, N = max(|n'|, 1): half the gradient at a tie
-      const float dh = __fadd_rn(cur.dh, tau == 0 ? dh_last : rec);
-      const float q = __fdiv_rn(dh, nrm);
-      const float d_o = __fmul_rn(q, c_new);
-      const float dcp = __fadd_rn(dc, __fmul_rn(q, o));
-      const float d_nrm = -__fdiv_rn(__fmul_rn(dh, __fmul_rn(o, c_new)),
-                                     __fmul_rn(nrm, nrm));
-      const float at_n = an > 1.f ? 1.f : an == 1.f ? 0.5f : 0.f;
-      const float dnp = __fadd_rn(
-          dn, __fmul_rn(__fmul_rn(d_nrm, at_n), copysignf(1.f, n_new)));
-      // c' = f' c + i' z, n' = f' n + i'
-      const float dfp = __fadd_rn(__fmul_rn(dcp, cur.c),
-                                  __fmul_rn(dnp, cur.n));
-      const float dip = __fadd_rn(__fmul_rn(dcp, z), dnp);
-      const float dz = __fmul_rn(dcp, i_p);
-      dc = __fmul_rn(dcp, f_p);
-      dn = __fmul_rn(dnp, f_p);
-      // f' = exp(fm - m'), i' = exp(log_i - m'), m' = max(fm, log_i):
-      // half the gradient to each side at a tie
-      const float d1 = __fmul_rn(dfp, f_p);
-      const float d2 = __fmul_rn(dip, i_p);
-      const float dmn = __fsub_rn(__fsub_rn(dm, d1), d2);
-      const float to_fm = fm > log_i ? 1.f : fm == log_i ? 0.5f : 0.f;
-      const float d_fm = __fadd_rn(d1, __fmul_rn(dmn, to_fm));
-      const float d_li = __fadd_rn(d2, __fmul_rn(dmn, __fsub_rn(1.f, to_fm)));
-      dm = d_fm;                                // fm = log_f + m
-      const float4 dg = make_float4(
-          __fmul_rn(dz, __fsub_rn(1.f, __fmul_rn(z, z))),     // tanh
-          d_li,                                               // log_i = gi
-          __fmul_rn(d_fm, sigmoid(-cur.g.z)),                 // log_sigmoid
-          __fmul_rn(__fmul_rn(d_o, o), __fsub_rn(1.f, o)));   // sigmoid
+    if (comp) {
+      // after the wait only what depends on dh
+      const float4 dg = grad_step(
+          f, __fadd_rn(cur.dh, tau == 0 ? dh_last : rec), dc, dn, dm);
       const int nb = (tau + 1) & 1;
-      const uint32_t a = dg_own + nb * BT * L.hdk * 16;
+      const uint32_t at = dg_own + nb * BT * L.hdk * 16;
       const uint32_t bar = smem_u32(&full[nb]);
-      for (int q = 0; q < C; ++q) st_async4(a, bar, q, dg);
-      float* dx = dx_row + static_cast<size_t>(t) * x_step;
-      dx[0] = dg.x;
-      dx[hd] = dg.y;
-      dx[2 * hd] = dg.z;
-      dx[3 * hd] = dg.w;
+      for (int q = first; q < a.C; q += copies) st_async4(at, bar, q, dg);
+      if (p.owner) {
+        float* dx = dx_row + static_cast<size_t>(t) * x_step;
+        dx[0] = dg.x;
+        dx[hd] = dg.y;
+        dx[2 * hd] = dg.z;
+        dx[3 * hd] = dg.w;
+      }
     }
-    cur = nxt;
   }
+}
+
+// K9's cluster shape doing only its per-step exchange, with K9's lanes:
+// each step every lane that computes a (row, unit) reads a float4 of a
+// unit of the next block from the dg buffer, adds one to each lane, meets
+// its warp (__syncwarp, where K9 meets it at the product's shuffles) and
+// sends it to its blocks (one st.async.v4 each, as K9 sends dg); warps
+// with no live unit leave after the set-up.  Its time a step is the floor
+// the recurrence allows K9; out (B, H, hd) ends at S everywhere when
+// every store arrived in its step.
+template <int BT>
+__global__ void __launch_bounds__(kMaxThreads)
+bwd_probe_kernel(float* __restrict__ out, int B, int S, int H, int hd,
+                 int bt, int C) {
+  extern __shared__ float4 smem4[];
+  float* dg_s = reinterpret_cast<float*>(smem4);
+  const Place p = place(B, hd, bt, BT, C);
+  const BwdLayout L = bwd_layout(hd, BT, C);
+  uint64_t* full = reinterpret_cast<uint64_t*>(dg_s + L.bar_off);
+  const uint32_t bytes = static_cast<uint32_t>(p.rows * hd * 16);
+  const int row = p.s % p.rows;
+  const bool comp = p.live;
+  const int copies = (kSplit - 1 - row) / p.rows + 1;
+  const int first = p.s / p.rows;
+  for (int idx = threadIdx.x; idx < 2 * BT * 4 * L.hdk; idx += blockDim.x)
+    dg_s[idx] = 0.f;
+  exchange_init(full, bytes);
+  if (!p.warp_live) return;
+  const int peer = (p.u + L.units) % hd;
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int t = 0; t < S; ++t) {
+    exchange_wait(full, t, bytes);
+    if (comp) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          dg_s + (((t & 1) * BT + row) * L.hdk + peer) * 4);
+      v = make_float4(__fadd_rn(x.x, 1.f), __fadd_rn(x.y, 1.f),
+                      __fadd_rn(x.z, 1.f), __fadd_rn(x.w, 1.f));
+    }
+    __syncwarp();
+    if (comp) {
+      const int nb = (t + 1) & 1;
+      const uint32_t at =
+          smem_u32(dg_s + ((nb * BT + row) * L.hdk + p.u) * 4);
+      for (int q = first; q < C; q += copies)
+        st_async4(at, smem_u32(&full[nb]), q, v);
+    }
+  }
+  if (S > 0) mbar_wait(&full[S & 1], ((S - 1) >> 1) & 1);
+  if (p.owner)
+    out[(static_cast<size_t>(p.b0 + p.s) * H + p.head) * hd + p.u] =
+        fminf(fminf(v.x, v.y), fminf(v.z, v.w));
 }
 
 int smem_bytes(int hd, int bt, int C) {
@@ -891,6 +1069,36 @@ bool valid(int hd, int bt, int C) {
          units <= kMaxUnits;
 }
 
+// K9 at a BT instance: wr's rows in registers (the instance of its hdk)
+// where bwd_layout puts them there, else in shared memory.
+template <int BT, int NIT>
+int bwd_launch_nit(const BwdArgs& a, int tiles, cudaStream_t stream) {
+  if constexpr (NIT * kSplit > kBwdRegHdk) {
+    return cudaErrorInvalidValue;   // never: bwd_layout keeps wr in smem
+  } else {
+    return launch_cluster(slstm_bwd_cluster_kernel<BT, NIT>, tiles, a.H,
+                          bwd_layout(a.hd, BT, a.C).nt,
+                          bwd_smem_bytes(a.hd, BT, a.C), a.C, stream, a);
+  }
+}
+
+template <int BT>
+int bwd_launch(const BwdArgs& a, int tiles, cudaStream_t stream) {
+  const BwdLayout L = bwd_layout(a.hd, BT, a.C);
+  constexpr int k = kChunk / kSplit;          // NIT a kChunk of k
+  switch (L.w_regs ? L.hdk / kChunk : 0) {
+    case 1: return bwd_launch_nit<BT, 1 * k>(a, tiles, stream);
+    case 2: return bwd_launch_nit<BT, 2 * k>(a, tiles, stream);
+    case 3: return bwd_launch_nit<BT, 3 * k>(a, tiles, stream);
+    case 4: return bwd_launch_nit<BT, 4 * k>(a, tiles, stream);
+    case 5: return bwd_launch_nit<BT, 5 * k>(a, tiles, stream);
+    case 6: return bwd_launch_nit<BT, 6 * k>(a, tiles, stream);
+    case 7: return bwd_launch_nit<BT, 7 * k>(a, tiles, stream);
+    case 8: return bwd_launch_nit<BT, 8 * k>(a, tiles, stream);
+    default: return bwd_launch_nit<BT, 0>(a, tiles, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -965,19 +1173,15 @@ int mgg_slstm_scan_backward(const float* dhs, const float* dhN,
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0) return static_cast<int>(cudaGetLastError());
   const int tiles = (B + bt - 1) / bt;
-#define MGG_SLSTM_BWD(BT)                                                 \
-  launch_cluster(slstm_bwd_cluster_kernel<BT>, tiles, H,                  \
-                 bwd_layout(hd, BT, C).nt, bwd_smem_bytes(hd, BT, C), C,  \
-                 stream, dhs, dhN, dcN, dnN, dmN, wr,                     \
-                 reinterpret_cast<const float4*>(gS), cS, nS, mS, c0, n0, \
-                 m0, dxp, dh0, dc0, dn0, dm0, B, S, H, hd, bt, C)
+  const BwdArgs a = {dhs, dhN, dcN, dnN, dmN, wr,
+                     reinterpret_cast<const float4*>(gS), cS, nS, mS, c0, n0,
+                     m0, dxp, dh0, dc0, dn0, dm0, B, S, H, hd, bt, C};
   switch (bt_instance(bt)) {
-    case 1: return MGG_SLSTM_BWD(1);
-    case 2: return MGG_SLSTM_BWD(2);
-    case 4: return MGG_SLSTM_BWD(4);
-    default: return MGG_SLSTM_BWD(8);
+    case 1: return bwd_launch<1>(a, tiles, stream);
+    case 2: return bwd_launch<2>(a, tiles, stream);
+    case 4: return bwd_launch<4>(a, tiles, stream);
+    default: return bwd_launch<8>(a, tiles, stream);
   }
-#undef MGG_SLSTM_BWD
 }
 
 // K8's cluster shape at (B, H, hd, bt, C) running only its per-step
@@ -991,6 +1195,27 @@ int mgg_slstm_cluster_probe(float* out, int B, int S, int H, int hd, int bt,
 #define MGG_PROBE(BT)                                                 \
   launch_cluster(cluster_probe_kernel<BT>, tiles, H, layout(hd, BT, C).nt, \
                  smem_bytes(hd, BT, C), C, stream, out, B, S, H, hd, bt, C)
+  switch (bt_instance(bt)) {
+    case 1: return MGG_PROBE(1);
+    case 2: return MGG_PROBE(2);
+    case 4: return MGG_PROBE(4);
+    default: return MGG_PROBE(8);
+  }
+#undef MGG_PROBE
+}
+
+// K9's cluster shape at (B, H, hd, bt, C) running only its per-step
+// exchange of dg (a float4 a unit a row) for S steps; out (B, H, hd) fp32.
+int mgg_slstm_bwd_cluster_probe(float* out, int B, int S, int H, int hd,
+                                int bt, int C, cudaStream_t stream) {
+  if (!valid(hd, bt, C) || S < 0 || B < 0 || H < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H == 0) return static_cast<int>(cudaGetLastError());
+  const int tiles = (B + bt - 1) / bt;
+#define MGG_PROBE(BT)                                                     \
+  launch_cluster(bwd_probe_kernel<BT>, tiles, H, bwd_layout(hd, BT, C).nt, \
+                 bwd_smem_bytes(hd, BT, C), C, stream, out, B, S, H, hd,  \
+                 bt, C)
   switch (bt_instance(bt)) {
     case 1: return MGG_PROBE(1);
     case 2: return MGG_PROBE(2);

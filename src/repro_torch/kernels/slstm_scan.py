@@ -16,13 +16,18 @@ whose backward is :func:`slstm_scan_backward`, K9: the reverse-time scan
 that the reference gets from autodiff of ``lax.scan``
 (``repro/models/xlstm.py:230``), in the same cluster shape with the roles
 of ``wr``'s rows and columns swapped (its own plan,
-``plan(..., backward=True)``).  The front door that routes a CPU tensor to
-the plain version is ``kernels/ops.py``.
+``plan(..., backward=True)``, and its rows a cluster, :func:`bwd_rows`).
+A K9 step is latency: it holds ``wr``'s rows in registers where the block
+allows (:func:`bwd_wr_in_registers`), recomputes the forward's step
+before it waits for the exchanged gradient, and spreads each row's sends
+over the lanes of its unit (the notes in ``csrc/slstm_scan.cu`` give the
+levers and their times).  The front door that routes a CPU tensor to the
+plain version is ``kernels/ops.py``.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,9 +35,9 @@ from . import _build
 from .neighbor_agg import _raise_on, _stream
 
 __all__ = ["slstm_scan", "slstm_scan_backward", "plan", "cluster_sizes",
-           "smem_bytes", "cluster_probe", "MAX_HEAD_DIM", "MAX_BT",
-           "MAX_UNITS", "CLUSTER_SIZES", "SMEM_LIMIT", "reset_launch_counts",
-           "launch_counts"]
+           "smem_bytes", "bwd_wr_in_registers", "bwd_rows", "cluster_probe",
+           "MAX_HEAD_DIM", "MAX_BT", "MAX_UNITS", "CLUSTER_SIZES",
+           "SMEM_LIMIT", "reset_launch_counts", "launch_counts"]
 
 MAX_HEAD_DIM = 256    # the kernel's instances: hd 1..256
 MAX_BT = 8            # batch rows a cluster
@@ -41,6 +46,9 @@ SMEM_LIMIT = 232_448  # an H100 block's opt-in shared memory (227 KB)
 K_SPLIT = 8           # csrc kSplit: threads a unit (its k range split)
 MAX_UNITS = 48        # csrc kMaxUnits: units a block (384 threads)
 XP_STAGES = 4         # csrc kStages: the xp ring's slots
+BWD_REG_HDK = 256     # csrc kBwdRegHdk: K9 holds wr's rows in registers up
+BWD_REG_THREADS = 256  # to this padded hd, in blocks of at most this many
+SMS_PER_CLUSTER = 16  # K9's rows rule: at most one cluster a 16 SMs
 UNITS_PER_BLOCK = 16  # the plan's aim: at most this many units a block
 
 
@@ -49,20 +57,34 @@ def _bt_instance(bt: int) -> int:
     return next(n for n in (1, 2, 4, 8) if bt <= n)
 
 
+def bwd_wr_in_registers(hd: int, cluster: int) -> bool:
+    """Whether K9 holds a block's rows of wr in registers at (hd, cluster)
+    (csrc ``bwd_layout``'s ``w_regs``): hd padded to a multiple of
+    4·K_SPLIT at most ``BWD_REG_HDK`` and at most ``BWD_REG_THREADS``
+    threads a block; else in shared memory."""
+    units = -(-hd // cluster)
+    threads = -(-K_SPLIT * units // 32) * 32
+    hdk = -(-hd // (4 * K_SPLIT)) * 4 * K_SPLIT
+    return hdk <= BWD_REG_HDK and threads <= BWD_REG_THREADS
+
+
 def smem_bytes(hd: int, bt: int, cluster: int,
                backward: bool = False) -> int:
     """Shared memory a block uses at (hd, bt, cluster).  K8: h twice, the
     block's slice of wr and the xp ring, in fp32, with k padded to a
     multiple of 4·K_SPLIT, and two mbarriers (the kernel's ``layout``;
     ``mgg_slstm_smem_bytes`` gives the same number).  K9 (``backward``):
-    dg twice (4 floats a padded unit a row), the block's rows of wr and
-    two mbarriers (``bwd_layout``, ``mgg_slstm_bwd_smem_bytes``)."""
+    dg twice (4 floats a padded unit a row), the block's rows of wr unless
+    they are in registers (:func:`bwd_wr_in_registers`) and two mbarriers
+    (``bwd_layout``, ``mgg_slstm_bwd_smem_bytes``)."""
     bt_i = _bt_instance(bt)
     units = -(-hd // cluster)
     threads = -(-K_SPLIT * units // 32) * 32
     hdk = -(-hd // (4 * K_SPLIT)) * 4 * K_SPLIT
     if backward:
-        return 4 * (2 * bt_i * 4 * hdk + hdk // K_SPLIT * 4 * threads + 4)
+        wr = 0 if bwd_wr_in_registers(hd, cluster) else \
+            hdk // K_SPLIT * 4 * threads
+        return 4 * (2 * bt_i * 4 * hdk + wr + 4)
     floats = (2 * bt_i * hdk + hdk // (4 * K_SPLIT) * 16 * threads
               + XP_STAGES * bt_i * 4 * units + 4)
     return 4 * floats
@@ -75,6 +97,21 @@ def cluster_sizes(hd: int, bt: int, backward: bool = False) -> list:
     return [c for c in CLUSTER_SIZES
             if (c - 1) * -(-hd // c) < hd and -(-hd // c) <= MAX_UNITS
             and smem_bytes(hd, bt, c, backward) <= SMEM_LIMIT]
+
+
+def bwd_rows(batch: int, heads: int, sms: int) -> int:
+    """K9's rows a cluster for ``batch`` rows of ``heads`` heads on a card
+    of ``sms`` SMs: the fewest (1..MAX_BT) that keep the clusters, ceil(batch
+    / rows) · heads, at most ``sms // SMS_PER_CLUSTER`` (8 on an H100: about
+    one a GPC), else MAX_BT.  A step's product sums every row of the
+    cluster, so fewer rows a cluster is a shorter step (most of the gain;
+    the smaller exchange is the rest); past that many clusters the card ran
+    slower, for a cause not measured (PERF.md §6 times 1, 2, 4 and 8 rows a
+    cluster at B 2 and B 8, with and without the product).  The rows do
+    not change the result."""
+    cap = max(1, sms // SMS_PER_CLUSTER)
+    return next((bt for bt in range(1, MAX_BT + 1)
+                 if -(-batch // bt) * heads <= cap), MAX_BT)
 
 
 @functools.lru_cache(maxsize=None)
@@ -191,7 +228,7 @@ slstm_scan.launches = 0
 def slstm_scan_backward(dhs: torch.Tensor, dstate: Dict[str, torch.Tensor],
                         wr: torch.Tensor, saved: Dict[str, torch.Tensor],
                         state: Dict[str, torch.Tensor], *,
-                        bt: int = MAX_BT
+                        bt: Optional[int] = None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """K9: the sLSTM scan's backward.  ``dhs`` ``(B, S, H, hd)`` the
     gradient of hs, ``dstate`` h/c/n/m ``(B, H, hd)`` of the states after
@@ -200,11 +237,15 @@ def slstm_scan_backward(dhs: torch.Tensor, dstate: Dict[str, torch.Tensor],
     the states before the first step; all fp32 → (dxp ``(B, S, H·4·hd)``,
     the gradients h/c/n/m of the states before the first step).  The
     gradient of wr is ``Σ_{b,t} h_{t-1}ᵀ · dxp[b, t]``, a product the
-    caller runs (``ops._SLSTMScan``).  ``bt`` does not change the
+    caller runs (``ops._SLSTMScan``).  ``bt`` rows share a cluster
+    (None: :func:`bwd_rows` for this card); it does not change the
     result."""
     if dhs.dim() != 4:
         raise ValueError(f"dhs {tuple(dhs.shape)}: expected (B, S, H, hd)")
-    bt = _shape_checks(dhs, wr, bt)
+    if bt is None and dhs.device.type == "cuda":
+        bt = bwd_rows(dhs.shape[0], dhs.shape[2], torch.cuda.
+                      get_device_properties(dhs.device).multi_processor_count)
+    bt = _shape_checks(dhs, wr, MAX_BT if bt is None else bt)
     return _launch_backward(dhs, dstate, wr, saved, state, bt,
                             plan(wr.shape[1], bt, backward=True)[0])
 
@@ -245,15 +286,20 @@ slstm_scan_backward.launches = 0
 
 
 def cluster_probe(b: int, s: int, heads: int, hd: int, bt: int,
-                  cluster: int, device) -> torch.Tensor:
+                  cluster: int, device, backward: bool = False
+                  ) -> torch.Tensor:
     """K8's cluster shape at these sizes doing only its per-step exchange
     of h through distributed shared memory (st.async stores onto
-    mbarriers), S times: the floor a step of K8 can reach.  Returns the
+    mbarriers), S times: the floor a step of K8 can reach.  With
+    ``backward``, K9's shape and exchange instead: a float4 (a unit's four
+    gate gradients) a unit a row to every block, K9's floor.  Returns the
     ``(B, H, hd)`` values it carried, S everywhere when every store
-    arrived in its step.  A measurement probe: not a K8 launch."""
+    arrived in its step.  A measurement probe: not a K8 or K9 launch."""
     out = torch.zeros((b, heads, hd), dtype=torch.float32, device=device)
-    rc = _build.library("slstm_scan").mgg_slstm_cluster_probe(
-        out.data_ptr(), b, s, heads, hd, bt, cluster, _stream(out.device))
+    lib = _build.library("slstm_scan")
+    fn = (lib.mgg_slstm_bwd_cluster_probe if backward
+          else lib.mgg_slstm_cluster_probe)
+    rc = fn(out.data_ptr(), b, s, heads, hd, bt, cluster, _stream(out.device))
     _raise_on(rc, "slstm cluster probe")
     return out
 

@@ -999,8 +999,12 @@ def test_slstm_scan_backward_matches_plain(cuda, b, s, h, hd):
         _grads_close(got[2 + i], want[2][k], f"d{k}0")
 
 
-@pytest.mark.parametrize("hd", [16, 100, 192, 256])
-def test_slstm_scan_backward_bitwise_invariants(cuda, hd):
+# K9's invariants at the plan (wr's rows in registers at every hd here)
+# and at clusters whose blocks hold them in shared memory (hd 192 on 4
+# blocks, hd 96 on 2: 384 threads a block)
+@pytest.mark.parametrize("hd,cluster", [(16, None), (100, None), (192, None),
+                                        (256, None), (192, 4), (96, 2)])
+def test_slstm_scan_backward_bitwise_invariants(cuda, hd, cluster):
     """Two launches equal; a row's gradients do not depend on B, bt or the
     other rows; one launch over S equals the launch over the last steps
     then the one over the first with the gradients carried; every cluster
@@ -1012,19 +1016,27 @@ def test_slstm_scan_backward_bitwise_invariants(cuda, hd):
         np.float32)).to(cuda)
     dst = _slstm_inputs(rng, b, 1, h, hd, cuda)[2]
     _, _, saved = k8.slstm_scan(xp, wr, st, save=True)
-    whole = k8.slstm_scan_backward(dhs, dst, wr, saved, st)
-    assert _same_bwd(whole, k8.slstm_scan_backward(dhs, dst, wr, saved, st))
+    if cluster is None:
+        k9 = k8.slstm_scan_backward
+        assert k8.bwd_wr_in_registers(hd, k8.plan(hd, b, backward=True)[0])
+    else:
+        assert not k8.bwd_wr_in_registers(hd, cluster)
+
+        def k9(*args, bt=k8.MAX_BT):
+            return k8._launch_backward(*args, min(bt, args[0].shape[0]),
+                                       cluster)
+    whole = k9(dhs, dst, wr, saved, st)
+    assert _same_bwd(whole, k9(dhs, dst, wr, saved, st))
     for bt in (1, 3, 8):
-        assert _same_bwd(k8.slstm_scan_backward(dhs, dst, wr, saved, st,
-                                                bt=bt), whole), bt
+        assert _same_bwd(k9(dhs, dst, wr, saved, st, bt=bt), whole), bt
     for c in k8.cluster_sizes(hd, b, backward=True):
         assert _same_bwd(k8._launch_backward(dhs, dst, wr, saved, st, b, c),
                          whole), c
     for i in (0, 3):
         row = lambda d: {k: v[i:i + 1].contiguous()         # noqa: E731
                          for k, v in d.items()}
-        solo = k8.slstm_scan_backward(dhs[i:i + 1].contiguous(), row(dst),
-                                      wr, row(saved), row(st))
+        solo = k9(dhs[i:i + 1].contiguous(), row(dst), wr, row(saved),
+                  row(st))
         assert _same_bwd(solo, (whole[0][i:i + 1], row(whole[1])))
     for cut in (1, 17):
         part = lambda d, sl: {k: v[:, sl].contiguous()      # noqa: E731
@@ -1032,20 +1044,45 @@ def test_slstm_scan_backward_bitwise_invariants(cuda, hd):
         mid = dict(c=saved["c"][:, cut - 1].contiguous(),
                    n=saved["n"][:, cut - 1].contiguous(),
                    m=saved["m"][:, cut - 1].contiguous())
-        dx2, carried = k8.slstm_scan_backward(
-            dhs[:, cut:].contiguous(), dst, wr,
-            part(saved, slice(cut, None)), mid)
-        dx1, d0 = k8.slstm_scan_backward(
-            dhs[:, :cut].contiguous(), carried, wr,
-            part(saved, slice(None, cut)), st)
+        dx2, carried = k9(dhs[:, cut:].contiguous(), dst, wr,
+                          part(saved, slice(cut, None)), mid)
+        dx1, d0 = k9(dhs[:, :cut].contiguous(), carried, wr,
+                     part(saved, slice(None, cut)), st)
         assert _same_bwd((torch.cat([dx1, dx2], dim=1), d0), whole), cut
 
 
+# every padded hd K9 has an instance of (hdk 32, 64, ..., 256) at each
+# bt instance it takes from 1, 2 and 8 rows
+@pytest.mark.parametrize("bt", [1, 2, 8])
+@pytest.mark.parametrize("hd", [8, 16, 64, 96, 128, 160, 192, 224, 256])
+def test_slstm_backward_every_instance_matches_plain(cuda, hd, bt):
+    """K9 at the plan, at each register instance (wr's rows in registers,
+    one instance a padded hd) and bt instance, against
+    ``ref.slstm_scan_grad_ref``: rtol 1e-4, atol 1e-4 × max |want|."""
+    rng = np.random.default_rng(hd * 10 + bt)
+    b, s, h = bt, 19, 2
+    xp, wr, st = _slstm_inputs(rng, b, s, h, hd, cuda)
+    dhs = torch.from_numpy(rng.normal(size=(b, s, h, hd)).astype(
+        np.float32)).to(cuda)
+    dst = _slstm_inputs(rng, b, 1, h, hd, cuda)[2]
+    assert k8.bwd_wr_in_registers(hd, k8.plan(hd, bt, backward=True)[0])
+    dxp, _, d0 = ref.slstm_scan_grad_ref(xp, wr, st, dhs, dst)
+    got = _k9(xp, wr, st, dhs, dst, bt=bt)
+    _grads_close(got[0], dxp, "dxp")
+    for k in "hcnm":
+        _grads_close(got[1][k], d0[k], f"d{k}0")
+
+
 def test_slstm_backward_plan_is_the_kernels_layout(cuda):
+    """K9's shared memory a block is the kernel's own (dg twice, wr's rows
+    unless they are in registers, two mbarriers) for every shape and
+    cluster size it takes, and it refuses the others; both placements of
+    wr occur; the plan fits this card's opt-in limit."""
     from repro_torch.kernels import _build
     lib = _build.library("slstm_scan")
     optin = torch.cuda.get_device_properties(cuda) \
         .shared_memory_per_block_optin
+    placed = set()
     for hd in range(1, k8.MAX_HEAD_DIM + 1):
         for bt in range(1, k8.MAX_BT + 1):
             for c in k8.CLUSTER_SIZES:
@@ -1053,7 +1090,29 @@ def test_slstm_backward_plan_is_the_kernels_layout(cuda):
                     if c in k8.cluster_sizes(hd, bt, backward=True) else -1
                 assert lib.mgg_slstm_bwd_smem_bytes(hd, bt, c) == want, \
                     (hd, bt, c)
+                if want > 0:
+                    placed.add(k8.bwd_wr_in_registers(hd, c))
             assert k8.plan(hd, bt, backward=True)[1] <= optin
+    assert placed == {True, False}
+    assert lib.mgg_slstm_bwd_smem_bytes(192, 8, 8) == 49_168
+    assert lib.mgg_slstm_bwd_smem_bytes(257, 1, 8) == -1
+    assert lib.mgg_slstm_bwd_smem_bytes(8, 1, 3) == -1
+    assert lib.mgg_slstm_bwd_smem_bytes(1, 1, 2) == -1     # an empty block
+    assert lib.mgg_slstm_bwd_smem_bytes(49, 1, 8) == -1
+
+
+def test_slstm_bwd_cluster_probe_carries_every_store(cuda):
+    """K9's exchange alone (a float4 a unit a row to every block, by
+    st.async.v4 onto mbarriers, in K9's layout): after S steps every value
+    is S, so no block read a buffer before its peers wrote it."""
+    for b, s, h, hd, c in ((2, 64, 4, 192, 4), (2, 64, 4, 192, 8),
+                           (9, 5, 1, 3, 2), (3, 1, 2, 100, 8),
+                           (3, 300, 2, 100, 8), (2, 64, 2, 1, 1),
+                           (8, 256, 4, 256, 8)):
+        out = k8.cluster_probe(b, s, h, hd, min(b, 8), c, cuda,
+                               backward=True)
+        assert out.shape == (b, h, hd)
+        assert bool((out == s).all()), (b, s, h, hd, c)
 
 
 def test_slstm_function_gradcheck_and_card_gradients(cuda):

@@ -318,14 +318,73 @@ def test_ops_slstm_scan_on_the_cpu_is_the_plain_loop_under_autograd():
 
 def test_k9_plan_at_the_model_shapes():
     """K9's cluster plan and shared memory (``bwd_layout`` of the source)
-    at xlstm-125m's hd 192: C = 8 at every bt, 122,896 bytes at bt 8;
+    at xlstm-125m's hd 192: C = 8 at every bt; at bt 8 a block holds dg
+    twice, 2 × 8 rows × 192 units × 4 gates fp32 = 49,152 bytes, and two
+    8-byte mbarriers, 49,168 bytes: its 24 units' rows of wr (73,728
+    bytes in shared memory before) sit in registers, 96 floats a thread;
     every hd the kernel takes has a plan within the limit."""
-    assert k8.plan(192, 8, backward=True) == (8, 122_896)
-    assert k8.plan(192, 2, backward=True)[0] == 8
+    assert k8.plan(192, 8, backward=True) == (8, 49_168)
+    assert k8.plan(192, 2, backward=True) == (8, 12_304)
+    assert k8.bwd_wr_in_registers(192, 8)
     for hd in range(1, k8.MAX_HEAD_DIM + 1):
         for bt in (1, 2, 3, 8):
             c, smem = k8.plan(hd, bt, backward=True)
             assert smem <= k8.SMEM_LIMIT and (c - 1) * -(-hd // c) < hd
+
+
+@pytest.mark.parametrize("bt", range(1, 9))
+def test_k9_smem_bytes_is_the_layouts_formula(bt):
+    """``smem_bytes(..., backward=True)`` at every hd 1–256 and cluster
+    size that ``cluster_sizes`` admits: dg twice (2 × BT rows × hdk units
+    × 4 gates, BT the kernel instance of bt, hdk hd padded to 32), the
+    block's rows of wr (hdk / 8 float4s a thread of the block's threads,
+    8 a unit rounded up to a warp) unless they are in registers (hdk ≤
+    256 and at most 256 threads), and two mbarriers (4 floats), in fp32."""
+    bt_i = next(n for n in (1, 2, 4, 8) if bt <= n)
+    for hd in range(1, k8.MAX_HEAD_DIM + 1):
+        for c in k8.cluster_sizes(hd, bt, backward=True):
+            hdk = -(-hd // 32) * 32
+            threads = -(-8 * -(-hd // c) // 32) * 32
+            regs = hdk <= 256 and threads <= 256
+            assert k8.bwd_wr_in_registers(hd, c) == regs, (hd, c)
+            wr = 0 if regs else hdk // 8 * 4 * threads
+            assert k8.smem_bytes(hd, bt, c, backward=True) == \
+                4 * (2 * bt_i * hdk * 4 + wr + 4), (hd, bt, c)
+
+
+def test_k9_rows_a_cluster():
+    """K9's rows a cluster (``bwd_rows``): the fewest that keep the
+    clusters at most one a 16 SMs, else MAX_BT; on an H100 (132 SMs) the
+    2 × 4096 step (B 2) and the launcher's (B 8) at H 4 run 8 clusters."""
+    assert [k8.bwd_rows(b, 4, 132) for b in (1, 2, 3, 8, 9, 16, 64)] == \
+        [1, 1, 2, 4, 5, 8, 8]
+    assert k8.bwd_rows(2, 4, 10) == k8.MAX_BT     # no rows fit
+    for b in range(1, 40):
+        for h in (1, 2, 4, 12):
+            bt = k8.bwd_rows(b, h, 132)
+            assert 1 <= bt <= k8.MAX_BT
+            if bt < k8.MAX_BT:
+                assert -(-b // bt) * h <= 8
+            if bt > 1:
+                assert -(-b // (bt - 1)) * h > 8
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_slstm_plans_give_every_block_a_unit(backward):
+    """Every cluster size that ``cluster_sizes`` admits, and so the plan's,
+    gives each of its blocks at least one unit and at most MAX_UNITS
+    (the kernels' exchange needs every block to send); hd 1 runs on one
+    block; the plan's size is one of them."""
+    for hd in range(1, k8.MAX_HEAD_DIM + 1):
+        for bt in range(1, k8.MAX_BT + 1):
+            sizes = k8.cluster_sizes(hd, bt, backward)
+            c, _ = k8.plan(hd, bt, backward)
+            assert c in sizes and sizes == sorted(sizes)
+            for size in sizes:
+                units = -(-hd // size)
+                assert 1 <= units <= k8.MAX_UNITS
+                assert all(hd - q * units >= 1 for q in range(size))
+            assert (c == 1) == (hd == 1)
 
 
 # ---------------------------------------------------------------------------
