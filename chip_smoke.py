@@ -227,6 +227,41 @@ Phases, each of which passes or ends the run with a non-zero exit:
    and result; (f) one AdamW step of mistral-nemo-12b at full width with
    its depth cut to 2 layers, B 1, S 4096, bf16, flash off: a finite
    loss, the step ms and peak GB, no kernel launched.
+18. the moe and hybrid families at full width, after phase 17's state is
+   freed, parameters drawn on the card from seed 0.  (a)
+   granite-moe-1b-a400m as published (24 layers, d_model 1024, 16/8
+   heads of 64, 32 experts top-8, d_ff 512, vocab 49,155 tied): the B =
+   2 x S = 4096 forward with ``use_flash_attention`` (K7, 24 launches,
+   counted) against the chunked path, in fp32 within rtol 2e-4, atol
+   2e-4 * max|logits| up to the first token whose routing differs
+   between the two (an fp32 near-tie of router logits; every token when
+   none does, the count reported), in bf16 the flag-on rms error against
+   the fp32 logits at most 1.5 x the flag-off one's; timed, profiled
+   (device ms by kind: K7, routing and sort, the dispatch and combine
+   gathers, matrix products, the rest) and one layer's parts timed
+   alone; ``prefill`` of 512 + ``decode_step`` against the forward of
+   513 at no-drop capacity, fp32, within 2e-3; the serving launcher at
+   its defaults; ``launch/train.py`` at its defaults for 30 steps, the
+   last 5 losses below the first 5, and one step from the trained state
+   run twice: loss and every gradient bitwise equal.  (b) zamba2-7b as
+   published (81 layers: 13 groups of 6 mamba blocks each followed by
+   the shared attention block, a tail of 3; d_model 3584, 112 SSM heads
+   of 64, state 64, attention hd 112, window 4096): the same forward
+   checks with 13 K7 launches, profiled and one mamba block's parts
+   timed (the SSD chunk loop, the projections) with the shared block;
+   prefill + decode (fp32, within 2e-3); batched == solo tokens and
+   logits as in phase 11 (c); the serving launcher; training at its
+   depth cut to 13 layers (2 groups and a tail of 1; AdamW's state for
+   6.6 B parameters does not fit one card), full width: step 0's
+   gradients at seq 256 (chunk 256) every one finite and bitwise across
+   two runs, then the launcher for 10 steps with the loss falling.  (c)
+   mixtral-8x7b at full width with its depth cut to 2 layers: the 2 x
+   4096 forward flag on (2 K7 launches) against off in fp32, as (a);
+   one AdamW step at B 1, S 4096, bf16, cut to 1 layer (at 2 the step
+   holds 7 x 12.66 GB of parameters, gradients and moments, over the
+   card's 80 GB): a finite loss, the step ms and peak GB.  (d) K7 at
+   (a)'s and (b)'s layer shapes beside its plain version, SDPA and its
+   bound (K7's kernels entry, ``at_granite`` and ``at_zamba2``).
 
 The line before the last is a JSON object of the kernels K1–K9; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -326,6 +361,11 @@ PATH_KERNELS = {
     # xlstm-125m training through the launcher: K8 forward (twice a step
     # with remat) and K9 backward on every sLSTM layer
     "lm_training": ("slstm_scan", "slstm_scan_backward"),
+    # phase 18: the flag-on forwards of granite-moe-1b-a400m and zamba2-7b
+    # (bf16 compute) and of mixtral-8x7b cut to 2 layers (fp32)
+    "moe_forward": ("flash_attention",),
+    "hybrid_forward": ("flash_attention",),
+    "mixtral_forward": ("flash_attention",),
 }
 PRODUCTS_SCALE = 199.3   # 12288 · 199.3 ≈ 2.449 M nodes (ogbn-products)
 REDUCED_SCALE = 10.0     # 122,880 nodes: GIN, SAGE and GAT, one step each
@@ -369,6 +409,15 @@ K9_RMS_TOL = 1e-3
 TRAIN_ARCH, TRAIN_LM_STEPS, TRAIN_GRAD_TOL = "xlstm-125m", 30, 2e-4
 TRAIN_4K_B, TRAIN_4K_S = 2, 4096
 DENSE_TRAIN_ARCH, DENSE_TRAIN_LAYERS = "mistral-nemo-12b", 2
+# phase 18: the moe and hybrid families, B x S = 2 x 4096 forwards, prefill
+# of 512 + decode; zamba2 trained at full width with its depth cut to 2
+# groups of 6 and a tail of 1 (AdamW's state for 6.6 B parameters does not
+# fit one card); mixtral-8x7b's forward cut to 2 layers, its AdamW step to 1
+MOE_ARCH, HYB_ARCH, MIX_ARCH = ("granite-moe-1b-a400m", "zamba2-7b",
+                                "mixtral-8x7b")
+P18_B, P18_S, P18_PREFIX = 2, 4096, 512
+HYB_TRAIN_LAYERS, HYB_TRAIN_STEPS = 13, 10
+MIX_LAYERS, MIX_TRAIN_LAYERS = 2, 1
 # K1 and K6 sweeps: more partitions than one grid of K1 holds (what fits
 # the card at once), so each of its warps walks several
 GRID_P = 300_000
@@ -780,6 +829,14 @@ def main():
     left = torch.cuda.memory_allocated() / 1e9
     check(left < 1.0, f"{left:.1f} GB still allocated after phase 12")
     kernels.append(lm_training(torch, K, dev, rate, flops, launches))
+
+    # -- 18. the moe and hybrid families: phase 17's device state goes first
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    check(left < 1.0, f"{left:.1f} GB still allocated after phase 17")
+    k7 = next(k for k in kernels if k["name"] == "flash_attention")
+    k7.update(moe_hybrid(torch, K, dev, rate, flops, launches))
 
     for k in kernels:
         by_path = {p: launches[p][k["name"]] for p in launches
@@ -3162,18 +3219,187 @@ def sweep_flash(torch, ops, ref, dev, gen):
     return n, worst, worst_row
 
 
-def _held_logits(torch, got, want, rtol, what):
-    """Logits within ``rtol`` and ``atol = rtol * max|want|``, compared a
-    batch row at a time (each is 2 GB at full width); returns the largest
-    absolute difference."""
+def _routing_recorder(moe_lib):
+    """Wrap ``moe_lib._route`` (what ``moe_apply`` calls) so that each
+    call's expert ids are kept; returns (the record, the restore)."""
+    seen, orig = [], moe_lib._route
+
+    def route(p, x2d, cfg):
+        gates, tope = orig(p, x2d, cfg)
+        seen.append(tope)
+        return gates, tope
+
+    moe_lib._route = route
+
+    def restore():
+        moe_lib._route = orig
+    return seen, restore
+
+
+def _first_route_difference(a, b):
+    """The least flat token index (row-major over B x S) whose expert ids
+    differ between two forwards' records, over every layer; None when the
+    routing is the same throughout."""
+    first = None
+    for x, y in zip(a, b):
+        diff = (x != y).any(-1).nonzero()
+        if diff.numel():
+            f = int(diff[0])
+            first = f if first is None else min(first, f)
+    return first
+
+
+def _held_prefix(torch, got, want, rtol, n, what):
+    """Logits of the first ``n`` flat tokens (all when None) within
+    ``rtol`` and ``atol = rtol * max|want|``, a batch row at a time; every
+    logit finite.  Returns (the largest absolute difference, tokens
+    held)."""
+    b, s = got.shape[:2]
+    n = b * s if n is None else n
     scale = want.abs().max().item()
     worst = 0.0
-    for a, b in zip(got, want):
-        check(torch.isfinite(a).all().item()
-              and torch.allclose(a, b, rtol=rtol, atol=rtol * scale),
-              f"{what}: logits disagree")
-        worst = max(worst, (a - b).abs().max().item())
-    return worst
+    for r in range(b):
+        check(torch.isfinite(got[r]).all().item(), f"{what}: not finite")
+        m = min(s, max(0, n - r * s))
+        if m == 0:
+            continue
+        a, w = got[r, :m], want[r, :m]
+        check(torch.allclose(a, w, rtol=rtol, atol=rtol * scale),
+              f"{what}: logits disagree within the first {n} tokens")
+        worst = max(worst, (a - w).abs().max().item())
+    return worst, n
+
+
+def lm_forwards(torch, K, params, cfg, toks, n_k7, path, launches,
+                bf16=True):
+    """Phase 18's cache-less forwards of one model: fp32 with
+    ``use_flash_attention`` (K7) against the chunked path within rtol 2e-4
+    and atol 2e-4 * max|logits|, and with ``bf16`` the configs' bf16
+    compute flag on (the main path, launches kept under ``path``) and off,
+    each one's rms error against the fp32 logits, the flag-on one's at most
+    BF16_RMS_RATIO x the flag-off one's; K7 launched ``n_k7`` times a
+    flag-on forward and never with the flag off.  A moe model's routing
+    (every layer's expert ids) is recorded in both fp32 forwards: a
+    token's routing depends on the tokens before it in the flat B x S
+    order only (attention is causal and an expert's slots go by that
+    order), so the logits are held up to the first token whose routing
+    differs (an fp32 near-tie of two router logits; all tokens when none
+    does), and the number of such tokens is reported."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as T
+
+    b, s = toks.shape
+    flag = {dt: {on: dataclasses.replace(cfg, compute_dtype=dt,
+                                         use_flash_attention=on)
+                 for on in (True, False)} for dt in ("float32", "bfloat16")}
+
+    def forward(c):     # the padded vocab's -1e30 columns left out
+        return T.forward(params, c, toks)[0][..., :cfg.vocab]
+
+    counts, routes, out = {}, {}, {}
+    with torch.inference_mode():
+        logits = {}
+        for on in (True, False):
+            seen, restore = _routing_recorder(moe_lib)
+            try:
+                K.reset_launch_counts()
+                logits[on] = forward(flag["float32"][on])
+                torch.cuda.synchronize()
+                c = K.launch_counts()
+            finally:
+                restore()
+            counts[("float32", on)] = c["flash_attention"]
+            routes[on] = seen
+            if on and not bf16:
+                launches[path] = c
+        check(logits[True].shape == (b, s, cfg.vocab),
+              f"logits of shape {tuple(logits[True].shape)}")
+        first = _first_route_difference(routes[True], routes[False])
+        n_diff = sum(int((x != y).any(-1).sum())
+                     for x, y in zip(routes[True], routes[False]))
+        del routes
+        err32, held = _held_prefix(torch, logits[True], logits[False], 2e-4,
+                                   first, "fp32 forward, flash on against "
+                                   "off")
+        out.update(fp32_max_abs_err=err32,
+                   fp32_max_abs_logit=logits[False].abs().max().item(),
+                   fp32_tolerance="rtol 2e-4, atol 2e-4 * max|logits|",
+                   fp32_tokens_held=held, fp32_tokens=b * s,
+                   fp32_routing_differences=n_diff)
+        if bf16:
+            ref32 = logits[False].cpu()
+            del logits
+            logits = {}
+            for on in (True, False):
+                K.reset_launch_counts()
+                logits[on] = forward(flag["bfloat16"][on])
+                torch.cuda.synchronize()
+                c = K.launch_counts()
+                counts[("bfloat16", on)] = c["flash_attention"]
+                if on:
+                    launches[path] = c
+            check(all(torch.isfinite(lg).all().item()
+                      for lg in logits.values()), "bf16 logits not finite")
+            rms16 = {on: math.sqrt(sum(
+                (lg.float() - r.to(lg.device)).pow(2).sum().item()
+                for lg, r in zip(logits[on], ref32)) / ref32.numel())
+                for on in (True, False)}
+            del ref32
+            check(rms16[True] <= BF16_RMS_RATIO * rms16[False],
+                  f"bf16 forward: K7's rms error against fp32 "
+                  f"{rms16[True]} is over {BF16_RMS_RATIO} x the chunked "
+                  f"path's {rms16[False]}")
+            out.update(
+                bf16_rms_err_vs_fp32={"flash": rms16[True],
+                                      "chunked": rms16[False]},
+                bf16_tolerance=f"flash rms error <= {BF16_RMS_RATIO} x "
+                               "chunked",
+                bf16_max_abs_diff=max(
+                    (x - y).abs().max().item()
+                    for x, y in zip(logits[True], logits[False])),
+                bf16_same_argmax_share=float(sum(
+                    (x.argmax(-1) == y.argmax(-1)).sum().item()
+                    for x, y in zip(logits[True], logits[False])) / (b * s)))
+        del logits
+        dts = ("float32", "bfloat16") if bf16 else ("float32",)
+        check(all(counts[(dt, True)] == n_k7 and counts[(dt, False)] == 0
+                  for dt in dts),
+              f"flash attention launches per forward: {counts} (expected "
+              f"{n_k7} with the flag on)")
+        timed = (("bfloat16", 3, 1), ("float32", 1, 0)) if bf16 \
+            else (("float32", 1, 0),)
+        out["forward_ms"] = {f"{dt}_{'flash' if on else 'chunked'}": _time(
+            torch, lambda c=flag[dt][on]: forward(c), reps=reps,
+            warmup=warmup) for dt, reps, warmup in timed
+            for on in (True, False)}
+    out["flash_launches_per_forward"] = {
+        f"{dt}_{'on' if on else 'off'}": n for (dt, on), n in counts.items()}
+    return out, flag
+
+
+def prefill_decode(torch, params, cfg, toks, prefix):
+    """``prefill`` of ``prefix`` tokens then ``decode_step`` against the
+    cache-less forward of ``prefix + 1`` tokens (``cfg``'s compute),
+    within 2e-3; returns the two largest differences."""
+    from repro_torch.models import transformer as T
+
+    b = toks.shape[0]
+    dev = toks.device
+    with torch.inference_mode():
+        t = toks[:, :prefix + 1]
+        full = T.forward(params, cfg, t)[0]
+        cache = T.init_cache(cfg, b, prefix + 8, dtype=torch.float32,
+                             device=dev)
+        lg1, cache = T.prefill(params, cfg, t[:, :prefix], cache)
+        pos = torch.full((b,), prefix, dtype=torch.int32, device=dev)
+        lg2, _ = T.decode_step(params, cfg, t[:, prefix], pos, cache)
+        pairs = ((lg1, full[:, prefix - 1]), (lg2, full[:, prefix]))
+        errs = [(x - y).abs().max().item() for x, y in pairs]
+        check(all(torch.allclose(x, y, rtol=2e-3, atol=2e-3)
+                  for x, y in pairs),
+              f"{cfg.name} prefill/decode against the forward: max|diff| "
+              f"{errs}")
+    return errs
 
 
 def lm_inference(torch, K, dev, rate, flops, launches):
@@ -3204,97 +3430,20 @@ def lm_inference(torch, K, dev, rate, flops, launches):
         tf32=False)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         1, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
-    flag = {dt: {on: dataclasses.replace(cfg, compute_dtype=dt,
-                                         use_flash_attention=on)
-                 for on in (True, False)} for dt in ("float32", "bfloat16")}
-
-    def forward(c, t=toks):
-        return T.forward(params, c, t)[0]
 
     # (a) the cache-less forward with K7 against the chunked path
-    counts = {}
+    fwd, flag = lm_forwards(torch, K, params, cfg, toks, cfg.n_layers,
+                            "lm_forward", launches)
     with torch.inference_mode():
-        logits = {}
-        for on in (True, False):
-            K.reset_launch_counts()
-            logits[on] = forward(flag["float32"][on])
-            torch.cuda.synchronize()
-            counts[("float32", on)] = K.launch_counts()["flash_attention"]
-        check(logits[True].shape == (b, s, cfg.vocab),
-              f"logits of shape {tuple(logits[True].shape)}")
-        err32 = _held_logits(torch, logits[True], logits[False], 2e-4,
-                             "fp32 forward, flash on against off")
-        max32 = logits[False].abs().max().item()
-        ref32 = logits[False].cpu()     # the bf16 forwards' reference
-        del logits
-        logits = {}
-        for on in (True, False):
-            K.reset_launch_counts()
-            logits[on] = forward(flag["bfloat16"][on])
-            torch.cuda.synchronize()
-            c = K.launch_counts()
-            counts[("bfloat16", on)] = c["flash_attention"]
-            if on:     # the main path: the configs' compute dtype
-                launches["lm_forward"] = c
-        check(all(torch.isfinite(lg).all().item() for lg in logits.values()),
-              "bf16 logits not finite")
-        diff16 = max((a - b_).abs().max().item()
-                     for a, b_ in zip(logits[True], logits[False]))
-        # each bf16 forward's rms error against the fp32 logits: K7 may add
-        # no more bf16 error than the chunked path has of its own
-        rms16 = {on: math.sqrt(sum(
-            (lg.float() - r.to(dev)).pow(2).sum().item()
-            for lg, r in zip(logits[on], ref32)) / ref32.numel())
-            for on in (True, False)}
-        del ref32
-        check(rms16[True] <= BF16_RMS_RATIO * rms16[False],
-              f"bf16 forward: K7's rms error against fp32 {rms16[True]} is "
-              f"over {BF16_RMS_RATIO} x the chunked path's {rms16[False]}")
-        same_argmax = float(sum(
-            (a.argmax(-1) == b_.argmax(-1)).sum().item()
-            for a, b_ in zip(logits[True], logits[False])) / (b * s))
-        del logits
-        check(all(counts[(dt, True)] == cfg.n_layers
-                  and counts[(dt, False)] == 0
-                  for dt in ("float32", "bfloat16")),
-              f"flash attention launches per forward: {counts}")
-        fwd_ms = {f"{dt}_{'flash' if on else 'chunked'}": _time(
-            torch, lambda c=flag[dt][on]: forward(c), reps=reps,
-            warmup=warmup)
-            for dt, reps, warmup in (("bfloat16", 3, 1), ("float32", 1, 0))
-            for on in (True, False)}
-        breakdown = profile_pass(
-            torch, lambda: forward(flag["bfloat16"][True]), reps=1)
-    say("lm_forward", batch=b, seq=s, fp32_max_abs_err=err32,
-        fp32_max_abs_logit=max32,
-        fp32_tolerance="rtol 2e-4, atol 2e-4 * max|logits|",
-        bf16_max_abs_diff=diff16, bf16_same_argmax_share=same_argmax,
-        bf16_rms_err_vs_fp32={"flash": rms16[True], "chunked": rms16[False]},
-        bf16_tolerance=f"flash rms error <= {BF16_RMS_RATIO} x chunked",
-        flash_launches_per_forward={f"{dt}_{'on' if on else 'off'}": n
-                                    for (dt, on), n in counts.items()},
-        forward_ms=fwd_ms, **breakdown)
+        breakdown = profile_pass(torch, lambda: T.forward(
+            params, flag["bfloat16"][True], toks), reps=1)
+    say("lm_forward", batch=b, seq=s, **fwd, **breakdown)
     k7 = time_flash(torch, K, dev, cfg, rate, flops)
 
     # (b) prefill of LM_PREFIX tokens, then one decode step, against the
     # cache-less forward of LM_PREFIX + 1 tokens (fp32)
     f32 = flag["float32"][False]
-    with torch.inference_mode():
-        t = toks[:, :LM_PREFIX + 1]
-        full = forward(f32, t)
-        cache = T.init_cache(f32, b, LM_PREFIX + 8, dtype=torch.float32,
-                             device=dev)
-        lg1, cache = T.prefill(params, f32, t[:, :LM_PREFIX], cache)
-        pos = torch.full((b,), LM_PREFIX, dtype=torch.int32, device=dev)
-        lg2, _ = T.decode_step(params, f32, t[:, LM_PREFIX], pos, cache)
-        errs = [(x - y).abs().max().item()
-                for x, y in ((lg1, full[:, LM_PREFIX - 1]),
-                             (lg2, full[:, LM_PREFIX]))]
-        check(all(torch.allclose(x, y, rtol=2e-3, atol=2e-3)
-                  for x, y in ((lg1, full[:, LM_PREFIX - 1]),
-                               (lg2, full[:, LM_PREFIX]))),
-              f"prefill/decode against the forward: max|diff| {errs}")
-        del full, cache, lg1, lg2
+    errs = prefill_decode(torch, params, f32, toks, LM_PREFIX)
     say("lm_prefill_decode", prefix=LM_PREFIX, prefill_max_abs_err=errs[0],
         decode_max_abs_err=errs[1], tolerance="rtol 2e-3 atol 2e-3")
 
@@ -3324,21 +3473,28 @@ def lm_inference(torch, K, dev, rate, flops, launches):
     check(left < 1.0, f"{left:.1f} GB still allocated: the weights were "
           "not freed before the launcher draws its own")
 
-    rep = serve_lm.main(["--arch", LM_ARCH])
-    check(rep["device"].startswith("cuda") and rep["requests"] == 8
-          and all(r.steps == 32 for r in rep["results"]),
-          "the LM serving launcher did not answer every request on the card")
-    say("lm_served", arch=rep["arch"], requests=rep["requests"],
-        tokens=rep["tokens"], seconds=rep["seconds"],
-        tokens_per_s=rep["tokens_per_s"],
-        prefill_ms_median=float(np.median(rep["prefill_ms"])),
-        prefill_ms=rep["prefill_ms"],
-        decode_ms_per_step_median=float(np.median(rep["decode_ms"])),
-        decode_steps=len(rep["decode_ms"]), compute=cfg.compute_dtype)
-    del rep
+    say("lm_served", compute=cfg.compute_dtype,
+        **_serve_launcher(serve_lm, LM_ARCH))
     gc.collect()
     torch.cuda.empty_cache()
     return k7
+
+
+def _serve_launcher(serve_lm, arch):
+    """The LM serving launcher at its defaults (8 requests of 32 tokens
+    through 4 slots) on the card, every request answered; its report."""
+    rep = serve_lm.main(["--arch", arch])
+    check(rep["device"].startswith("cuda") and rep["requests"] == 8
+          and all(r.steps == 32 for r in rep["results"]),
+          f"the LM serving launcher did not answer every request of {arch} "
+          "on the card")
+    return dict(arch=rep["arch"], requests=rep["requests"],
+                tokens=rep["tokens"], seconds=rep["seconds"],
+                tokens_per_s=rep["tokens_per_s"],
+                prefill_ms_median=float(np.median(rep["prefill_ms"])),
+                prefill_ms=rep["prefill_ms"],
+                decode_ms_per_step_median=float(np.median(rep["decode_ms"])),
+                decode_steps=len(rep["decode_ms"]))
 
 
 def batched_vs_solo(ServeEngine, params, cfg):
@@ -3390,35 +3546,41 @@ def batched_vs_solo(ServeEngine, params, cfg):
                                 "max|logit|")
 
 
-def time_flash(torch, K, dev, cfg, rate, flops):
-    """K7 at phase 11 (a)'s shapes: q (B, S, H, hd), k/v (B, S, KV, hd),
-    causal, no window, in bf16 (the configs' compute dtype) and fp32,
-    held to its plain version, beside the plain version and
-    ``scaled_dot_product_attention`` (timed only, never on the path)."""
+def time_flash(torch, K, dev, cfg, rate, flops, b=LM_B, s=LM_S):
+    """K7 at one layer's shapes of a B x S forward of ``cfg`` (phase 11
+    (a)'s by default): q (B, S, H, hd), k/v (B, S, KV, hd), causal, the
+    config's window, in bf16 (the configs' compute dtype) and fp32, held
+    to its plain version, beside the plain version and
+    ``scaled_dot_product_attention`` (timed only, never on the path; none
+    where the window bites, which it cannot express without a mask)."""
     import torch.nn.functional as F
 
-    b, s, h, kv, hd = LM_B, LM_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    w = cfg.sliding_window or 0
     g = torch.Generator(device=dev).manual_seed(1)
     base = [torch.randn((b, s, n, hd), generator=g, device=dev)
             for n in (h, kv, kv)]
-    pairs = s * (s + 1) // 2                 # causal, no window
+    # the (query, key) pairs kept: causal, within the window
+    pairs = sum(min(i + 1, w) if w else i + 1 for i in range(s))
     n_flops = 4 * b * h * hd * pairs
     out = {}
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (t.to(dtype) for t in base)
-            got = K.flash_attention.flash_attention(q, k, v, causal=True)
-            want = K.ref.flash_attention(q, k, v, causal=True)
+            got = K.flash_attention.flash_attention(q, k, v, causal=True,
+                                                    window=w)
+            want = K.ref.flash_attention(q, k, v, causal=True, window=w)
             err, row = _flash_held(torch, got, want, dtype,
                                    f"flash_attention at the LM's shapes "
                                    f"({dtype})")
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             t_plain = _time(torch, lambda: K.ref.flash_attention(
-                q, k, v, causal=True), reps=2, warmup=1)
+                q, k, v, causal=True, window=w), reps=2, warmup=1)
             t_k7 = _time(torch, lambda: K.flash_attention.flash_attention(
-                q, k, v, causal=True), reps=10, warmup=2)
-            t_lib = _time(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), reps=10,
+                q, k, v, causal=True, window=w), reps=10, warmup=2)
+            t_lib = None if w and w < s else _time(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), reps=10,
                 warmup=2)
             name = str(dtype).replace("torch.", "")
             nbytes = sum(t.numel() for t in (q, k, v, q)) * q.element_size()
@@ -3443,7 +3605,7 @@ def time_flash(torch, K, dev, cfg, rate, flops):
                 library="scaled_dot_product_attention(is_causal, enable_gqa)",
                 dtype="bfloat16", float32=out["float32"],
                 shape=dict(batch=b, seq=s, heads=h, kv_heads=kv, head_dim=hd,
-                           causal=True, window=0),
+                           causal=True, window=w),
                 flops=n_flops, bytes=main["bytes"], kept_pairs=pairs)
 
 # ---------------------------------------------------------------------------
@@ -3657,25 +3819,15 @@ def xlstm_inference(torch, K, dev, rate, flops, launches):
     gc.collect()
     torch.cuda.empty_cache()
     K.reset_launch_counts()
-    rep = serve_lm.main(["--arch", XL_ARCH])
+    served = _serve_launcher(serve_lm, XL_ARCH)
     torch.cuda.synchronize()
     launches["xlstm_serving"] = K.launch_counts()
     n_serve = launches["xlstm_serving"]["slstm_scan"]
-    check(rep["device"].startswith("cuda") and rep["requests"] == 8
-          and all(r.steps == 32 for r in rep["results"]),
-          "the xlstm serving launcher did not answer every request")
-    check(n_serve == n_slstm * (len(rep["prefill_ms"])
-                                + len(rep["decode_ms"])),
+    check(n_serve == n_slstm * (len(served["prefill_ms"])
+                                + served["decode_steps"]),
           f"K8 launches while serving: {n_serve}")
-    say("xlstm_served", arch=rep["arch"], requests=rep["requests"],
-        tokens=rep["tokens"], seconds=rep["seconds"],
-        tokens_per_s=rep["tokens_per_s"],
-        prefill_ms_median=float(np.median(rep["prefill_ms"])),
-        prefill_ms=rep["prefill_ms"],
-        decode_ms_per_step_median=float(np.median(rep["decode_ms"])),
-        decode_steps=len(rep["decode_ms"]), slstm_launches=n_serve,
-        compute=cfg.compute_dtype)
-    del rep
+    say("xlstm_served", slstm_launches=n_serve, compute=cfg.compute_dtype,
+        **served)
     gc.collect()
     torch.cuda.empty_cache()
     return k8
@@ -4391,6 +4543,376 @@ def time_slstm_backward(torch, K, ops, ref, dev, rate, flops):
                 launcher_shape_us_per_step=t_launcher * 1e3 / 256,
                 rms_diff_over_rms_at_4096=rms,
                 rms_tolerance=K9_RMS_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the moe and hybrid families at full width (phase 18) and K7 on them
+# ---------------------------------------------------------------------------
+
+def _kinds(name, *extra):
+    """A kernel's kind for phase 18's profiles: K7, the ``extra`` (kind,
+    name fragments) pairs in order, matrix products, the rest."""
+    low = name.lower()
+    if "flash" in low:
+        return "K7 flash_attention"
+    for kind, frags in extra:
+        if any(f in low for f in frags):
+            return kind
+    if any(w in low for w in ("gemm", "xmma", "cutlass", "sm90_")):
+        return "matrix products"
+    return "other (elementwise, reductions, copies)"
+
+
+def profile_kinds(torch, fn, kind):
+    """One call of ``fn`` (after one unprofiled) under torch.profiler:
+    device ms by kind (``kind(kernel name)``) and the ten largest kernels,
+    beside the profiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = _device_ms(prof)
+    by_kind = {}
+    for k, v in by_kernel.items():
+        by_kind[kind(k)] = by_kind.get(kind(k), 0.0) + v
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    return dict(profiled_wall_ms=wall_ms, device_ms_sum=busy,
+                idle_share=1 - busy / wall_ms, device_ms_by_kind=by_kind,
+                device_ms_by_kernel=dict(top))
+
+
+def time_moe_parts(torch, T, moe_lib, params, cfg, toks):
+    """CUDA-event times of one moe layer's parts on layer 0's inputs
+    (``cfg``'s compute): the attention block (projections and K7), the
+    routing (router product, sort, softmax), the dispatch maps (argsorts,
+    searchsorted), the dispatch gather, the expert FFN (three batched
+    products), the combine (gather and gate-weighted sum) and the whole
+    ``moe_apply``."""
+    from repro_torch.models.layers import embed_lookup
+    from repro_torch.train.tree import tree_map
+
+    ctx = T.DistCtx()
+    b, s = toks.shape
+    e, k = cfg.n_experts, cfg.top_k
+    with torch.inference_mode():
+        bp = tree_map(lambda x: x[0], params["blocks"])
+        h = embed_lookup(params["embed"], toks, cfg.cdtype)
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=toks.device).expand(b, s)
+        attn = lambda: T._attn_sub(bp, h, cfg, pos, None, ctx)
+        z = T._norm(attn()[0], bp["ln2"], cfg)
+        p, x2d = bp["moe"], z.reshape(b * s, -1)
+        cap = max(1, int(b * s * k / e * cfg.moe_capacity_factor))
+        gates, tope = moe_lib._route(p, x2d, cfg)
+        slot_token, slot_valid, pair_slot, pair_kept = \
+            moe_lib._dispatch_indices(tope, e, cap)
+        pair_idx = tope * cap + pair_slot.clamp(0, cap - 1)
+        disp = lambda: moe_lib._Dispatch.apply(x2d, slot_token, slot_valid,
+                                               pair_idx, pair_kept)
+        xe = disp()
+        ye = moe_lib._expert_ffn(p, xe, cfg)
+        w = (gates * pair_kept).to(x2d.dtype)
+
+        def combine():
+            y = ye.reshape(e * cap, -1)[pair_idx.reshape(-1)]
+            return torch.einsum("tkd,tk->td", y.reshape(b * s, k, -1), w)
+
+        run = lambda fn: _time(torch, fn, reps=5, warmup=1)
+        return dict(
+            compute=cfg.compute_dtype, tokens=b * s, capacity=cap,
+            dispatch_buffer=list(xe.shape),
+            dropped_pairs=int((~pair_kept).sum()), pairs=b * s * k,
+            attention_block_ms=run(attn),
+            route_ms=run(lambda: moe_lib._route(p, x2d, cfg)),
+            dispatch_indices_ms=run(
+                lambda: moe_lib._dispatch_indices(tope, e, cap)),
+            dispatch_gather_ms=run(disp),
+            expert_ffn_ms=run(lambda: moe_lib._expert_ffn(p, xe, cfg)),
+            combine_ms=run(combine),
+            moe_apply_ms=run(lambda: moe_lib.moe_apply(p, z, cfg)))
+
+
+def time_mamba_parts(torch, T, params, cfg, toks):
+    """CUDA-event times of one mamba block's parts on layer 0's inputs
+    (``cfg``'s compute): the in-projection, the causal conv, the whole
+    ``ssm_apply`` (its chunk loop is the rest), the gated norm and
+    out-projection; and one application of the shared attention block."""
+    import torch.nn.functional as F
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import embed_lookup, rms_norm
+    from repro_torch.train.tree import tree_map
+
+    b, s = toks.shape
+    d_in = cfg.d_model * cfg.ssm_expand
+    with torch.inference_mode():
+        bp = tree_map(lambda x: x[0], params["mamba_main"])
+        h = embed_lookup(params["embed"], toks, cfg.cdtype)
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=toks.device).expand(b, s)
+        z = T._norm(h, bp["ln"], cfg)
+        p = bp["ssm"]
+        zz, xbc, _ = ssm._split_proj(p, z, cfg)
+        y = torch.randn((b, s, d_in), device=toks.device).to(cfg.cdtype)
+        run = lambda fn: _time(torch, fn, reps=3, warmup=1)
+        out = dict(
+            compute=cfg.compute_dtype, chunk=min(cfg.ssm_chunk, s),
+            in_proj_ms=run(lambda: ssm._split_proj(p, z, cfg)),
+            conv_ms=run(lambda: ssm._causal_conv(xbc, p["conv_w"], None)),
+            out_norm_proj_ms=run(lambda: rms_norm(
+                y * F.silu(zz), p["norm_w"], cfg.norm_eps)
+                @ p["out_proj"]["w"].to(cfg.cdtype)),
+            ssm_apply_ms=run(lambda: ssm.ssm_apply(p, z, cfg)),
+            shared_block_ms=run(lambda: T._dense_block(
+                params["shared_attn"], h, cfg, pos, None, T.DistCtx())))
+    out["chunk_loop_ms"] = out["ssm_apply_ms"] - out["in_proj_ms"] \
+        - out["conv_ms"] - out["out_norm_proj_ms"]
+    return out
+
+
+def _grads_twice(torch, _grads_of, loss_fn, params, batch, what):
+    """One step's loss and gradients computed twice from the same state:
+    bitwise equal, every leaf finite.  Returns (the loss, leaves)."""
+    from repro_torch.train.tree import tree_leaves
+
+    runs = [_grads_of(loss_fn, params, batch) for _ in range(2)]
+    a, b = (tree_leaves(r[2]) for r in runs)
+    check(torch.equal(runs[0][0], runs[1][0])
+          and all(torch.equal(x, y) for x, y in zip(a, b)),
+          f"{what}: a step's loss and gradients differ between two runs")
+    bad = [i for i, g in enumerate(a) if not torch.isfinite(g).all().item()]
+    check(not bad, f"{what}: {len(bad)} gradient leaves not finite")
+    return float(runs[0][0]), len(a)
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_hybrid(torch, K, dev, rate, flops, launches):
+    """Phase 18: granite-moe-1b-a400m and zamba2-7b served and trained at
+    full width, mixtral-8x7b at full width with its depth cut; returns
+    K7's entries at (a)'s and (b)'s layer shapes."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import (AdamWConfig, LMDataConfig, adamw_init,
+                                   lm_batch, make_loss_fn, make_train_step)
+    from repro_torch.train.trainer import _grads_of
+    from repro_torch.train.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    b, s = P18_B, P18_S
+    k7 = {}
+
+    def draw(cfg, train=False):
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        with torch.inference_mode(not train):
+            params = T.init_params(gen, cfg, vocab_multiple=16)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in tree_leaves(params))
+        return params, dict(params=n, param_count=cfg.param_count(),
+                            init_s=round(time.perf_counter() - t0, 3),
+                            gpu_mem_gb=round(
+                                torch.cuda.memory_allocated() / 1e9, 3))
+
+    def tokens(cfg, bb, ss, seed=0):
+        return torch.from_numpy(np.random.default_rng(seed).integers(
+            1, cfg.vocab, (bb, ss)).astype(np.int32)).to(dev)
+
+    moe_kind = lambda n: _kinds(
+        n, ("routing and sort", ("sort", "radix", "search", "softmax")),
+        ("dispatch and combine gathers", ("index", "gather", "scatter")))
+
+    # (a) granite-moe-1b-a400m as published
+    cfg = configs.get_config(MOE_ARCH)
+    params, built = draw(cfg)
+    say("moe_built", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, experts=cfg.n_experts, top_k=cfg.top_k,
+        d_ff=cfg.d_ff, vocab=cfg.vocab, capacity_factor=cfg.
+        moe_capacity_factor, **built)
+    toks = tokens(cfg, b, s)
+    fwd, flag = lm_forwards(torch, K, params, cfg, toks, cfg.n_layers,
+                            "moe_forward", launches)
+    with torch.inference_mode():
+        prof = profile_kinds(torch, lambda: T.forward(
+            params, flag["bfloat16"][True], toks), moe_kind)
+    parts = time_moe_parts(torch, T, moe_lib, params, flag["bfloat16"][True],
+                           toks)
+    say("moe_forward", arch=cfg.name, batch=b, seq=s, **fwd, **prof,
+        layer_parts=parts)
+    no_drop = dataclasses.replace(flag["float32"][False],
+                                  moe_capacity_factor=float(cfg.n_experts))
+    errs = prefill_decode(torch, params, no_drop, toks, P18_PREFIX)
+    say("moe_prefill_decode", prefix=P18_PREFIX, capacity="no-drop",
+        prefill_max_abs_err=errs[0], decode_max_abs_err=errs[1],
+        tolerance="rtol 2e-3 atol 2e-3")
+    del params, toks
+    _free(torch)
+    say("moe_served", **_serve_launcher(serve_lm, MOE_ARCH))
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rep = ltrain.main(["--arch", MOE_ARCH, "--steps", str(TRAIN_LM_STEPS)])
+    wall = time.perf_counter() - t0
+    losses = rep["losses"]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(rep["device"].startswith("cuda") and len(losses) == TRAIN_LM_STEPS
+          and all(np.isfinite(losses)) and last < first,
+          f"{MOE_ARCH} did not train: first 5 {first}, last 5 {last}")
+    peak = _peak_gb(torch)
+    tcfg = dataclasses.replace(cfg, ssm_chunk=min(cfg.ssm_chunk, 256))
+    batch = _to_dev(torch, lm_batch(LMDataConfig(
+        vocab=cfg.vocab, seq_len=256, global_batch=8, doc_len=256),
+        TRAIN_LM_STEPS), dev)
+    loss, n_leaves = _grads_twice(torch, _grads_of,
+                                  make_loss_fn(tcfg, T.DistCtx()),
+                                  rep["state"].params, batch, MOE_ARCH)
+    say("moe_training", arch=cfg.name, seq=256, batch=8, remat=cfg.remat,
+        compute=cfg.compute_dtype, steps=TRAIN_LM_STEPS, losses=losses,
+        loss_first5_mean=first, loss_last5_mean=last,
+        step_ms=rep["step_ms"],
+        step_ms_median=float(np.median(rep["step_ms"][1:])), peak_gb=peak,
+        wall_s=round(wall, 3), repeated_step_loss=loss,
+        repeated_step="loss and every gradient leaf bitwise equal",
+        gradient_leaves=n_leaves)
+    k7["at_granite"] = time_flash(torch, K, dev, cfg, rate, flops, b, s)
+    del rep, batch
+    _free(torch)
+
+    # (b) zamba2-7b as published
+    cfg = configs.get_config(HYB_ARCH)
+    n_groups = cfg.n_layers // cfg.attn_every
+    params, built = draw(cfg)
+    say("hybrid_built", arch=cfg.name, layers=cfg.n_layers,
+        groups=n_groups, group_size=cfg.attn_every,
+        tail=cfg.n_layers - n_groups * cfg.attn_every, d_model=cfg.d_model,
+        ssm_heads=cfg.d_model * cfg.ssm_expand // cfg.ssm_headdim,
+        ssm_headdim=cfg.ssm_headdim, ssm_state=cfg.ssm_state,
+        ssm_chunk=cfg.ssm_chunk, attn_heads=cfg.n_heads,
+        head_dim=cfg.head_dim, window=cfg.sliding_window, d_ff=cfg.d_ff,
+        vocab=cfg.vocab, **built)
+    toks = tokens(cfg, b, s)
+    fwd, flag = lm_forwards(torch, K, params, cfg, toks, n_groups,
+                            "hybrid_forward", launches)
+    with torch.inference_mode():
+        prof = profile_kinds(torch, lambda: T.forward(
+            params, flag["bfloat16"][True], toks), lambda n: _kinds(n))
+    parts = time_mamba_parts(torch, T, params, flag["bfloat16"][True], toks)
+    say("hybrid_forward", arch=cfg.name, batch=b, seq=s, **fwd, **prof,
+        layer_parts=parts)
+    f32 = flag["float32"][False]
+    errs = prefill_decode(torch, params, f32, toks, P18_PREFIX)
+    say("hybrid_prefill_decode", prefix=P18_PREFIX,
+        prefill_max_abs_err=errs[0], decode_max_abs_err=errs[1],
+        tolerance="rtol 2e-3 atol 2e-3",
+        forward_513="one chunk of 513 (the reference's rule)")
+    del toks
+    say("hybrid_batched_vs_solo", **batched_vs_solo(ServeEngine, params,
+                                                    f32))
+    del params
+    _free(torch)
+    say("hybrid_served", **_serve_launcher(serve_lm, HYB_ARCH))
+    _free(torch)
+    # training: AdamW's state for 6.6 B parameters does not fit one card,
+    # so the depth is cut to 2 groups and a tail of 1, at full width
+    cut = dataclasses.replace(cfg, n_layers=HYB_TRAIN_LAYERS)
+    tcut = dataclasses.replace(cut, ssm_chunk=min(cut.ssm_chunk, 256))
+    params, built = draw(tcut, train=True)
+    batch = _to_dev(torch, lm_batch(LMDataConfig(
+        vocab=cfg.vocab, seq_len=256, global_batch=8, doc_len=256), 0), dev)
+    loss0, n_leaves = _grads_twice(torch, _grads_of,
+                                   make_loss_fn(tcut, T.DistCtx()), params,
+                                   batch, f"{HYB_ARCH} cut, step 0")
+    del params, batch
+    _free(torch)
+    orig = configs.get_config
+    configs.get_config = lambda arch: cut if arch == HYB_ARCH \
+        else orig(arch)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        rep = ltrain.main(["--arch", HYB_ARCH, "--steps",
+                           str(HYB_TRAIN_STEPS)])
+        wall = time.perf_counter() - t0
+    finally:
+        configs.get_config = orig
+    losses = rep["losses"]
+    check(rep["device"].startswith("cuda") and len(losses) == HYB_TRAIN_STEPS
+          and all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"{HYB_ARCH} (cut) did not train: {losses}")
+    say("hybrid_training", arch=cfg.name,
+        cut=f"depth {HYB_TRAIN_LAYERS} of {cfg.n_layers} layers (2 groups "
+            "of 6 and a tail of 1), full width", params=built["params"],
+        seq=256, batch=8, ssm_chunk=tcut.ssm_chunk, remat=cut.remat,
+        compute=cut.compute_dtype, step0_loss=loss0,
+        step0_gradients=f"{n_leaves} leaves, every one finite, bitwise "
+                        "equal across two runs",
+        steps=HYB_TRAIN_STEPS, losses=losses, step_ms=rep["step_ms"],
+        step_ms_median=float(np.median(rep["step_ms"][1:])),
+        peak_gb=_peak_gb(torch), wall_s=round(wall, 3))
+    k7["at_zamba2"] = time_flash(torch, K, dev, cfg, rate, flops, b, s)
+    del rep
+    _free(torch)
+
+    # (c) mixtral-8x7b at full width, its depth cut
+    full = configs.get_config(MIX_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MIX_LAYERS)
+    params, built = draw(cfg)
+    toks = tokens(cfg, b, s)
+    fwd, _ = lm_forwards(torch, K, params, cfg, toks, cfg.n_layers,
+                         "mixtral_forward", launches, bf16=False)
+    say("mixtral_forward", arch=cfg.name,
+        cut=f"depth {MIX_LAYERS} of {full.n_layers} layers, full width",
+        batch=b, seq=s, experts=cfg.n_experts, top_k=cfg.top_k,
+        window=cfg.sliding_window, **built, **fwd)
+    del params, toks
+    _free(torch)
+    # AdamW's step holds the parameters, gradients, m and v and their new
+    # copies (7 x 12.66 GB at 2 layers, over the card's 80 GB), so the
+    # step's depth is cut further
+    step_cfg = dataclasses.replace(full, n_layers=MIX_TRAIN_LAYERS)
+    params, built = draw(step_cfg, train=True)
+    batch = _to_dev(torch, lm_batch(LMDataConfig(
+        vocab=full.vocab, seq_len=4096, global_batch=1, doc_len=4096), 0),
+        dev)
+    step = make_train_step(step_cfg, T.DistCtx(), AdamWConfig(
+        lr=3e-4, warmup_steps=20, total_steps=TRAIN_LM_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(params, adamw_init(params), batch)
+    loss = out[2]["loss"].item()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    check(np.isfinite(loss), f"{MIX_ARCH} step loss {loss}")
+    say("mixtral_training", arch=full.name,
+        cut=f"depth {MIX_TRAIN_LAYERS} of {full.n_layers} layers, full "
+            "width", params=built["params"], batch=1, seq=4096,
+        compute=step_cfg.compute_dtype, flash=False, loss=loss,
+        step_ms_host_first_call=step_ms, peak_gb=_peak_gb(torch))
+    del params, batch, out, step
+    _free(torch)
+    say("phase18", wall_s=round(time.perf_counter() - t_phase, 3))
+    return {at: {k: v for k, v in e.items()
+                 if k not in ("name", "route", "source", "replaces")}
+            for at, e in k7.items()}
 
 
 if __name__ == "__main__":

@@ -4,14 +4,15 @@ synthetic prompts (counterpart of ``repro/launch/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-nemo-12b \
         --requests 8 --max-new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch mistral-nemo-12b --smoke
 
 Flags and defaults are the reference's: ``--requests 8 --max-new 32
 --batch-slots 4``, prompts of 4–16 tokens drawn from
 ``np.random.default_rng(0)``, ``max_seq=512``, random parameters from seed
-0 with ``vocab_multiple=16``; the dense, vlm and xlstm archs run, the moe
-and hybrid ones raise ``NotImplementedError``.  The reference's
+0 with ``vocab_multiple=16``; the dense, vlm, moe, hybrid and xlstm archs
+run (whisper's encdec raises, as in the reference).  The reference's
 ``--devices N`` (fake host devices) becomes ``--device cpu|cuda``: without
 ``--device cpu`` it runs on the card or raises.  Prints the requests,
 tokens, seconds and tokens/s, and the prefill and decode-step times;

@@ -11,15 +11,17 @@ The reference's flags and defaults: random parameters from seed 0
 (``vocab_multiple=16``, drawn by a ``torch.Generator`` on the device),
 AdamW with ``warmup_steps=20`` and the cosine schedule over ``--steps``,
 ``lm_batch`` data from seed 0 with one document a row, the family's
-``remat`` on.  The dense, vlm and xlstm families train; on the card the
-xlstm's sLSTM runs K8 forward and K9 backward, and the dense family's
-attention takes the chunked path (``use_flash_attention`` off, as the
-reference must: K7 has no backward).  TF32 is off: every fp32 product is
-fp32.  The reference's ``--devices N`` (fake host devices and a data
-mesh) becomes ``--device cpu|cuda``: without ``--device cpu`` it runs on
-the card or raises.  ``--ef-bits``, ``--ring-tp`` (ROADMAP item 9) and
-``--moe-pipeline-chunks`` above 1 (the moe family, item 10.2) raise
-``NotImplementedError``.  Prints the first and last loss; ``main``
+``remat`` on, ``ssm_chunk`` at most ``--seq``.  The dense, vlm, moe,
+hybrid and xlstm families train; on the card the xlstm's sLSTM runs K8
+forward and K9 backward, and attention takes the chunked path
+(``use_flash_attention`` off, as the reference must: K7 has no
+backward).  TF32 is off: every fp32 product is fp32.  The reference's
+``--devices N`` (fake host devices and a data mesh) becomes ``--device
+cpu|cuda``: without ``--device cpu`` it runs on the card or raises.  On
+one device there is no mesh, so ``--moe-pipeline-chunks`` (the EP
+dispatch's pipelining depth) does nothing, as in the reference's
+one-device run.  ``--ef-bits`` and ``--ring-tp`` (ROADMAP item 9) and
+the encdec family (whisper, item 10.5) raise ``NotImplementedError``.  Prints the first and last loss; ``main``
 returns the losses, each step's ms and the trainer's counts.
 """
 from __future__ import annotations
@@ -52,7 +54,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="torch device (cuda unless 'cpu' is asked for)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--workdir", default="")
-    ap.add_argument("--moe-pipeline-chunks", type=int, default=1)
+    ap.add_argument("--moe-pipeline-chunks", type=int, default=1,
+                    help="pipelining depth of the expert-parallel dispatch "
+                         "over a mesh; one device has no mesh, so it "
+                         "does nothing here")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--ef-bits", type=int, default=0,
                     help="int-N error-feedback gradient compression "
@@ -87,9 +92,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.ring_tp:
         raise NotImplementedError(
             "--ring-tp: ring tensor parallelism is ROADMAP item 9")
-    if args.moe_pipeline_chunks > 1:
-        raise NotImplementedError(
-            "--moe-pipeline-chunks: the moe family is ROADMAP item 10.2")
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -100,6 +102,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
     cfg = dataclasses.replace(cfg, ssm_chunk=min(cfg.ssm_chunk, args.seq))
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the encdec family is ROADMAP item 10.5")
     print(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
           f"device={dev} seq={args.seq} batch={args.batch}")
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -1,24 +1,29 @@
-"""Decoder-only LM assembly (counterpart of ``repro/models/transformer.py``)
-for the dense and recurrent families:
+"""Decoder-only LM assembly (counterpart of ``repro/models/transformer.py``):
 
-  dense — GQA transformer (codeqwen / nemo / qwen3 / starcoder2)
-  vlm   — the dense backbone with a stub visual-token prefix (internvl2)
-  xlstm — alternating mLSTM/sLSTM groups (xlstm-125m; ``models/xlstm.py``,
-          the sLSTM recurrence on K8 on the card)
+  dense  — GQA transformer (codeqwen / nemo / qwen3 / starcoder2)
+  vlm    — the dense backbone with a stub visual-token prefix (internvl2)
+  moe    — dense attention + a MoE FFN (mixtral, granite; ``models/moe.py``)
+  hybrid — Mamba2 blocks (``models/ssm.py``) with ONE shared attention +
+           MLP block applied after every group of ``attn_every`` of them,
+           then a tail (zamba2)
+  xlstm  — alternating mLSTM/sLSTM groups (xlstm-125m; ``models/xlstm.py``,
+           the sLSTM recurrence on K8 on the card)
 
 Entry points: ``forward`` (the cache-less whole-sequence forward, where
-flash attention runs under ``cfg.use_flash_attention``), ``loss_fn`` (the
-next-token cross-entropy that training differentiates), ``prefill`` and
-``decode_step`` (the ring-buffer KV cache, or the xlstm's fp32 recurrent
-states), ``init_params`` and ``init_cache``.  The parameter tree is the
+flash attention runs under ``cfg.use_flash_attention``: every dense and
+moe layer, and each application of the hybrid's shared block), ``loss_fn``
+(the next-token cross-entropy that training differentiates), ``prefill``
+and ``decode_step`` (ring-buffer KV caches, and the hybrid's and xlstm's
+fp32 recurrent states; the hybrid's decode takes ``ssm_step``),
+``init_params`` and ``init_cache``.  The parameter tree is the
 reference's leaf for leaf: blocks are stacked with a leading layer (or
 group) axis, and the reference's ``lax.scan`` over them is a loop over
-that axis.  ``remat`` (the reference's ``jax.checkpoint`` around each
-block or group) is ``torch.utils.checkpoint`` around each dense block and
-each xlstm group when autograd records the cache-less forward: it changes
-memory, not values.  Caches are updated in place.  The ``moe`` and
-``hybrid`` families raise ``NotImplementedError`` naming their ROADMAP
-item.  Training runs with ``use_flash_attention`` off, as the
+that axis.  ``remat`` (the reference's ``jax.checkpoint``) is
+``torch.utils.checkpoint`` around each dense or moe block, each hybrid
+group (not its tail) and each xlstm group when autograd records the
+cache-less forward: it changes memory, not values.  Caches are updated in
+place.  The encdec family (whisper) is ROADMAP item 10.5; a ``mesh``
+raises (item 9).  Training runs with ``use_flash_attention`` off, as the
 reference's must: K7 is forward only.
 """
 from __future__ import annotations
@@ -30,6 +35,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..train.tree import tree_map
+from . import moe as moe_lib
+from . import ssm as ssm_lib
 from . import xlstm as xlstm_lib
 from .layers import (KVCache, attention_apply, attention_init, dense_init,
                      embed_init, embed_lookup, kv_cache_init, layer_norm,
@@ -38,26 +45,24 @@ from .layers import (KVCache, attention_apply, attention_init, dense_init,
 __all__ = ["DistCtx", "init_params", "forward", "loss_fn", "prefill",
            "decode_step", "init_cache", "cache_length"]
 
-# the families of later slices, and the ROADMAP item that ports each
-_LATER = {"moe": "ROADMAP item 10.2 (the moe family)",
-          "hybrid": "ROADMAP item 10.3 (the hybrid family, with ssm.py)"}
+_FAMILIES = ("dense", "vlm", "moe", "hybrid", "xlstm")
 
 
 def _ported(cfg) -> None:
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is {_LATER[cfg.family]}")
-    if cfg.family not in ("dense", "vlm", "xlstm"):
+    if cfg.family not in _FAMILIES:
         raise ValueError(cfg.family)
 
 
 @dataclasses.dataclass(frozen=True)
 class DistCtx:
     """Distribution context.  The port runs on one card: ``constrain`` is
-    the identity, and a ``mesh`` makes the tensor-parallel matmuls raise
-    (ring TP is ROADMAP item 9)."""
+    the identity, and a ``mesh`` makes the tensor-parallel matmuls and the
+    expert-parallel MoE raise (ROADMAP item 9).  ``moe_pipeline_chunks``
+    (the EP dispatch's pipelining depth) acts only with a mesh, as in the
+    reference."""
 
     mesh: Optional[Any] = None
+    moe_pipeline_chunks: int = 1
 
     def constrain(self, h: torch.Tensor) -> torch.Tensor:
         return h
@@ -107,6 +112,105 @@ def _dense_block(bp, h, cfg, positions, cache, ctx):
 def _dense_block_nc(bp, h, cfg, positions, ctx):
     """A dense block without a cache (what ``remat`` checkpoints)."""
     return _dense_block(bp, h, cfg, positions, None, ctx)[0]
+
+
+# ---------------------------------------------------------------------------
+# the moe block
+# ---------------------------------------------------------------------------
+
+def _moe_block_init(gen: torch.Generator, cfg, n: Optional[int] = None):
+    return dict(ln1=_norm_init(cfg, gen.device, n),
+                attn=attention_init(gen, cfg, n),
+                ln2=_norm_init(cfg, gen.device, n),
+                moe=moe_lib.moe_init(gen, cfg, n))
+
+
+def _moe_block(bp, h, cfg, positions, cache, ctx):
+    h, new_cache = _attn_sub(bp, h, cfg, positions, cache, ctx)
+    z = _norm(h, bp["ln2"], cfg)
+    if cfg.expert_mode == "ep" and ctx.mesh is not None:
+        y = moe_lib.moe_apply_ep_shard(
+            bp["moe"], z, cfg, ctx.mesh,
+            pipeline_chunks=ctx.moe_pipeline_chunks)
+    else:
+        y = moe_lib.moe_apply(bp["moe"], z, cfg, ctx=ctx)
+    return ctx.constrain(h + y), new_cache
+
+
+def _moe_block_nc(bp, h, cfg, positions, ctx):
+    return _moe_block(bp, h, cfg, positions, None, ctx)[0]
+
+
+# ---------------------------------------------------------------------------
+# the hybrid: mamba groups around one shared dense block
+# ---------------------------------------------------------------------------
+
+def _hybrid_layout(cfg):
+    """(n_groups, group_size, tail) for the hybrid family."""
+    gs = max(1, cfg.attn_every)
+    n_groups = cfg.n_layers // gs
+    return n_groups, gs, cfg.n_layers - n_groups * gs
+
+
+def _mamba_block_init(gen: torch.Generator, cfg, n: int):
+    return dict(ln=_norm_init(cfg, gen.device, n),
+                ssm=ssm_lib.ssm_init(gen, cfg, n))
+
+
+def _mamba_block(bp, h, cfg, state, ctx, *, step: bool):
+    z = _norm(h, bp["ln"], cfg)
+    fn = ssm_lib.ssm_step if step else ssm_lib.ssm_apply
+    y, new_state = fn(bp["ssm"], z, cfg, state)
+    return ctx.constrain(h + y), new_state
+
+
+def _mamba_layer(stack, i, cfg, h, states, ctx, step):
+    """Layer ``i`` of a stacked mamba ``stack``; with ``states`` (the
+    stack's in the cache) its state is read and overwritten in place."""
+    bp = tree_map(lambda x: x[i], stack)
+    if states is None:
+        return _mamba_block(bp, h, cfg, None, ctx, step=False)[0]
+    st = {k: v[i] for k, v in states.items()}
+    h, new = _mamba_block(bp, h, cfg, st, ctx, step=step)
+    for k, v in new.items():
+        st[k].copy_(v)
+    return h
+
+
+def _hybrid_group(params, cfg, g, h, positions, ctx):
+    """Group ``g`` without a cache: its mamba blocks, then the shared
+    block (what ``remat`` checkpoints)."""
+    gs = _hybrid_layout(cfg)[1]
+    for i in range(gs):
+        h = _mamba_layer(params["mamba_main"], g * gs + i, cfg, h, None,
+                         ctx, False)
+    return _dense_block(params["shared_attn"], h, cfg, positions, None,
+                        ctx)[0]
+
+
+def _hybrid_forward(params, cfg, h, positions, cache, ctx, remat, step):
+    """The reference's scan over groups (``transformer.py:333-393``):
+    group g runs ``gs`` mamba blocks, then the shared dense block with
+    group g's KV cache; then the tail's mamba blocks.  With ``remat`` (no
+    cache) each group is checkpointed and the tail is not."""
+    n_groups, gs, tail = _hybrid_layout(cfg)
+    for g in range(n_groups):
+        if cache is None:
+            h = checkpoint(_hybrid_group, params, cfg, g, h, positions, ctx,
+                           use_reentrant=False,
+                           preserve_rng_state=False) if remat \
+                else _hybrid_group(params, cfg, g, h, positions, ctx)
+            continue
+        for i in range(gs):
+            h = _mamba_layer(params["mamba_main"], g * gs + i, cfg, h,
+                             cache["ssm_main"], ctx, step)
+        h, _ = _dense_block(params["shared_attn"], h, cfg, positions,
+                            cache["attn"].layer(g), ctx)
+    for i in range(tail):
+        h = _mamba_layer(params["mamba_tail"], i, cfg, h,
+                         None if cache is None else cache["ssm_tail"], ctx,
+                         step)
+    return h
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +290,18 @@ def init_params(gen: torch.Generator, cfg,
         for name, kind in stacks:
             params[name] = _xlstm_block_init(gen, cfg, kind, n_groups)
         return params
+    if cfg.family == "hybrid":
+        n_groups, gs, tail = _hybrid_layout(cfg)
+        params["mamba_main"] = _mamba_block_init(gen, cfg, n_groups * gs)
+        if tail:
+            params["mamba_tail"] = _mamba_block_init(gen, cfg, tail)
+        # zamba2's shared transformer block (attention + MLP): ONE
+        # parameter set applied after every group
+        params["shared_attn"] = _dense_block_init(gen, cfg)
+        return params
+    if cfg.family == "moe":
+        params["blocks"] = _moe_block_init(gen, cfg, cfg.n_layers)
+        return params
     params["blocks"] = _dense_block_init(gen, cfg, cfg.n_layers)
     if cfg.family == "vlm":
         params["vis_proj"] = dense_init(gen, cfg.d_model, cfg.d_model,
@@ -207,23 +323,37 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     """Decode caches for a maximum context of ``seq_len`` tokens: one
     ring-buffer KV cache a layer, stacked on a leading layer axis; for the
     xlstm family, each stack's recurrent states, fp32 whatever ``dtype``
-    is asked (as the reference), stacked on a leading group axis."""
+    is asked (as the reference), stacked on a leading group axis; for the
+    hybrid, the mamba states (fp32) of ``ssm_main`` (one a main layer)
+    and ``ssm_tail``, and under ``attn`` one KV cache a group (the shared
+    block's, stacked on the group axis).  Every leaf has batch on axis 1."""
     _ported(cfg)
+
+    def stack(tree, n):
+        return {k: v.expand((n,) + v.shape).contiguous()
+                for k, v in tree.items()}
+
+    def kv(n):
+        c = kv_cache_init(cfg, batch, cache_length(cfg, seq_len), dtype,
+                          device)
+        return KVCache(**stack(dict(k=c.k, v=c.v, key_pos=c.key_pos), n))
+
+    if cfg.family == "hybrid":
+        n_groups, gs, tail = _hybrid_layout(cfg)
+        st = ssm_lib.ssm_state_init(cfg, batch, device=device)
+        out = dict(ssm_main=stack(st, n_groups * gs), attn=kv(n_groups))
+        if tail:
+            out["ssm_tail"] = stack(st, tail)
+        return out
     if cfg.family == "xlstm":
         n_groups, stacks = _xlstm_stacks(cfg)
         out = {}
         for name, kind in stacks:
             init = (xlstm_lib.mlstm_state_init if kind == "m"
                     else xlstm_lib.slstm_state_init)
-            out[name] = {k: v.expand((n_groups,) + v.shape).contiguous()
-                         for k, v in init(cfg, batch, device=device).items()}
+            out[name] = stack(init(cfg, batch, device=device), n_groups)
         return out
-    c = kv_cache_init(cfg, batch, cache_length(cfg, seq_len), dtype, device)
-    n = cfg.n_layers
-    return dict(kv=KVCache(
-        k=c.k.expand((n,) + c.k.shape).contiguous(),
-        v=c.v.expand((n,) + c.v.shape).contiguous(),
-        key_pos=c.key_pos.expand((n,) + c.key_pos.shape).contiguous()))
+    return dict(kv=kv(cfg.n_layers))
 
 
 # ---------------------------------------------------------------------------
@@ -240,10 +370,13 @@ def forward(
     cache=None,
     vis: Optional[torch.Tensor] = None,   # vlm: (B, n_vis, d_model)
     remat: Optional[bool] = None,
+    step: bool = False,                # decode single-step mode
 ):
     """Returns (logits, new_cache); the cache is updated in place.
-    ``remat`` (default ``cfg.remat``) checkpoints each dense block or
-    xlstm group when autograd records a cache-less forward."""
+    ``remat`` (default ``cfg.remat``) checkpoints each dense or moe block,
+    hybrid group or xlstm group when autograd records a cache-less
+    forward.  ``step`` (with a cache) runs the hybrid's mamba blocks in
+    their single-token form."""
     _ported(cfg)
     remat = (cfg.remat if remat is None else remat) and cache is None \
         and torch.is_grad_enabled()
@@ -264,16 +397,22 @@ def forward(
 
     if cfg.family == "xlstm":
         h = _xlstm_forward(params, cfg, h, cache, ctx, remat)
+    elif cfg.family == "hybrid":
+        h = _hybrid_forward(params, cfg, h, positions, cache, ctx, remat,
+                            step)
     else:
+        moe = cfg.family == "moe"
+        block = _moe_block if moe else _dense_block
+        block_nc = _moe_block_nc if moe else _dense_block_nc
         kv = None if cache is None else cache["kv"]
         for i in range(cfg.n_layers):
             bp = tree_map(lambda x: x[i], params["blocks"])
             if remat:
-                h = checkpoint(_dense_block_nc, bp, h, cfg, positions, ctx,
+                h = checkpoint(block_nc, bp, h, cfg, positions, ctx,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                h, _ = _dense_block(bp, h, cfg, positions,
-                                    None if kv is None else kv.layer(i), ctx)
+                h, _ = block(bp, h, cfg, positions,
+                             None if kv is None else kv.layer(i), ctx)
 
     h = _norm(h, params["final_norm"], cfg)
     if n_vis:
@@ -318,5 +457,5 @@ def decode_step(params, cfg, token, pos, cache, *, ctx: DistCtx = DistCtx()):
     """One decode step. token: (B,) int; pos: (B,) absolute position."""
     logits, new_cache = forward(params, cfg, token[:, None], ctx=ctx,
                                 positions=pos[:, None], cache=cache,
-                                remat=False)
+                                remat=False, step=True)
     return logits[:, 0], new_cache

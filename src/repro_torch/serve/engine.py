@@ -7,10 +7,15 @@ slots; one ``decode_step`` advances every active slot; a slot that finishes
 boundary.
 
 Each admission prefills alone (batch 1, exact prompt length) and every
-leaf of its cache (a KV cache's k, v and key positions, or an xlstm's
-recurrent states) is copied into the shared decode cache at the slot index
+leaf of its cache (a KV cache's k, v and key positions, an xlstm's
+recurrent states, or the hybrid's mamba states and per-group KV caches,
+nested dicts) is copied into the shared decode cache at the slot index
 (axis 1, under the layer or group axis), as the reference's ``_scatter``
-does, so per-slot results are those of running that prompt solo.
+does, so per-slot results are those of running that prompt solo.  Idle
+slots feed token 0 at position 0, as the reference's engine: every decode
+step runs all ``batch_slots`` rows, so under the moe family's capacity
+routing (``models/moe.py``) the idle rows take capacity as they do in the
+reference, and the served tokens are the reference's.
 The decode cache is fp32, as the reference allocates it, whatever the
 compute dtype.  Sampling stays on the host with numpy, as in the
 reference (argmax, or Gumbel-max over ``np.random.default_rng(seed)``), so

@@ -1,15 +1,17 @@
 """LM training step factory and fault-tolerant driver loop for the port
 (counterpart of ``repro/train/trainer.py``).
 
-``make_train_step`` builds the step for the dense, vlm and xlstm
-families: value and gradient of the family's loss by autograd, optional
+``make_train_step`` builds the step for the dense, vlm, moe, hybrid and
+xlstm families: value and gradient of the family's loss by autograd, optional
 microbatch gradient accumulation (the reference's ``lax.scan`` is a loop
 that adds each microbatch's gradients to fp32 zeros in order, then
 divides), and AdamW (``train/optimizer.py``, the reference's update
 rule).  A step returns new tensors and updates nothing in place, as the
 reference's pure step does, so a step that fails leaves the parameters
 and the optimizer state as they were.  On the card the xlstm's sLSTM
-recurrence runs K8 forward and K9 backward (``kernels/ops.py``).
+recurrence runs K8 forward and K9 backward (``kernels/ops.py``); the
+moe's dispatch has a deterministic backward (``models/moe.py``), so a
+step's bits repeat there too.
 
 ``Trainer`` is the reference's driver: checkpoint/restart
 (``CheckpointManager``, asynchronous), the straggler watchdog against a

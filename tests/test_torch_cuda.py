@@ -8,7 +8,10 @@ card) and tiered serving == resident serving, a serving cluster of one
 their plain versions, the hardware probes, and the LM's flash attention
 (K7) and its cache-less forward on the card against the CPU, and the
 sLSTM scan's save (K8) and backward (K9) against their plain versions,
-with K9's bitwise invariants and the xlstm's training on the card.
+with K9's bitwise invariants and the xlstm's training on the card; the
+moe and hybrid smoke models' forwards (K7) and prefill + decode on the
+card against the CPU, the moe dispatch's backward and a moe loss's
+gradients bitwise across runs, and the hybrid's training on the card.
 
 These tests need an NVIDIA card and nvcc (a CUDA kernel has no CPU mode);
 without them they skip.  On the card, run them with
@@ -1308,3 +1311,124 @@ def test_pb_only_move_keeps_the_logits_bitwise_on_card(cuda):
         b = TC.gcn_apply(p, dyn, xp)
         assert neighbor_agg.gather_sum_blocked.launches > k2
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mixtral-8x7b",
+                                  "zamba2-7b"])
+def test_moe_and_hybrid_forward_on_card_matches_cpu(cuda, arch):
+    """The smoke moe and hybrid models' cache-less forward, fp32, flag on:
+    K7 on the card (one launch a moe layer, one a hybrid group) against
+    the plain version on the CPU; then prefill + decode on the card
+    against the CPU's forward (moe at no-drop capacity, whose routing does
+    not depend on the tokens in a call)."""
+    import dataclasses
+    cfg = LMC.get_smoke_config(arch)
+    kw = dict(compute_dtype="float32", use_flash_attention=True)
+    if cfg.family == "moe":
+        kw["moe_capacity_factor"] = float(cfg.n_experts)
+    cfg = dataclasses.replace(cfg, **kw)
+    params = LMT.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (2, 24)).astype(np.int32))
+    want, _ = LMT.forward(params, cfg, toks)
+    dev_params = tree_map(lambda t: t.to(cuda), params)
+    n_k7 = cfg.n_layers if cfg.family == "moe" \
+        else cfg.n_layers // cfg.attn_every
+    before = k7.flash_attention.launches
+    got, _ = LMT.forward(dev_params, cfg, toks.to(cuda))
+    assert k7.flash_attention.launches == before + n_k7
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    cache = LMT.init_cache(cfg, 2, 32, dtype=torch.float32, device=cuda)
+    _, cache = LMT.prefill(dev_params, cfg, toks[:, :23].to(cuda), cache)
+    step, _ = LMT.decode_step(dev_params, cfg, toks[:, 23].to(cuda),
+                              torch.full((2,), 23, device=cuda), cache)
+    torch.testing.assert_close(step.cpu(), want[:, 23], rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_moe_dispatch_backward_bitwise_on_card(cuda):
+    """The moe dispatch's backward (a gather summed over k in order) gives
+    the same bits twice on the card and agrees with autograd of the plain
+    gather (``index_add_``, atomics) within 1e-6; the smoke granite's loss
+    and gradients (fp32, remat) are bitwise across two runs on the card
+    and within 2e-4 of the CPU's."""
+    import dataclasses
+    from repro_torch.models import moe as LMM
+    from repro_torch.train import LMDataConfig, lm_batch, make_loss_fn
+    from repro_torch.train.trainer import _grads_of
+    rng = np.random.default_rng(0)
+    t, d, e, k, cap = 4096, 64, 8, 2, 900
+    x2d = torch.from_numpy(rng.normal(size=(t, d)).astype(np.float32)).to(
+        cuda)
+    tope = torch.from_numpy(np.stack([rng.choice(e, k, replace=False)
+                                      for _ in range(t)])).to(cuda)
+    slot_token, slot_valid, pair_slot, pair_kept = LMM._dispatch_indices(
+        tope, e, cap)
+    pair_idx = tope * cap + pair_slot.clamp(0, cap - 1)
+    g = torch.from_numpy(rng.normal(size=(e, cap, d)).astype(np.float32)).to(
+        cuda)
+
+    def grad(fn):
+        xr = x2d.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(xr), xr, g)[0]
+
+    ours = [grad(lambda xr: LMM._Dispatch.apply(
+        xr, slot_token, slot_valid, pair_idx, pair_kept)) for _ in range(2)]
+    plain = grad(lambda xr: torch.index_select(
+        xr, 0, slot_token.reshape(-1)).reshape(e, cap, d)
+        * slot_valid[..., None].float())
+    assert torch.equal(ours[0], ours[1])
+    torch.testing.assert_close(ours[0], plain, rtol=1e-6, atol=1e-6)
+
+    cfg = dataclasses.replace(LMC.get_smoke_config("granite-moe-1b-a400m"),
+                              compute_dtype="float32", remat=True)
+    params = LMT.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = {k_: torch.from_numpy(v) for k_, v in lm_batch(LMDataConfig(
+        vocab=cfg.vocab, seq_len=40, global_batch=3, doc_len=16), 0).items()}
+    loss_fn = make_loss_fn(cfg, LMT.DistCtx())
+    want = _grads_of(loss_fn, params, batch)
+    dp = tree_map(lambda t_: t_.to(cuda), params)
+    db = {k_: v.to(cuda) for k_, v in batch.items()}
+    runs = [_grads_of(loss_fn, dp, db) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(tree_leaves(runs[0][2]), tree_leaves(runs[1][2])):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(runs[0][0].cpu(), want[0], rtol=2e-4,
+                               atol=2e-4)
+    for a, w in zip(tree_leaves(runs[0][2]), tree_leaves(want[2])):
+        torch.testing.assert_close(a.cpu(), w, rtol=2e-4,
+                                   atol=2e-4 * w.abs().max().item())
+
+
+def test_hybrid_training_on_card_matches_cpu(cuda):
+    """The smoke zamba2's loss and gradients (fp32, remat, one chunk of
+    40: the masked exp's gradient) on the card against the CPU, bitwise
+    across two runs on the card; then the launcher's steps on the card."""
+    import dataclasses
+    from repro_torch.launch import train as ltrain
+    from repro_torch.train import LMDataConfig, lm_batch, make_loss_fn
+    from repro_torch.train.trainer import _grads_of
+    cfg = dataclasses.replace(LMC.get_smoke_config("zamba2-7b"),
+                              compute_dtype="float32", remat=True,
+                              ssm_chunk=40)
+    params = LMT.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = {k: torch.from_numpy(v) for k, v in lm_batch(LMDataConfig(
+        vocab=cfg.vocab, seq_len=40, global_batch=3, doc_len=16), 0).items()}
+    loss_fn = make_loss_fn(cfg, LMT.DistCtx())
+    want = _grads_of(loss_fn, params, batch)
+    dp = tree_map(lambda t: t.to(cuda), params)
+    db = {k: v.to(cuda) for k, v in batch.items()}
+    runs = [_grads_of(loss_fn, dp, db) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(tree_leaves(runs[0][2]), tree_leaves(runs[1][2])):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(runs[0][0].cpu(), want[0], rtol=2e-4,
+                               atol=2e-4)
+    for g, w in zip(tree_leaves(runs[0][2]), tree_leaves(want[2])):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-4,
+                                   atol=2e-4 * w.abs().max().item())
+    out = ltrain.main(["--arch", "zamba2-7b", "--smoke", "--steps", "2",
+                       "--seq", "32", "--batch", "2"])
+    assert out["device"].startswith("cuda") and len(out["losses"]) == 2
+    assert np.isfinite(out["losses"]).all()

@@ -51,9 +51,13 @@ torch.set_num_threads(2)
 TOL = 2e-4
 DENSE = [a for a in RC.ARCH_IDS
          if RC.get_config(a).family in ("dense", "vlm")]
-# the xlstm family has its own file (tests/test_torch_xlstm.py)
+# the moe and hybrid families (their own files: tests/test_torch_moe.py,
+# tests/test_torch_hybrid.py); the xlstm family has tests/test_torch_xlstm.py
+MOE_HYBRID = [a for a in RC.ARCH_IDS
+              if RC.get_config(a).family in ("moe", "hybrid")]
 LATER = [a for a in RC.ARCH_IDS
-         if RC.get_config(a).family not in ("dense", "vlm", "xlstm")]
+         if RC.get_config(a).family not in ("dense", "vlm", "xlstm", "moe",
+                                            "hybrid")]
 
 
 def _t(a):
@@ -104,7 +108,7 @@ def test_config_matches_reference(arch):
                 RC.shape_applicable(r, RC.SHAPES[name])
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE_HYBRID)
 def test_init_params_tree_matches_reference(arch):
     """The port's tree has the reference's leaf names, shapes and dtypes
     (at the smoke size: same family and layout)."""
@@ -133,18 +137,60 @@ def test_init_params_draws_the_reference_distributions():
     assert torch.equal(p["blocks"]["ln1"]["scale"], torch.ones(1, 256))
 
 
+def test_moe_and_ssm_inits_draw_the_reference_distributions():
+    """The experts ~ N(0, 2 / (d + f)); the mamba block's conv ~ N(0,
+    0.01), ``a_log``/``dt_bias`` zeros and ``d_skip`` ones in fp32
+    whatever ``param_dtype`` is; the shared block unstacked."""
+    moe = dataclasses.replace(TC.get_config("granite-moe-1b-a400m"),
+                              n_layers=1, vocab=1024)
+    p = TT.init_params(torch.Generator().manual_seed(0), moe)
+    w = p["blocks"]["moe"]["w_up"]
+    assert w.shape == (1, 32, 1024, 512)
+    assert abs(w.std().item() / (2.0 / (1024 + 512)) ** 0.5 - 1) < 0.02
+    hyb = dataclasses.replace(TC.get_config("zamba2-7b"), n_layers=2,
+                              attn_every=1, d_model=256, d_ff=384, vocab=1024,
+                              n_heads=2, n_kv_heads=2, head_dim=128,
+                              param_dtype="bfloat16")
+    p = TT.init_params(torch.Generator().manual_seed(0), hyb)
+    ssm = p["mamba_main"]["ssm"]
+    assert ssm["conv_w"].dtype == torch.bfloat16
+    assert abs(ssm["conv_w"].float().std().item() / 0.1 - 1) < 0.05
+    for name, value in (("a_log", 0.0), ("dt_bias", 0.0), ("d_skip", 1.0)):
+        assert ssm[name].dtype == torch.float32
+        assert torch.equal(ssm[name], torch.full((2, 8), value))
+    assert p["shared_attn"]["attn"]["wq"]["w"].shape == (256, 256)
+
+
 @pytest.mark.parametrize("arch", LATER)
 def test_later_families_raise(arch):
     cfg = TC.get_smoke_config(arch)
     gen = torch.Generator().manual_seed(0)
-    if cfg.family == "encdec":
-        with pytest.raises(ValueError):
-            TT.init_params(gen, cfg)
-        with pytest.raises(NotImplementedError, match="whisper"):
-            TServeEngine({"embed": {"w": torch.zeros(1)}}, cfg)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            TT.init_params(gen, cfg)
+    assert cfg.family == "encdec"
+    with pytest.raises(ValueError):
+        TT.init_params(gen, cfg)
+    with pytest.raises(NotImplementedError, match="whisper"):
+        TServeEngine({"embed": {"w": torch.zeros(1)}}, cfg)
+
+
+@pytest.mark.parametrize("arch", MOE_HYBRID)
+def test_moe_and_hybrid_families_build_and_step(arch):
+    """The archs that raised before their slice build, run the forward,
+    prefill + a decode step, and a loss with a gradient (smoke size)."""
+    cfg = TC.get_smoke_config(arch)
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.ones(2, 9, dtype=torch.int32)
+    logits, _ = TT.forward(params, cfg, toks)
+    assert logits.shape[:2] == (2, 9) and torch.isfinite(logits).all()
+    cache = TT.init_cache(cfg, 2, 16, dtype=torch.float32)
+    lg, cache = TT.prefill(params, cfg, toks[:, :8], cache)
+    lg2, _ = TT.decode_step(params, cfg, toks[:, 8],
+                            torch.full((2,), 8, dtype=torch.int32), cache)
+    assert torch.isfinite(lg).all() and torch.isfinite(lg2).all()
+    w = params["embed"]["w"].clone().requires_grad_(True)
+    loss, _ = TT.loss_fn(dict(params, embed=dict(w=w)), cfg,
+                         dict(tokens=toks))
+    loss.backward()
+    assert torch.isfinite(w.grad).all() and w.grad.abs().sum() > 0
 
 
 def test_mesh_raises_naming_the_roadmap_item():

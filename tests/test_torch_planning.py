@@ -158,6 +158,7 @@ def test_port_imports_no_jax():
         "        'repro_torch.kernels.flash_attention',\n"
         "        'repro_torch.kernels.slstm_scan',\n"
         "        'repro_torch.models.xlstm', 'repro_torch.core.autotune',\n"
+        "        'repro_torch.models.moe', 'repro_torch.models.ssm',\n"
         "        'repro_torch.runtime.tuner', 'repro_torch.runtime.cache',\n"
         "        'repro_torch.runtime.profiler',\n"
         "        'repro_torch.runtime.engine', 'repro_torch.obs.calibrate',\n"
