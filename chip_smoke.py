@@ -262,6 +262,34 @@ Phases, each of which passes or ends the run with a non-zero exit:
    card's 80 GB): a finite loss, the step ms and peak GB.  (d) K7 at
    (a)'s and (b)'s layer shapes beside its plain version, SDPA and its
    bound (K7's kernels entry, ``at_granite`` and ``at_zamba2``).
+19. whisper-base (the encdec family) as published, after phase 18's
+   state is freed: 6 encoder and 6 decoder layers, d_model 512, 8 heads
+   of 64, d_ff 2048, vocab 51,865 tied, parameters fp32 drawn on the card
+   from seed 0, frames a (B, 1500, 512) normal batch (the stub
+   frontend's output), 448 tokens.  (a) the forward (encoder, then the
+   teacher-forced decoder) at B 8 with ``use_flash_attention`` (K7, 12
+   launches counted: the encoder's 6 causal off, the decoder's 6
+   self-attentions causal; cross attention takes the chunked path) and
+   without: every K7 call of the bf16 flag-on forward held to its plain
+   version on the same inputs, and the flag-on forward held to its twin
+   with K7's plain version in K7's place (fp32 within rtol 2e-4, atol
+   2e-4 * max|logits|; bf16 K7's rms error against the fp32 twin at
+   most 1.5 x the bf16 twin's) -- the flag-off forward is no reference,
+   its encoder being causal (ROADMAP §3 F3), which is pinned here: a
+   change to frame 1499 leaves frames 0-1498 of the flag-off encoder
+   bitwise unchanged and moves them with the flag on; timed and
+   profiled (device ms by kind); (b) K7 at the encoder's shape (B 8, S
+   1500, H = KV = 8, hd 64, causal off) beside its plain version, SDPA
+   (``is_causal=False``) and its bound (K7's ``at_whisper``); (c)
+   ``prefill`` of the 1500 frames and a 4-token prompt then 28 greedy
+   ``decode_step``s at B 4, fp32, flag off: every step's logits within
+   2e-3 of the teacher-forced forward over the generated tokens, a
+   second run the same tokens, the ms of a decode step; the flag-on
+   bf16 prefill launches K7 6 times (counted); (d) 10 AdamW steps
+   through ``train/trainer.py`` (``Trainer``, ``make_train_step``) at B 8
+   x 1500 frames x 448 tokens, bf16 compute, remat, flag off: the loss
+   falling from about ln(51,865), step ms and peak GB, and step 0's fp32
+   loss and gradients bitwise equal across two runs, every one finite.
 
 The line before the last is a JSON object of the kernels K1–K9; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -366,6 +394,11 @@ PATH_KERNELS = {
     "moe_forward": ("flash_attention",),
     "hybrid_forward": ("flash_attention",),
     "mixtral_forward": ("flash_attention",),
+    # phase 19: whisper-base's flag-on forward (bf16 compute: the encoder's
+    # layers causal off, the decoder's self-attentions causal) and its
+    # flag-on prefill (the encoder's layers)
+    "whisper_forward": ("flash_attention",),
+    "whisper_prefill": ("flash_attention",),
 }
 PRODUCTS_SCALE = 199.3   # 12288 · 199.3 ≈ 2.449 M nodes (ogbn-products)
 REDUCED_SCALE = 10.0     # 122,880 nodes: GIN, SAGE and GAT, one step each
@@ -418,6 +451,13 @@ MOE_ARCH, HYB_ARCH, MIX_ARCH = ("granite-moe-1b-a400m", "zamba2-7b",
 P18_B, P18_S, P18_PREFIX = 2, 4096, 512
 HYB_TRAIN_LAYERS, HYB_TRAIN_STEPS = 13, 10
 MIX_LAYERS, MIX_TRAIN_LAYERS = 2, 1
+# phase 19: whisper-base at its published widths and depth, frames of the
+# stub frontend's N_FRAMES (1500) and 448 tokens (the most Whisper
+# decodes): forwards and training at B 8, prefill of a 4-token prompt and
+# greedy decode steps at B 4
+W_ARCH, W_B, W_TOKENS = "whisper-base", 8, 448
+W_DEC_B, W_PROMPT, W_DECODE_STEPS = 4, 4, 28
+W_TRAIN_STEPS = 10
 # K1 and K6 sweeps: more partitions than one grid of K1 holds (what fits
 # the card at once), so each of its warps walks several
 GRID_P = 300_000
@@ -837,6 +877,13 @@ def main():
     check(left < 1.0, f"{left:.1f} GB still allocated after phase 17")
     k7 = next(k for k in kernels if k["name"] == "flash_attention")
     k7.update(moe_hybrid(torch, K, dev, rate, flops, launches))
+
+    # -- 19. whisper-base: phase 18's device state goes first --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    check(left < 1.0, f"{left:.1f} GB still allocated after phase 18")
+    k7.update(whisper(torch, K, dev, rate, flops, launches))
 
     for k in kernels:
         by_path = {p: launches[p][k["name"]] for p in launches
@@ -3189,7 +3236,8 @@ def sweep_flash(torch, ops, ref, dev, gen):
     """Phase 2's K7 sweep against its plain version, fp32 and bf16: the
     reference's five cases at each head_dim K7 takes, GQA groups 1, 4 and
     12 at S = 50, 1000 and 4096, a window of 16 at S = 1000, mixtral's
-    window of 4096 at S = 8192, and causal off.  Returns (cases, the
+    window of 4096 at S = 8192, and causal off (also at whisper's encoder,
+    B 1 and 8 x S 1500, H = KV = 8, hd 64).  Returns (cases, the
     largest absolute difference)."""
     shapes = []   # (B, S, H, KV, hd, causal, window)
     for hd in (16, 64, 112, 128):
@@ -3201,6 +3249,9 @@ def sweep_flash(torch, ops, ref, dev, gen):
         shapes += [(2, 1000, 4, 2, hd, True, 16),
                    (1, 1000, 4, 1, hd, False, 0)]
     shapes.append((1, 8192, 8, 2, 128, True, 4096))
+    # whisper-base's encoder (phase 19): causal off at S 1500, whose last
+    # 64-key tile is partial and read by every query row, GQA group 1
+    shapes += [(1, 1500, 8, 8, 64, False, 0), (8, 1500, 8, 8, 64, False, 0)]
     worst, worst_row, n = 0.0, 0.0, 0
     for b, s, h, kv, hd, causal, window in shapes:
         q, k, v = (torch.from_numpy(gen.normal(size=(b, s, m, hd)).astype(
@@ -3340,10 +3391,7 @@ def lm_forwards(torch, K, params, cfg, toks, n_k7, path, launches,
                     launches[path] = c
             check(all(torch.isfinite(lg).all().item()
                       for lg in logits.values()), "bf16 logits not finite")
-            rms16 = {on: math.sqrt(sum(
-                (lg.float() - r.to(lg.device)).pow(2).sum().item()
-                for lg, r in zip(logits[on], ref32)) / ref32.numel())
-                for on in (True, False)}
+            rms16 = {on: _rms(logits[on], ref32) for on in (True, False)}
             del ref32
             check(rms16[True] <= BF16_RMS_RATIO * rms16[False],
                   f"bf16 forward: K7's rms error against fp32 "
@@ -3546,13 +3594,15 @@ def batched_vs_solo(ServeEngine, params, cfg):
                                 "max|logit|")
 
 
-def time_flash(torch, K, dev, cfg, rate, flops, b=LM_B, s=LM_S):
+def time_flash(torch, K, dev, cfg, rate, flops, b=LM_B, s=LM_S,
+               causal=True):
     """K7 at one layer's shapes of a B x S forward of ``cfg`` (phase 11
-    (a)'s by default): q (B, S, H, hd), k/v (B, S, KV, hd), causal, the
-    config's window, in bf16 (the configs' compute dtype) and fp32, held
-    to its plain version, beside the plain version and
-    ``scaled_dot_product_attention`` (timed only, never on the path; none
-    where the window bites, which it cannot express without a mask)."""
+    (a)'s by default): q (B, S, H, hd), k/v (B, S, KV, hd), ``causal`` (a
+    decoder) or not (whisper's encoder), the config's window, in bf16 (the
+    configs' compute dtype) and fp32, held to its plain version, beside
+    the plain version and ``scaled_dot_product_attention`` (timed only,
+    never on the path; none where the window bites, which it cannot
+    express without a mask)."""
     import torch.nn.functional as F
 
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -3561,26 +3611,27 @@ def time_flash(torch, K, dev, cfg, rate, flops, b=LM_B, s=LM_S):
     base = [torch.randn((b, s, n, hd), generator=g, device=dev)
             for n in (h, kv, kv)]
     # the (query, key) pairs kept: causal, within the window
-    pairs = sum(min(i + 1, w) if w else i + 1 for i in range(s))
+    pairs = sum(min(i + 1, w) if w else i + 1 for i in range(s)) if causal \
+        else s * s
     n_flops = 4 * b * h * hd * pairs
     out = {}
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (t.to(dtype) for t in base)
-            got = K.flash_attention.flash_attention(q, k, v, causal=True,
+            got = K.flash_attention.flash_attention(q, k, v, causal=causal,
                                                     window=w)
-            want = K.ref.flash_attention(q, k, v, causal=True, window=w)
+            want = K.ref.flash_attention(q, k, v, causal=causal, window=w)
             err, row = _flash_held(torch, got, want, dtype,
                                    f"flash_attention at the LM's shapes "
                                    f"({dtype})")
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             t_plain = _time(torch, lambda: K.ref.flash_attention(
-                q, k, v, causal=True, window=w), reps=2, warmup=1)
+                q, k, v, causal=causal, window=w), reps=2, warmup=1)
             t_k7 = _time(torch, lambda: K.flash_attention.flash_attention(
-                q, k, v, causal=True, window=w), reps=10, warmup=2)
+                q, k, v, causal=causal, window=w), reps=10, warmup=2)
             t_lib = None if w and w < s else _time(
                 torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True), reps=10,
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), reps=10,
                 warmup=2)
             name = str(dtype).replace("torch.", "")
             nbytes = sum(t.numel() for t in (q, k, v, q)) * q.element_size()
@@ -3602,10 +3653,11 @@ def time_flash(torch, K, dev, cfg, rate, flops, b=LM_B, s=LM_S):
                 max_row_rms_ratio=main["max_row_rms_ratio"], ms=main["ms"],
                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                 bound_by=main["bound_by"], library_ms=main["library_ms"],
-                library="scaled_dot_product_attention(is_causal, enable_gqa)",
+                library=f"scaled_dot_product_attention(is_causal={causal}, "
+                        "enable_gqa)",
                 dtype="bfloat16", float32=out["float32"],
                 shape=dict(batch=b, seq=s, heads=h, kv_heads=kv, head_dim=hd,
-                           causal=True, window=w),
+                           causal=causal, window=w),
                 flops=n_flops, bytes=main["bytes"], kept_pairs=pairs)
 
 # ---------------------------------------------------------------------------
@@ -4914,6 +4966,297 @@ def moe_hybrid(torch, K, dev, rate, flops, launches):
                  if k not in ("name", "route", "source", "replaces")}
             for at, e in k7.items()}
 
+
+# ---------------------------------------------------------------------------
+# whisper-base, the encdec family (phase 19)
+# ---------------------------------------------------------------------------
+
+def _k7_recorder(ops):
+    """Wrap ``ops.flash_attention`` (what the model calls) so that each
+    call's inputs, flags and output are kept; returns (the record, the
+    restore)."""
+    calls, orig = [], ops.flash_attention
+
+    def rec(q, k, v, *, causal=True, window=0):
+        out = orig(q, k, v, causal=causal, window=window)
+        calls.append((q, k, v, causal, window, out))
+        return out
+
+    ops.flash_attention = rec
+
+    def restore():
+        ops.flash_attention = orig
+    return calls, restore
+
+
+def _rms(a, b):
+    """The rms of ``a - b`` in fp32, a batch row at a time (``b``'s rows
+    moved to ``a``'s device)."""
+    return math.sqrt(sum((x.float() - y.to(x.device).float()).pow(2).sum()
+                         .item() for x, y in zip(a, b)) / a.numel())
+
+
+def whisper(torch, K, dev, rate, flops, launches):
+    """Phase 19: whisper-base encoded, decoded and trained at full width;
+    returns K7's entry at the encoder's shape (``at_whisper``)."""
+    from repro_torch import configs
+    from repro_torch.configs.whisper_base import N_FRAMES
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import encdec as E
+    from repro_torch.models.transformer import DistCtx
+    from repro_torch.train import (AdamWConfig, LMDataConfig, Trainer,
+                                   TrainState, adamw_init, lm_batch,
+                                   make_loss_fn, make_train_step)
+    from repro_torch.train.trainer import _grads_of
+    from repro_torch.train.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(W_ARCH)
+    n_enc, n_dec, v = cfg.n_enc_layers, cfg.n_layers, cfg.vocab
+    b, t, s = W_B, N_FRAMES, W_TOKENS
+    flag = {(dt, on): dataclasses.replace(cfg, compute_dtype=dt,
+                                          use_flash_attention=on)
+            for dt in ("float32", "bfloat16") for on in (True, False)}
+
+    def draw(train=False):
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        with torch.inference_mode(not train):
+            params = E.init_params(gen, cfg, vocab_multiple=16)
+        torch.cuda.synchronize()
+        return params, dict(
+            params=sum(x.numel() for x in tree_leaves(params)),
+            init_s=round(time.perf_counter() - t0, 3),
+            gpu_mem_gb=round(torch.cuda.memory_allocated() / 1e9, 3))
+
+    def frames(bb, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn((bb, t, cfg.d_model), generator=g, device=dev)
+
+    def tokens(bb, ss, step):
+        return torch.from_numpy(lm_batch(LMDataConfig(
+            vocab=v, seq_len=ss, global_batch=bb, doc_len=ss), step)[
+            "tokens"]).to(dev)
+
+    def ar(bb, n):
+        return torch.arange(n, dtype=torch.int32, device=dev).expand(bb, n)
+
+    def forward(c, p, fr, tk):   # the padded vocab's -1e30 columns left out
+        enc = E.encode(p, c, fr)
+        logits, _ = E._decoder(p, c, tk, enc, ar(fr.shape[0], t),
+                               ctx=DistCtx(), positions=ar(*tk.shape))
+        return enc, logits[..., :v]
+
+    params, built = draw()
+    say("whisper_built", arch=cfg.name, enc_layers=n_enc, dec_layers=n_dec,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=v,
+        padded_vocab=params["embed"]["w"].shape[0], frames=t, **built)
+    fr, tk = frames(b, 0), tokens(b, s, 0)
+
+    # (a) the forward, flag on and off
+    with torch.inference_mode():
+        calls, restore = _k7_recorder(ops)
+        try:
+            K.reset_launch_counts()
+            enc16, lg16 = forward(flag[("bfloat16", True)], params, fr, tk)
+            torch.cuda.synchronize()
+            launches["whisper_forward"] = K.launch_counts()
+        finally:
+            restore()
+        n_k7 = launches["whisper_forward"]["flash_attention"]
+        check(n_k7 == n_enc + n_dec
+              and [c[3] for c in calls] == [False] * n_enc + [True] * n_dec,
+              f"whisper's flag-on forward launched K7 {n_k7} times, causal "
+              f"{[c[3] for c in calls]} (expected {n_enc} off, {n_dec} on)")
+        held_err, held_row = 0.0, 0.0
+        for i, (q, k, vv, causal, window, out) in enumerate(calls):
+            err, row = _flash_held(
+                torch, out, ref.flash_attention(q, k, vv, causal=causal,
+                                                window=window),
+                q.dtype, f"whisper forward, K7 call {i} (causal {causal})")
+            held_err, held_row = max(held_err, err), max(held_row, row)
+        del calls
+        # the twins: the same flag-on forwards with K7's plain version
+        plain = {}
+        ops.flash_attention = ref.flash_attention
+        try:
+            K.reset_launch_counts()
+            for dt in ("float32", "bfloat16"):
+                plain[dt] = forward(flag[(dt, True)], params, fr, tk)[1]
+            torch.cuda.synchronize()
+            check(K.launch_counts()["flash_attention"] == 0,
+                  "the plain twin launched K7")
+        finally:
+            restore()
+        K.reset_launch_counts()
+        lg32 = forward(flag[("float32", True)], params, fr, tk)[1]
+        check(K.launch_counts()["flash_attention"] == n_enc + n_dec,
+              "the fp32 flag-on forward did not launch K7 12 times")
+        check(lg32.shape == (b, s, v) and enc16.shape == (b, t, cfg.d_model),
+              f"logits of shape {tuple(lg32.shape)}")
+        err32, _ = _held_prefix(torch, lg32, plain["float32"], 2e-4, None,
+                                "whisper fp32 forward, K7 against its "
+                                "plain twin")
+        check(all(torch.isfinite(x).all().item() for x in (lg16, enc16)),
+              "whisper's bf16 logits not finite")
+        rms16 = {"flash": _rms(lg16, plain["float32"]),
+                 "plain_twin": _rms(plain["bfloat16"], plain["float32"])}
+        check(rms16["flash"] <= BF16_RMS_RATIO * rms16["plain_twin"],
+              f"whisper bf16 forward: K7's rms error against the fp32 twin "
+              f"{rms16['flash']} over {BF16_RMS_RATIO} x the bf16 twin's "
+              f"{rms16['plain_twin']}")
+        same_argmax = float((lg16.argmax(-1) == plain["bfloat16"].argmax(-1))
+                            .float().mean())
+        del lg32, plain
+        # ROADMAP §3 F3 on the card: the flag-off encoder is causal
+        moved = fr.clone()     # not a constant shift, which LayerNorm drops
+        moved[:, -1] += frames(1, 1)[0, 0]
+        f3 = {}
+        for on in (False, True):
+            c = flag[("bfloat16", on)]
+            a, z = E.encode(params, c, fr), E.encode(params, c, moved)
+            f3[on] = dict(
+                earlier_frames_bitwise=bool(torch.equal(a[:, :-1],
+                                                        z[:, :-1])),
+                earlier_frames_max_abs_moved=(a[:, :-1] - z[:, :-1]).abs()
+                .max().item(),
+                last_frame_max_abs_moved=(a[:, -1] - z[:, -1]).abs().max()
+                .item())
+        check(f3[False]["earlier_frames_bitwise"]
+              and not f3[True]["earlier_frames_bitwise"]
+              and f3[True]["earlier_frames_max_abs_moved"] > 0,
+              f"F3: frame 1499 should move frames 0-1498 with the flag on "
+              f"only: {f3}")
+        fwd_ms = {f"{dt}_{'flash' if on else 'chunked'}": _time(
+            torch, lambda c=flag[(dt, on)]: forward(c, params, fr, tk),
+            reps=3, warmup=1) for dt in ("bfloat16", "float32")
+            for on in (True, False)}
+        prof = profile_kinds(torch, lambda: forward(
+            flag[("bfloat16", True)], params, fr, tk), lambda n: _kinds(n))
+    say("whisper_forward", batch=b, frames=t, tokens=s,
+        flash_launches_per_forward=n_k7, k7_calls_held=n_enc + n_dec,
+        k7_calls_max_abs_err=held_err, k7_calls_max_row_rms_ratio=held_row,
+        fp32_vs_plain_twin_max_abs_err=err32,
+        fp32_tolerance="rtol 2e-4, atol 2e-4 * max|logits|",
+        bf16_rms_err_vs_fp32_twin=rms16,
+        bf16_tolerance=f"flash rms error <= {BF16_RMS_RATIO} x the bf16 "
+                       "plain twin's",
+        bf16_same_argmax_share_vs_twin=same_argmax,
+        f3={"flag_off": f3[False], "flag_on": f3[True]},
+        forward_ms=fwd_ms, **prof)
+    del enc16, lg16, moved
+
+    # (b) K7 at the encoder's shape
+    k7 = time_flash(torch, K, dev, cfg, rate, flops, b, t, causal=False)
+
+    # (c) prefill and greedy decode, fp32, flag off
+    c32 = flag[("float32", False)]
+    bd, n_steps = W_DEC_B, W_DECODE_STEPS
+    fr4, prompt = fr[:bd], tk[:bd, :W_PROMPT]
+
+    def greedy():
+        cache = E.init_cache(c32, bd, W_PROMPT + n_steps, t,
+                             dtype=torch.float32, device=dev)
+        lg, cache = E.prefill(params, c32, fr4, prompt, cache)
+        out, logits, step_ms = [prompt], [lg[:, :v]], []
+        for i in range(n_steps):
+            nxt = logits[-1].argmax(-1).to(torch.int32)
+            out.append(nxt[:, None])
+            pos = torch.full((bd,), W_PROMPT + i, dtype=torch.int32,
+                             device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = E.decode_step(params, c32, nxt, pos, cache)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg[:, :v])
+        return torch.cat(out, 1), torch.stack(logits, 1), step_ms
+
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        toks, logits, step_ms = greedy()
+        check(K.launch_counts()["flash_attention"] == 0,
+              "the flag-off prefill/decode launched K7")
+        again, logits2, _ = greedy()
+        check(torch.equal(toks, again), "a second greedy run gave other "
+              "tokens")
+        full = forward(c32, params, fr4, toks)[1][:, W_PROMPT - 1:]
+        check(torch.allclose(logits, full, rtol=2e-3, atol=2e-3),
+              f"whisper prefill/decode against the teacher-forced forward: "
+              f"max|diff| {(logits - full).abs().max().item()}")
+        pd_err = (logits - full).abs().max().item()
+        pd_bitwise = bool(torch.equal(logits, logits2))
+        del full, logits, logits2
+        K.reset_launch_counts()
+        c16 = flag[("bfloat16", True)]
+        cache = E.init_cache(c16, bd, W_PROMPT + n_steps, t, device=dev)
+        lg, cache = E.prefill(params, c16, fr4, prompt, cache)
+        torch.cuda.synchronize()
+        launches["whisper_prefill"] = K.launch_counts()
+        check(launches["whisper_prefill"]["flash_attention"] == n_enc
+              and torch.isfinite(lg).all().item(),
+              f"whisper's flag-on prefill: {launches['whisper_prefill']} "
+              f"(expected {n_enc} K7 launches)")
+        del cache, lg
+    say("whisper_prefill_decode", batch=bd, prompt=W_PROMPT,
+        decode_steps=n_steps, compute="float32", flash=False,
+        max_abs_err_vs_forward=pd_err, tolerance="rtol 2e-3 atol 2e-3",
+        repeated_run="same tokens", repeated_logits_bitwise=pd_bitwise,
+        decode_step_ms=step_ms,
+        decode_step_ms_median=float(np.median(step_ms[1:])),
+        tokens=toks[0].tolist(),
+        flag_on_prefill_k7_launches=launches["whisper_prefill"][
+            "flash_attention"])
+    del params, fr, tk, fr4, prompt, toks, again
+    _free(torch)
+
+    # (d) training through the Trainer: bf16, remat, flag off
+    params, built = draw(train=True)
+
+    def batch(step):
+        return dict(frames=frames(b, 1000 + step), tokens=tokens(b, s, step))
+
+    loss0, n_leaves = _grads_twice(
+        torch, _grads_of, make_loss_fn(flag[("float32", False)], DistCtx()),
+        params, batch(0), f"{W_ARCH} step 0 (fp32)")
+    _free(torch)
+
+    def stream():
+        step = 0
+        while True:
+            yield batch(step)
+            step += 1
+
+    step_fn = make_train_step(cfg, DistCtx(), AdamWConfig(
+        lr=1e-3, warmup_steps=2, total_steps=W_TRAIN_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(step_fn, stream(), TrainState(params, adamw_init(params)),
+                 log_fn=lambda _s: None)
+    t0 = time.perf_counter()
+    losses = tr.run(W_TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    check(len(losses) == W_TRAIN_STEPS and all(np.isfinite(losses))
+          and losses[-1] < losses[0]
+          and np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"{W_ARCH} did not train: {losses}")
+    step_ms = [x * 1e3 for x in tr.step_times]
+    say("whisper_training", batch=b, frames=t, tokens=s,
+        compute=cfg.compute_dtype, remat=cfg.remat, flash=False,
+        params=built["params"], ln_vocab=math.log(v), step0_fp32_loss=loss0,
+        step0_gradients=f"{n_leaves} leaves, every one finite, bitwise "
+                        "equal across two runs (fp32)",
+        steps=W_TRAIN_STEPS, losses=losses, step_ms=step_ms,
+        step_ms_median=float(np.median(step_ms[1:])),
+        peak_gb=_peak_gb(torch), wall_s=round(wall, 3))
+    del params, tr, step_fn
+    _free(torch)
+    say("phase19", wall_s=round(time.perf_counter() - t_phase, 3))
+    return {"at_whisper": {k: x for k, x in k7.items()
+                           if k not in ("name", "route", "source",
+                                        "replaces")}}
 
 if __name__ == "__main__":
     main()

@@ -20,9 +20,12 @@ backward).  TF32 is off: every fp32 product is fp32.  The reference's
 cpu|cuda``: without ``--device cpu`` it runs on the card or raises.  On
 one device there is no mesh, so ``--moe-pipeline-chunks`` (the EP
 dispatch's pipelining depth) does nothing, as in the reference's
-one-device run.  ``--ef-bits`` and ``--ring-tp`` (ROADMAP item 9) and
-the encdec family (whisper, item 10.5) raise ``NotImplementedError``.  Prints the first and last loss; ``main``
-returns the losses, each step's ms and the trainer's counts.
+one-device run.  ``--ef-bits`` and ``--ring-tp`` (ROADMAP item 9) raise
+``NotImplementedError``; so does whisper (the encdec family), which the
+reference's launcher has no path for either: train it through
+``repro_torch.models.encdec`` and ``train.make_train_step``.  Prints the
+first and last loss; ``main`` returns the losses, each step's ms and the
+trainer's counts.
 """
 from __future__ import annotations
 
@@ -104,7 +107,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = dataclasses.replace(cfg, ssm_chunk=min(cfg.ssm_chunk, args.seq))
     if cfg.family == "encdec":
         raise NotImplementedError(
-            f"{cfg.name}: the encdec family is ROADMAP item 10.5")
+            f"{cfg.name}: the encdec family has no launcher path, as in the "
+            "reference; use repro_torch.models.encdec directly")
     print(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
           f"device={dev} seq={args.seq} batch={args.batch}")
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -1,7 +1,8 @@
 """End-to-end LM pretraining driver for the port (counterpart of
-``examples/train_lm.py``): any dense, vlm or xlstm ``--arch``, the
-fault-tolerant ``Trainer`` (checkpoint/restart, straggler watchdog) and
-the shardable synthetic data.
+``examples/train_lm.py``): any ``--arch`` but whisper (the encdec
+family, which ``examples/train_lm.py`` refuses too), the fault-tolerant
+``Trainer`` (checkpoint/restart, straggler watchdog) and the shardable
+synthetic data.
 
     PYTHONPATH=src python -m repro_torch.launch.train_lm --steps 300 \
         --seq 128 --batch 4
@@ -106,7 +107,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
            else configs.get_config(args.arch))
     if cfg.family == "encdec":
         raise NotImplementedError(
-            f"{cfg.name}: the encdec family is ROADMAP item 10.5")
+            f"{cfg.name}: the encdec family has no launcher path, as in the "
+            "reference; use repro_torch.models.encdec directly")
     cfg = dataclasses.replace(cfg, ssm_chunk=min(cfg.ssm_chunk, args.seq))
     print(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
           f"device={dev} seq={args.seq} batch={args.batch}")

@@ -308,6 +308,11 @@ def attention_apply(
         if getattr(cfg, "use_flash_attention", False):
             out = ops.flash_attention(q, k, v, causal=causal, window=window)
         else:
+            # masks k_pos <= q_pos whatever ``causal`` says: the
+            # reference drops ``causal=False`` here too (its layers.py
+            # :380-383, masked at :305), so whisper's encoder is causal
+            # with the flag off and bidirectional with it on; the port
+            # keeps that to hold the reference's losses (ROADMAP §3 F3)
             out = _chunked_softmax_attention(q, k, v, positions, positions,
                                              window, chunk)
     elif s == 1:

@@ -22,7 +22,7 @@ that axis.  ``remat`` (the reference's ``jax.checkpoint``) is
 ``torch.utils.checkpoint`` around each dense or moe block, each hybrid
 group (not its tail) and each xlstm group when autograd records the
 cache-less forward: it changes memory, not values.  Caches are updated in
-place.  The encdec family (whisper) is ROADMAP item 10.5; a ``mesh``
+place.  The encdec family (whisper) is ``models/encdec.py``; a ``mesh``
 raises (item 9).  Training runs with ``use_flash_attention`` off, as the
 reference's must: K7 is forward only.
 """

@@ -1,8 +1,9 @@
 """LM training step factory and fault-tolerant driver loop for the port
 (counterpart of ``repro/train/trainer.py``).
 
-``make_train_step`` builds the step for the dense, vlm, moe, hybrid and
-xlstm families: value and gradient of the family's loss by autograd, optional
+``make_train_step`` builds the step for every family (dense, vlm, moe,
+hybrid, xlstm and encdec, whose batch holds ``frames`` beside
+``tokens``): value and gradient of the family's loss by autograd, optional
 microbatch gradient accumulation (the reference's ``lax.scan`` is a loop
 that adds each microbatch's gradients to fp32 zeros in order, then
 divides), and AdamW (``train/optimizer.py``, the reference's update
@@ -23,8 +24,8 @@ tracer records it, so tracing adds no synchronization and the losses are
 bitwise the same with it on or off.
 
 Not ported here: the error-feedback compressed all-reduce (``ef_bits >
-0``: ROADMAP item 9, with the mesh it needs) and the encdec family's loss
-(ROADMAP item 10.5); both raise ``NotImplementedError`` naming the item.
+0``: ROADMAP item 9, with the mesh it needs) raises
+``NotImplementedError`` naming the item.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from ..models import transformer
+from ..models import encdec, transformer
 from ..obs import NULL_TRACER
 from . import checkpoint as ckpt_lib
 from .optimizer import AdamWConfig, adamw_update
@@ -47,9 +48,7 @@ __all__ = ["make_loss_fn", "make_train_step", "Trainer", "TrainState"]
 def make_loss_fn(cfg, ctx: transformer.DistCtx) -> Callable:
     """``loss(params, batch) -> (loss, aux)`` for ``cfg``'s family."""
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encdec family's loss is ROADMAP item 10.5 "
-            "(models/encdec.py)")
+        return lambda p, batch: encdec.loss_fn(p, cfg, batch, ctx=ctx)
     return lambda p, batch: transformer.loss_fn(p, cfg, batch, ctx=ctx)
 
 

@@ -11,7 +11,9 @@ sLSTM scan's save (K8) and backward (K9) against their plain versions,
 with K9's bitwise invariants and the xlstm's training on the card; the
 moe and hybrid smoke models' forwards (K7) and prefill + decode on the
 card against the CPU, the moe dispatch's backward and a moe loss's
-gradients bitwise across runs, and the hybrid's training on the card.
+gradients bitwise across runs, and the hybrid's training on the card;
+K7 at whisper's encoder shape, and the smoke whisper's flag-on forward
+and its loss and gradients on the card against the CPU.
 
 These tests need an NVIDIA card and nvcc (a CUDA kernel has no CPU mode);
 without them they skip.  On the card, run them with
@@ -729,6 +731,24 @@ def test_flash_attention_matches_plain(cuda, b, s, h, kv, hd, causal, window,
                                                 window=window))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8])
+def test_flash_attention_at_the_whisper_encoder_shape(cuda, b, dtype):
+    """whisper-base's encoder: S 1500 (the last 64-key tile partial, read by
+    every query row with causal off), H = KV = 8 (GQA group 1), hd 64;
+    held to the plain version and bitwise across launches."""
+    g = torch.Generator(device=cuda).manual_seed(b)
+    q, k, v = (torch.randn((b, 1500, 8, 64), generator=g, device=cuda)
+               .to(dtype) for _ in range(3))
+    want = ref.flash_attention(q, k, v, causal=False)
+    got = ops.flash_attention(q, k, v, causal=False)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        _bf16_held(got, want)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=False))
+
+
 def test_flash_attention_reads_strided_inputs(cuda):
     """q, k and v as slices of one packed projection (the model's layout
     before any copy): the kernel reads them through their strides."""
@@ -1432,3 +1452,66 @@ def test_hybrid_training_on_card_matches_cpu(cuda):
                        "--seq", "32", "--batch", "2"])
     assert out["device"].startswith("cuda") and len(out["losses"]) == 2
     assert np.isfinite(out["losses"]).all()
+
+
+def _whisper(cuda, **kw):
+    import dataclasses
+    cfg = dataclasses.replace(LMC.get_smoke_config("whisper-base"),
+                              compute_dtype="float32", **kw)
+    from repro_torch.models import encdec
+    params = encdec.init_params(torch.Generator().manual_seed(0), cfg,
+                                vocab_multiple=4)
+    rng = np.random.default_rng(0)
+    batch = dict(frames=torch.from_numpy(rng.normal(
+        size=(2, 12, cfg.d_model)).astype(np.float32)),
+        tokens=torch.from_numpy(rng.integers(1, cfg.vocab, (2, 24)).astype(
+            np.int32)))
+    return encdec, cfg, params, batch
+
+
+def test_whisper_forward_with_flash_on_card_matches_cpu(cuda):
+    """The smoke whisper's encoder and teacher-forced decoder, fp32, flag
+    on: K7 on the card (causal off in each encoder layer, causal in each
+    decoder self-attention) against the plain version on the CPU."""
+    encdec, cfg, params, batch = _whisper(cuda, use_flash_attention=True)
+
+    def forward(p, frames, toks):
+        b, s = toks.shape
+        t = frames.shape[1]
+        ar = lambda n: torch.arange(n, dtype=torch.int32,
+                                    device=toks.device).expand(b, n)
+        with torch.no_grad():
+            enc = encdec.encode(p, cfg, frames)
+            return enc, encdec._decoder(p, cfg, toks, enc, ar(t),
+                                        ctx=LMT.DistCtx(),
+                                        positions=ar(s))[0]
+
+    want = forward(params, batch["frames"], batch["tokens"])
+    before = k7.flash_attention.launches
+    got = forward(tree_map(lambda t: t.to(cuda), params),
+                  batch["frames"].to(cuda), batch["tokens"].to(cuda))
+    assert k7.flash_attention.launches == \
+        before + cfg.n_enc_layers + cfg.n_layers
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-4, atol=2e-4)
+
+
+def test_whisper_loss_and_grads_on_card_match_cpu(cuda):
+    """The smoke whisper's loss and gradients (fp32, remat, flag off) on
+    the card against the CPU, bitwise across two runs on the card."""
+    from repro_torch.train import make_loss_fn
+    from repro_torch.train.trainer import _grads_of
+    _, cfg, params, batch = _whisper(cuda, remat=True)
+    loss_fn = make_loss_fn(cfg, LMT.DistCtx())
+    want = _grads_of(loss_fn, params, batch)
+    dp = tree_map(lambda t: t.to(cuda), params)
+    db = {k: v.to(cuda) for k, v in batch.items()}
+    runs = [_grads_of(loss_fn, dp, db) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(tree_leaves(runs[0][2]), tree_leaves(runs[1][2])):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(runs[0][0].cpu(), want[0], rtol=2e-4,
+                               atol=2e-4)
+    for g, w in zip(tree_leaves(runs[0][2]), tree_leaves(want[2])):
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-4,
+                                   atol=2e-4 * w.abs().max().item())

@@ -8,12 +8,14 @@ the gradient half and half as ``jnp.maximum`` does, where ``clamp`` did
 not), the plain version of K9 (``ref.slstm_scan_grad_ref``) against
 ``jax.vjp`` of the reference's scan and of ``slstm_apply``, ``loss_fn``
 and its gradients for the xlstm, dense and vlm families, five AdamW steps
-of ``make_train_step``, the LM batches, and the launchers' unported flags.
-Inside the port: ``_SLSTMScan``'s plain path through ``gradcheck`` in fp64,
-remat changing no bit, accumulation over 4 microbatches against 1, the
-checkpoint manager, the Trainer's restore after an injected failure,
-tracing on == off, and both launchers on the CPU.  Every reference call
-is jitted; the file starts no XLA subprocess.
+of ``make_train_step``, the LM batches, and the launchers' unported
+flags (and whisper's refusal there, with ``make_loss_fn`` taking the
+encdec loss).  Inside the port: ``_SLSTMScan``'s plain path through
+``gradcheck`` in fp64, remat changing no bit, accumulation over 4
+microbatches against 1, the checkpoint manager, the Trainer's restore
+after an injected failure, tracing on == off, and both launchers on the
+CPU.  Every reference call is jitted; the file starts no XLA
+subprocess.
 
 Tolerances: the cell at the ties rtol 1e-6 (fp32, the same operations,
 whose transcendentals may differ by an ulp);
@@ -48,6 +50,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import slstm_scan as k8
 from repro_torch.launch import train as ttrain
 from repro_torch.launch import train_lm as ttrain_lm
+from repro_torch.models import encdec as TE
 from repro_torch.models import transformer as TT
 from repro_torch.models import xlstm as TX
 from repro_torch.obs import MetricsRegistry, Tracer
@@ -623,26 +626,53 @@ def test_train_lm_launcher_tunes_accum_on_cpu():
     assert out["retunes"] >= 1
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--arch", "whisper-base"], "10.5"),
+# whisper has no launcher path (nor in the reference): its refusal names
+# the module to train it through; the first case keeps the id it had when
+# it named ROADMAP item 10.5, which ported that module
+@pytest.mark.parametrize("argv,match", [
+    pytest.param(["--arch", "whisper-base"], "models.encdec",
+                 id="argv0-10.5"),
     (["--arch", XL, "--ef-bits", "8"], "item 9"),
     (["--arch", XL, "--ring-tp"], "item 9"),
 ])
-def test_unported_paths_raise_naming_their_item(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_paths_raise_naming_their_item(argv, match):
+    with pytest.raises(NotImplementedError, match=match):
         ttrain.main(["--device", "cpu", "--smoke", "--steps", "1",
                      "--seq", "8", "--batch", "2", *argv])
 
 
 def test_encdec_and_ef_bits_raise_in_the_step_factory():
-    with pytest.raises(NotImplementedError, match="10.5"):
-        make_loss_fn(TC.get_smoke_config("whisper-base"), TT.DistCtx())
+    """What still raises around the step factory: ``ef_bits`` (item 9),
+    and whisper in ``train_lm`` (no launcher path, as in the reference),
+    naming ``models.encdec``."""
     with pytest.raises(NotImplementedError, match="item 9"):
         make_train_step(TC.get_smoke_config(XL), TT.DistCtx(),
                         AdamWConfig(), ef_bits=8)
-    with pytest.raises(NotImplementedError, match="10.5"):
+    with pytest.raises(NotImplementedError, match="item 9"):
+        make_train_step(TC.get_smoke_config("whisper-base"), TT.DistCtx(),
+                        AdamWConfig(), ef_bits=8)
+    with pytest.raises(NotImplementedError, match="models.encdec"):
         ttrain_lm.main(["--device", "cpu", "--smoke", "--arch",
                         "whisper-base"])
+
+
+def test_make_loss_fn_returns_the_encdec_loss():
+    """The step factory's loss for whisper is ``encdec.loss_fn`` (the
+    reference's ``make_loss_fn``): the same loss, bitwise, on a batch of
+    frames and tokens, and a step that trains on it."""
+    cfg = TC.get_smoke_config("whisper-base")
+    params = TE.init_params(torch.Generator().manual_seed(0), cfg,
+                            vocab_multiple=4)
+    rng = np.random.default_rng(0)
+    batch = dict(frames=_t(rng.normal(size=(2, 12, cfg.d_model)).astype(
+        np.float32)), tokens=_t(rng.integers(1, cfg.vocab, (2, 10)).astype(
+            np.int32)))
+    loss, aux = make_loss_fn(cfg, TT.DistCtx())(params, batch)
+    want, _ = TE.loss_fn(params, cfg, batch)
+    assert torch.equal(loss, want) and float(aux["ntokens"]) == 18
+    step = make_train_step(cfg, TT.DistCtx(), AdamWConfig(lr=1e-2))
+    _, _, m = step(params, adamw_init(params), batch)
+    assert torch.equal(m["loss"], want)
 
 
 def test_slstm_save_ref_holds_the_loops_gates_and_states():
