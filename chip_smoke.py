@@ -60,7 +60,7 @@ Phases, each of which passes or ends the run with a non-zero exit:
    a hot cache of N // 8 rows over the pinned host table): 10 steps with
    the launch counts read around them; ``gather_rows`` bitwise equal to
    ``x[ids]`` at capacities 0, N // 8 and N; K5 timed at the step's
-   shapes;
+   shapes (and the median of 25 calls each timed alone);
 9. the training launcher at a small scale, both branches;
 10. the top-k compressed ring at full size: the reference's fig9e
    configuration (GCN 3 × 96, 4 classes, ``ps=8, dist=2``, layer 0
@@ -178,7 +178,18 @@ Phases, each of which passes or ends the run with a non-zero exit:
    first where the tokens part (all 32 when they never do); then the
    serving launcher at its defaults (8 requests, 32 new tokens,
    4 slots) with its own parameters, every request answered with 32
-   tokens, tokens/s, prefill and decode-step times;
+   tokens, tokens/s, prefill and decode-step times.  (d) Ring TP on (a)'s
+   parameters over a virtual (data 2, model 4) mesh (``dist/mesh.py``,
+   every q/k/v/o and gate/up/down projection on the ring): the B 2 x S
+   4096 flag-on forward in fp32 within rtol 2e-4, atol 2e-4 * max|logits|
+   of (a)'s no-mesh forward (the reference's ring-vs-SPMD tolerance), in
+   bf16 its rms error against those fp32 logits at most 1.5 x (a)'s
+   flag-on bf16 forward's, K7 launched 40 times (counted); timed beside
+   (a)'s no-mesh forward, with a timeline from CUDA events on both streams
+   (each rotation copy on the side stream, each product on the current
+   one, their overlap); the prefill of 512 takes the ring (within 2e-4 of
+   the no-mesh prefill) and two decode steps from the same cache fall
+   back, bitwise the no-mesh steps;
 12. xlstm inference at full width, after phase 11's state is freed:
    xlstm-125m (12 layers alternating mLSTM/sLSTM, d_model 768, 4 heads,
    mLSTM d_in 1536 and dk 384, sLSTM hd 192, vocab 50,304 tied, fp32
@@ -290,6 +301,29 @@ Phases, each of which passes or ends the run with a non-zero exit:
    x 1500 frames x 448 tokens, bf16 compute, remat, flag off: the loss
    falling from about ln(51,865), step ms and peak GB, and step 0's fp32
    loss and gradients bitwise equal across two runs, every one finite.
+20. the distributed substrate on granite-moe-1b-a400m at full width, after
+   phase 19's state is freed: a virtual (data 2, model 4) mesh, ring TP in
+   attention and EP in every MoE layer (8 of the 32 experts a shard; at B
+   2 x S 4096 each shard routes 1024 tokens at capacity 320).  (a) The
+   fp32 flag-on forward (chunks 1) within rtol 2e-4, atol 2e-4 *
+   max|logits| of its oracle (``moe_apply`` with all 32 experts on each
+   shard's own token block at that block's capacity), of chunks 4 and of
+   ring TP off, every routing replayed from the first forward's ids (a
+   differing id only at an fp32 near-tie: its logit gap under 1e-4 *
+   max|logit|, counted); (b) bf16 at chunks 1 and 4 (K7 24 launches each,
+   counted), their rms error against the fp32 forward at most 1.5 x the
+   bf16 oracle's; timed beside ring TP off and no mesh, with timelines of
+   the rotations, the EP exchanges and their overlap with the products
+   and the expert FFN; (c) prefill 512 + decode against the forward at
+   no-drop capacity, within 2e-3; (d) step 0's fp32 gradients (B 2, S
+   1024, no-drop, remat) on the mesh within rtol 2e-4, atol 2e-4 *
+   max|leaf| of no mesh (the routing replayed from the mesh step's), then
+   10 AdamW steps through ``make_train_step`` on the mesh (B 2, S 512,
+   bf16, chunks 4), the loss falling; (e) the launcher with ``--devices 4
+   --ef-bits 8 --ring-tp --moe-pipeline-chunks 4`` for 10 steps (ef on a
+   pure data-parallel mesh, EP at ep 1, ring TP falling back): its step-0
+   loss bitwise the same launcher's without ``--ef-bits``, its residual
+   nonzero, and the ef pass over its gradients timed.
 
 The line before the last is a JSON object of the kernels K1–K9; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -399,6 +433,12 @@ PATH_KERNELS = {
     # flag-on prefill (the encoder's layers)
     "whisper_forward": ("flash_attention",),
     "whisper_prefill": ("flash_attention",),
+    # phase 11 (d): mistral-nemo-12b's bf16 flag-on forward with ring TP
+    # over the virtual (2, 4) mesh; phase 20: granite-moe-1b-a400m's with
+    # ring TP and EP over it, at EP pipeline chunks 1 and 4
+    "ring_tp_forward": ("flash_attention",),
+    "moe_mesh_forward_chunks1": ("flash_attention",),
+    "moe_mesh_forward_chunks4": ("flash_attention",),
 }
 PRODUCTS_SCALE = 199.3   # 12288 · 199.3 ≈ 2.449 M nodes (ogbn-products)
 REDUCED_SCALE = 10.0     # 122,880 nodes: GIN, SAGE and GAT, one step each
@@ -458,6 +498,17 @@ MIX_LAYERS, MIX_TRAIN_LAYERS = 2, 1
 W_ARCH, W_B, W_TOKENS = "whisper-base", 8, 448
 W_DEC_B, W_PROMPT, W_DECODE_STEPS = 4, 4, 28
 W_TRAIN_STEPS = 10
+# phases 11 (d) and 20: the virtual (data, model) mesh; phase 20's
+# granite-moe-1b-a400m forwards at B x S, its step-0 gradient check's
+# length (fp32 at no-drop capacity), its AdamW steps' length, their count,
+# and the EP exchange's pipeline chunks
+MESH_SHAPE = (2, 4)
+P20_B, P20_S, P20_GRAD_S, P20_TRAIN_S, P20_STEPS = 2, 4096, 1024, 512, 10
+P20_CHUNKS = (1, 4)
+# phase 20 (e): the ef launcher's granite, its depth cut (full width)
+P20_EF_LAYERS = 16
+# K5 at the sampled step's shape: a median over this many timed calls
+K5_MEDIAN_CALLS = 25
 # K1 and K6 sweeps: more partitions than one grid of K1 holds (what fits
 # the card at once), so each of its warps walks several
 GRID_P = 300_000
@@ -885,6 +936,13 @@ def main():
     check(left < 1.0, f"{left:.1f} GB still allocated after phase 18")
     k7.update(whisper(torch, K, dev, rate, flops, launches))
 
+    # -- 20. granite on a virtual (2, 4) mesh: phase 19's state goes first --
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    check(left < 1.0, f"{left:.1f} GB still allocated after phase 19")
+    granite_mesh(torch, K, dev, launches)
+
     for k in kernels:
         by_path = {p: launches[p][k["name"]] for p in launches
                    if k["name"] in PATH_KERNELS[p]}
@@ -931,6 +989,21 @@ def _time(torch, fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _each_ms(torch, fn, n, warmup=3):
+    """``n`` calls of ``fn``, each between its own CUDA events: their ms."""
+    for _ in range(warmup):
+        fn()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda.synchronize()
+    for start, end in marks:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in marks]
 
 
 def _device_ms(prof, reps=1):
@@ -1877,6 +1950,7 @@ def time_gather_rows(torch, K, tiers, ids, rate, dev):
         t_plain = _time(torch, plain)
         t_k5 = _time(torch, k5)
         t_lib = _time(torch, lib)
+        each = _each_ms(torch, k5, K5_MEDIAN_CALLS)
     d = cold_up.shape[1]
     # the distinct rows read once each, the ids, the rows written
     nbytes = sum(int(torch.unique(idx).numel()) * d * 4 + idx.numel() * 4
@@ -1886,7 +1960,13 @@ def time_gather_rows(torch, K, tiers, ids, rate, dev):
                 ms=t_k5, plain_ms=t_plain, bound_ms=nbytes / rate * 1e3,
                 bound_by="bytes", library_ms=t_lib, library="index_select",
                 bytes=nbytes, rows=int(ids.size), hot_rows=int(hot.sum()),
-                cold_rows=n_cold, width=d)
+                cold_rows=n_cold, width=d,
+                ms_median=float(np.median(each)),
+                ms_quartiles=[float(np.percentile(each, q))
+                              for q in (25, 75)],
+                ms_median_of=f"{K5_MEDIAN_CALLS} calls (2 launches each: "
+                             "the cold and the hot gather), each timed "
+                             "alone by CUDA events")
 
 
 # ---------------------------------------------------------------------------
@@ -3322,7 +3402,7 @@ def _held_prefix(torch, got, want, rtol, n, what):
 
 
 def lm_forwards(torch, K, params, cfg, toks, n_k7, path, launches,
-                bf16=True):
+                bf16=True, keep=None):
     """Phase 18's cache-less forwards of one model: fp32 with
     ``use_flash_attention`` (K7) against the chunked path within rtol 2e-4
     and atol 2e-4 * max|logits|, and with ``bf16`` the configs' bf16
@@ -3335,7 +3415,9 @@ def lm_forwards(torch, K, params, cfg, toks, n_k7, path, launches,
     order only (attention is causal and an expert's slots go by that
     order), so the logits are held up to the first token whose routing
     differs (an fp32 near-tie of two router logits; all tokens when none
-    does), and the number of such tokens is reported."""
+    does), and the number of such tokens is reported.  With a ``keep``
+    dict, the fp32 flag-on logits stay on the card under
+    ``keep["float32_flash"]``."""
     from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer as T
 
@@ -3365,6 +3447,8 @@ def lm_forwards(torch, K, params, cfg, toks, n_k7, path, launches,
                 launches[path] = c
         check(logits[True].shape == (b, s, cfg.vocab),
               f"logits of shape {tuple(logits[True].shape)}")
+        if keep is not None:
+            keep["float32_flash"] = logits[True]
         first = _first_route_difference(routes[True], routes[False])
         n_diff = sum(int((x != y).any(-1).sum())
                      for x, y in zip(routes[True], routes[False]))
@@ -3425,22 +3509,25 @@ def lm_forwards(torch, K, params, cfg, toks, n_k7, path, launches,
     return out, flag
 
 
-def prefill_decode(torch, params, cfg, toks, prefix):
+def prefill_decode(torch, params, cfg, toks, prefix, ctx=None):
     """``prefill`` of ``prefix`` tokens then ``decode_step`` against the
-    cache-less forward of ``prefix + 1`` tokens (``cfg``'s compute),
-    within 2e-3; returns the two largest differences."""
+    cache-less forward of ``prefix + 1`` tokens (``cfg``'s compute; all
+    three under ``ctx``, no mesh by default), within 2e-3; returns the
+    two largest differences."""
     from repro_torch.models import transformer as T
 
+    ctx = T.DistCtx() if ctx is None else ctx
     b = toks.shape[0]
     dev = toks.device
     with torch.inference_mode():
         t = toks[:, :prefix + 1]
-        full = T.forward(params, cfg, t)[0]
+        full = T.forward(params, cfg, t, ctx=ctx)[0]
         cache = T.init_cache(cfg, b, prefix + 8, dtype=torch.float32,
                              device=dev)
-        lg1, cache = T.prefill(params, cfg, t[:, :prefix], cache)
+        lg1, cache = T.prefill(params, cfg, t[:, :prefix], cache, ctx=ctx)
         pos = torch.full((b,), prefix, dtype=torch.int32, device=dev)
-        lg2, _ = T.decode_step(params, cfg, t[:, prefix], pos, cache)
+        lg2, _ = T.decode_step(params, cfg, t[:, prefix], pos, cache,
+                               ctx=ctx)
         pairs = ((lg1, full[:, prefix - 1]), (lg2, full[:, prefix]))
         errs = [(x - y).abs().max().item() for x, y in pairs]
         check(all(torch.allclose(x, y, rtol=2e-3, atol=2e-3)
@@ -3480,8 +3567,9 @@ def lm_inference(torch, K, dev, rate, flops, launches):
         1, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
 
     # (a) the cache-less forward with K7 against the chunked path
+    kept = {}
     fwd, flag = lm_forwards(torch, K, params, cfg, toks, cfg.n_layers,
-                            "lm_forward", launches)
+                            "lm_forward", launches, keep=kept)
     with torch.inference_mode():
         breakdown = profile_pass(torch, lambda: T.forward(
             params, flag["bfloat16"][True], toks), reps=1)
@@ -3508,6 +3596,11 @@ def lm_inference(torch, K, dev, rate, flops, launches):
         del cache
     say("lm_decode_step", slots=4, cache_slots=48, compute="bfloat16",
         decode_ms=decode_ms, **decode_profile)
+
+    # (d) ring TP over a virtual (data 2, model 4) mesh, held to (a)'s
+    # no-mesh fp32 flag-on logits, rms rule and bf16 time
+    ring_tp_nemo(torch, K, dev, params, cfg, toks, flag,
+                 kept.pop("float32_flash"), fwd, launches)
 
     # (c) serving: batched == solo in fp32 on these parameters, then the
     # launcher at its defaults with its own (one copy of the weights at a
@@ -5257,6 +5350,522 @@ def whisper(torch, K, dev, rate, flops, launches):
     return {"at_whisper": {k: x for k, x in k7.items()
                            if k not in ("name", "route", "source",
                                         "replaces")}}
+
+
+# ---------------------------------------------------------------------------
+# the distributed substrate on a virtual mesh (phases 11 (d) and 20)
+# ---------------------------------------------------------------------------
+
+def _overlap_total(a, b):
+    """The total length of the intersections of two lists of (start, end)
+    ms intervals, each sorted and disjoint (one stream's)."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        total += _overlap_ms(a[i], b[j])
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def mesh_timeline(torch, mesh, fn, pairs):
+    """One call of ``fn`` with the mesh's log on: every transfer's interval
+    on the side stream and every product span on the current stream, by
+    CUDA events from one base event.  Per kind: count, ms (the sum of the
+    intervals) and bytes; for each (transfer kind, span kind) of
+    ``pairs``, the ms of the transfers that overlap those spans."""
+    base = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    mesh.log = []
+    torch.cuda.synchronize()
+    base.record()
+    try:
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        log = mesh.log
+    finally:
+        mesh.log = None
+    at = base.elapsed_time
+    by_kind = {}
+    for e in log:
+        iv = (at(e["start"]), at(e["end"]))
+        k = by_kind.setdefault(e["kind"], dict(stream=e["stream"], count=0,
+                                               ms=0.0, bytes=0, iv=[]))
+        k["count"] += 1
+        k["ms"] += iv[1] - iv[0]
+        k["bytes"] += e["bytes"]
+        k["iv"].append(iv)
+    out = dict(pass_ms=at(end), by_kind={
+        k: {f: x for f, x in v.items() if f != "iv"}
+        for k, v in by_kind.items()})
+    for copy, span in pairs:
+        if copy in by_kind and span in by_kind:
+            ov = _overlap_total(sorted(by_kind[copy]["iv"]),
+                                sorted(by_kind[span]["iv"]))
+            out[f"{copy}_overlapping_{span}_ms"] = ov
+            out[f"{copy}_hidden_share"] = ov / max(by_kind[copy]["ms"],
+                                                   1e-9)
+    return out
+
+
+def _mesh_kind(name):
+    """A kernel's kind for the mesh phases' profiles."""
+    return _kinds(
+        name, ("copies (transfers, cuts, joins)", ("copy", "memcpy")),
+        ("routing and sort", ("sort", "radix", "search", "softmax")),
+        ("gathers", ("index", "gather", "scatter")))
+
+
+def ring_tp_nemo(torch, K, dev, params, cfg, toks, flag, ref32, fwd,
+                 launches):
+    """Phase 11 (d): mistral-nemo-12b's forward with ring TP over a
+    virtual (data 2, model 4) mesh, on phase 11's parameters: held to (a)'s
+    no-mesh fp32 flag-on logits ``ref32``, and to (a)'s rms rule and bf16
+    flag-on time (``fwd``, ``lm_forwards``' report)."""
+    from repro_torch.dist import VirtualMesh
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    mesh = VirtualMesh(MESH_SHAPE, ("data", "model"), dev)
+    ring, plain = T.DistCtx(mesh=mesh, use_ring_tp=True), T.DistCtx()
+    b = toks.shape[0]
+    f32, b16 = flag["float32"][True], flag["bfloat16"][True]
+
+    def forward(c, ctx):        # the padded vocab's -1e30 columns left out
+        return T.forward(params, c, toks, ctx=ctx)[0][..., :cfg.vocab]
+
+    # (a)'s flag-on bf16 rms error against its fp32 (flag-off) logits: the
+    # two fp32 references differ by ~1e-5, the bf16 errors by ~4e-3
+    rms_plain = fwd["bf16_rms_err_vs_fp32"]["flash"]
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        got = forward(f32, ring)
+        torch.cuda.synchronize()
+        n32 = K.launch_counts()["flash_attention"]
+        err32, _ = _held_prefix(torch, got, ref32, 2e-4, None,
+                                "phase 11 (d): the fp32 ring-TP forward "
+                                "against no mesh")
+        del got
+        K.reset_launch_counts()
+        got = forward(b16, ring)
+        torch.cuda.synchronize()
+        launches["ring_tp_forward"] = counts = K.launch_counts()
+        check(torch.isfinite(got).all().item(),
+              "phase 11 (d): bf16 ring-TP logits not finite")
+        rms_ring = _rms(got, ref32)
+        del got, ref32
+        check(rms_ring <= BF16_RMS_RATIO * rms_plain,
+              f"phase 11 (d): the bf16 ring-TP forward's rms error against "
+              f"fp32 {rms_ring} is over {BF16_RMS_RATIO} x no mesh's "
+              f"{rms_plain}")
+        check(n32 == counts["flash_attention"] == cfg.n_layers,
+              f"phase 11 (d): K7 launched {n32} / {counts} times a ring-TP "
+              f"forward, not {cfg.n_layers}")
+        forward_ms = dict(ring_tp=_time(torch, lambda: forward(b16, ring),
+                                        reps=3, warmup=1),
+                          no_mesh=fwd["forward_ms"]["bfloat16_flash"])
+        timeline = mesh_timeline(torch, mesh, lambda: forward(b16, ring),
+                                 (("rotate", "matmul"),))
+        prof = profile_kinds(torch, lambda: forward(b16, ring), _mesh_kind)
+
+        # prefill of LM_PREFIX takes the ring; decode steps (S = 1) fall
+        # back: from the same cache, bitwise the no-mesh steps
+        c32 = flag["float32"][False]
+        caches = [T.init_cache(c32, b, LM_PREFIX + 8, dtype=torch.float32,
+                               device=dev) for _ in range(2)]
+        mesh.log = []
+        first = [T.prefill(params, c32, toks[:, :LM_PREFIX], cache,
+                           ctx=c)[0] for c, cache in zip((ring, plain),
+                                                         caches)]
+        torch.cuda.synchronize()
+        prefill_rotations = sum(e["stream"] == "side" for e in mesh.log)
+        check(prefill_rotations > 0, "phase 11 (d): the prefill of "
+              f"{LM_PREFIX} did not take the ring")
+        scale = first[1].abs().max().item()
+        check(torch.allclose(first[0], first[1], rtol=2e-4,
+                             atol=2e-4 * scale),
+              "phase 11 (d): the ring-TP prefill against no mesh")
+        prefill_err = (first[0] - first[1]).abs().max().item()
+        kv = caches[0]["kv"]
+        twin = {"kv": dataclasses.replace(
+            kv, k=kv.k.clone(), v=kv.v.clone(), key_pos=kv.key_pos.clone())}
+        mesh.log = []
+        for i in range(2):
+            pos = torch.full((b,), LM_PREFIX + i, dtype=torch.int32,
+                             device=dev)
+            steps = [T.decode_step(params, c32, toks[:, LM_PREFIX + i], pos,
+                                   cache, ctx=c)[0]
+                     for c, cache in ((ring, caches[0]), (plain, twin))]
+            check(torch.equal(steps[0], steps[1]),
+                  f"phase 11 (d): decode step {i} with the ring-TP flag is "
+                  "not bitwise the no-mesh step")
+        torch.cuda.synchronize()
+        check(not mesh.log, "phase 11 (d): a decode step took the ring")
+        mesh.log = None
+        del caches, twin, first, steps
+    say("lm_ring_tp", arch=cfg.name, mesh=mesh.shape, batch=b,
+        seq=toks.shape[1], fp32_max_abs_err=err32,
+        fp32_tolerance="rtol 2e-4, atol 2e-4 * max|logits| (the "
+                       "reference's ring-vs-SPMD tolerance)",
+        bf16_rms_err_vs_fp32={"ring_tp": rms_ring, "no_mesh": rms_plain},
+        bf16_tolerance=f"ring TP rms error <= {BF16_RMS_RATIO} x no mesh "
+                       "(phase 11 (a)'s flag-on error, against its fp32 "
+                       "flag-off logits)",
+        flash_launches=counts["flash_attention"],
+        forward_ms_bf16=forward_ms, timeline=timeline, profile=prof,
+        prefill=LM_PREFIX, prefill_rotations=prefill_rotations,
+        prefill_max_abs_err=prefill_err,
+        decode="2 steps from one cache: no transfer, bitwise no mesh",
+        wall_s=round(time.perf_counter() - t_phase, 3))
+
+
+class _RoutePin:
+    """Record every ``moe_lib._route`` call's expert ids in one run, then
+    replay them in another: each call there takes the next recorded ids
+    (``rows`` reorders a call's block of them, e.g. shard-major to the
+    flat B x S order) with its gates from its own router logits at those
+    ids.  Where its own top-k set differs (an fp32 near-tie of router
+    logits: products of another shape, sums in another order), the gap
+    between its own k-th logit and the pinned ids' least logit must be
+    under ``tol`` x max|logit|; such rows are counted."""
+
+    def __init__(self, torch, moe_lib, tol=1e-4):
+        self.torch, self.lib, self.tol = torch, moe_lib, tol
+        self.orig = moe_lib._route
+        self.ids, self.pos, self.rows = [], 0, None
+        self.differing = self.worst_gap = 0
+
+    def record(self):
+        def route(p, x2d, cfg):
+            gates, tope = self.orig(p, x2d, cfg)
+            self.ids.append(tope)
+            return gates, tope
+        self.lib._route = route
+
+    def replay(self, rows=None):
+        torch = self.torch
+        flat = torch.cat(self.ids)
+        self.pos, self.rows = 0, rows
+
+        def route(p, x2d, cfg):
+            logits = (x2d @ p["router"]["w"].to(x2d.dtype)).float()
+            n = x2d.shape[0]
+            pin = flat[self.pos:self.pos + n]
+            self.pos += n
+            if self.rows is not None:
+                pin = pin[self.rows]
+            own = torch.sort(logits, dim=-1, descending=True, stable=True)
+            kth = own.values[:, cfg.top_k - 1]
+            same = (own.indices[:, :cfg.top_k].sort(-1).values
+                    == pin.sort(-1).values).all(-1)
+            picked = torch.gather(logits, -1, pin)
+            if not bool(same.all()):
+                gap = (kth - picked.min(-1).values)[~same]
+                self.differing += int((~same).sum())
+                self.worst_gap = max(self.worst_gap, float(
+                    gap.max() / logits.abs().max()))
+            return torch.softmax(picked, dim=-1), pin
+        self.lib._route = route
+
+    def restore(self):
+        self.lib._route = self.orig
+        check(self.worst_gap <= self.tol,
+              f"a replayed routing differs where the router logits are "
+              f"{self.worst_gap} x max|logit| apart (more than a near-tie)")
+        return dict(rows_pinned_off_their_own_choice=self.differing,
+                    largest_gap_over_max_logit=self.worst_gap)
+
+
+def _shard_major_rows(torch, b, s, mesh_shape, dev):
+    """For each flat B x S token, its row in the shard-major order of the
+    EP path (shard (d, j) holds batch rows d·B/D.. and positions j·S/M..)."""
+    d, m = mesh_shape
+    bl, sl = b // d, s // m
+    bi = torch.arange(b, device=dev)[:, None]
+    si = torch.arange(s, device=dev)[None, :]
+    shard = (bi // bl) * m + si // sl
+    return (shard * (bl * sl) + (bi % bl) * sl + si % sl).reshape(-1)
+
+
+def _ep_oracle(torch, moe_lib, MeshSharding):
+    """``moe_apply_ep_shard``'s oracle: ``moe_apply`` with all the experts
+    on each shard's own token block, at that block's capacity."""
+    def oracle(p, x, cfg, mesh, *, data_axes=("data",), model_axis="model",
+               capacity_factor=None, pipeline_chunks=1):
+        ep = mesh.shape[model_axis]
+        seq = x.shape[1] % ep == 0 and x.shape[1] >= ep
+        sh = MeshSharding(mesh, (tuple(data_axes),
+                                 model_axis if seq else None, None))
+        blocks = sh.cut(x)
+        flat = blocks.reshape((-1,) + blocks.shape[mesh.ndim:])
+        out = torch.stack([moe_lib.moe_apply(p, blk, cfg,
+                                             capacity_factor=capacity_factor)
+                           for blk in flat])
+        return sh.join(out.reshape(blocks.shape))
+    return oracle
+
+
+def granite_mesh(torch, K, dev, launches):
+    """Phase 20: granite-moe-1b-a400m at full width on a virtual (data 2,
+    model 4) mesh: ring TP in attention, EP in every MoE layer."""
+    from repro_torch import configs
+    from repro_torch.dist import VirtualMesh
+    from repro_torch.dist.sharding import MeshSharding
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.train import (AdamWConfig, LMDataConfig, adamw_init,
+                                   lm_batch, make_loss_fn, make_train_step)
+    from repro_torch.train.trainer import _grads_of
+    from repro_torch.train.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(MOE_ARCH)
+    mesh = VirtualMesh(MESH_SHAPE, ("data", "model"), dev)
+    b, s = P20_B, P20_S
+    ep = mesh.shape["model"]
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           vocab_multiple=16)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+    tokens_a_shard = b * s // mesh.size
+    capacity = int(tokens_a_shard * cfg.top_k / cfg.n_experts
+                   * cfg.moe_capacity_factor)
+    say("moe_mesh_built", arch=cfg.name, mesh=mesh.shape,
+        experts_a_shard=cfg.n_experts // ep, tokens_a_shard=tokens_a_shard,
+        capacity_a_shard=capacity, init_s=round(time.perf_counter() - t0, 3))
+    f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              use_flash_attention=True)
+    b16 = dataclasses.replace(cfg, use_flash_attention=True)
+
+    def ctx(chunks=1, ring=True):
+        return T.DistCtx(mesh=mesh, use_ring_tp=ring,
+                         moe_pipeline_chunks=chunks)
+
+    def forward(c, x):
+        return T.forward(params, c, toks, ctx=x)[0][..., :cfg.vocab]
+
+    def held(got, want, what):
+        scale = want.abs().max().item()
+        check(torch.isfinite(got).all().item()
+              and torch.allclose(got, want, rtol=2e-4, atol=2e-4 * scale),
+              f"phase 20: {what}: logits disagree")
+        return (got - want).abs().max().item()
+
+    oracle = _ep_oracle(torch, moe_lib, MeshSharding)
+    out = {}
+    with torch.inference_mode():
+        # (a) the fp32 EP forward (chunks 1) against its oracle; chunks 4
+        # and ring TP off against it, every routing pinned to its ids
+        pin = _RoutePin(torch, moe_lib)
+        pin.record()
+        try:
+            ep32 = forward(f32, ctx(1))
+        finally:
+            moe_lib._route = pin.orig
+        runs = {}
+        orig_ep = moe_lib.moe_apply_ep_shard
+        for name, c in (("oracle", ctx(1)), ("chunks_4", ctx(4)),
+                        ("ring_tp_off", ctx(1, ring=False))):
+            pin.replay()
+            if name == "oracle":
+                moe_lib.moe_apply_ep_shard = oracle
+            try:
+                got = forward(f32, c)
+            finally:
+                moe_lib.moe_apply_ep_shard = orig_ep
+                runs[name] = pin.restore()
+            runs[name]["max_abs_err"] = held(ep32, got, f"fp32 EP against "
+                                             f"{name}")
+            del got
+        out["fp32"] = dict(max_abs_logit=ep32.abs().max().item(),
+                           tolerance="rtol 2e-4, atol 2e-4 * max|logits|",
+                           against=runs)
+        # (b) bf16, flag on, chunks 1 and 4 (the main path: K7 counted),
+        # its rms error against the fp32 EP forward at most BF16_RMS_RATIO
+        # x the oracle's bf16 forward's (bf16 routes on its own logits:
+        # nothing is pinned)
+        moe_lib.moe_apply_ep_shard = oracle
+        try:
+            rms_oracle = _rms(forward(b16, ctx(1)), ep32)
+        finally:
+            moe_lib.moe_apply_ep_shard = orig_ep
+        del pin
+        rms16 = {}
+        for chunks in P20_CHUNKS:
+            K.reset_launch_counts()
+            got = forward(b16, ctx(chunks))
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            launches[f"moe_mesh_forward_chunks{chunks}"] = counts
+            check(counts["flash_attention"] == cfg.n_layers,
+                  f"phase 20: K7 launched {counts} a forward")
+            rms16[f"chunks_{chunks}"] = _rms(got, ep32)
+            check(rms16[f"chunks_{chunks}"] <= BF16_RMS_RATIO * rms_oracle,
+                  f"phase 20: bf16 EP chunks {chunks} rms error "
+                  f"{rms16[f'chunks_{chunks}']} over {BF16_RMS_RATIO} x the "
+                  f"oracle's {rms_oracle}")
+            del got
+        out["bf16"] = dict(rms_err_vs_fp32=dict(oracle=rms_oracle, **rms16),
+                           tolerance=f"EP rms error <= {BF16_RMS_RATIO} x "
+                                     "the oracle's")
+        del ep32
+        out["forward_ms_bf16"] = {
+            name: _time(torch, lambda c=c: forward(b16, c), reps=2,
+                        warmup=1)
+            for name, c in (("chunks_1", ctx(1)), ("chunks_4", ctx(4)),
+                            ("ring_tp_off_chunks_4", ctx(4, ring=False)),
+                            ("no_mesh", T.DistCtx()))}
+        out["timeline_chunks_4"] = mesh_timeline(
+            torch, mesh, lambda: forward(b16, ctx(4)),
+            (("rotate", "matmul"), ("all_to_all", "expert_ffn")))
+        out["profile_chunks_4"] = profile_kinds(
+            torch, lambda: forward(b16, ctx(4)), _mesh_kind)
+        out["timeline_chunks_1"] = mesh_timeline(
+            torch, mesh, lambda: forward(b16, ctx(1)),
+            (("all_to_all", "expert_ffn"),))
+        # (c) prefill + decode against the forward, at no-drop capacity
+        nd = dataclasses.replace(f32, moe_capacity_factor=float(
+            cfg.n_experts))
+        errs = prefill_decode(torch, params, nd, toks, P18_PREFIX,
+                              ctx=ctx(4))
+    out["prefill_decode"] = dict(prefix=P18_PREFIX, capacity="no-drop",
+                                 prefill_max_abs_err=errs[0],
+                                 decode_max_abs_err=errs[1],
+                                 tolerance="rtol 2e-3 atol 2e-3")
+    say("moe_mesh_forward", arch=cfg.name, mesh=mesh.shape, batch=b, seq=s,
+        **out)
+    _free(torch)
+
+    # (d) step 0's fp32 gradients at no-drop capacity (B 2, S P20_GRAD_S,
+    # remat) on the mesh against no mesh, the routing pinned to the
+    # mesh step's; then 10 AdamW steps on the mesh (bf16, capacity 1.25)
+    g32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              moe_capacity_factor=float(cfg.n_experts))
+    batch = _to_dev(torch, lm_batch(LMDataConfig(
+        vocab=cfg.vocab, seq_len=P20_GRAD_S, global_batch=b,
+        doc_len=P20_GRAD_S), 0), dev)
+    pin = _RoutePin(torch, moe_lib)
+    pin.record()
+    try:
+        loss_m, _, grads_m = _grads_of(make_loss_fn(g32, ctx(4)), params,
+                                       batch)
+    finally:
+        moe_lib._route = pin.orig
+    pin.replay(rows=_shard_major_rows(torch, b, P20_GRAD_S, MESH_SHAPE,
+                                      dev))
+    try:
+        loss_p, _, grads_p = _grads_of(make_loss_fn(g32, T.DistCtx()),
+                                       params, batch)
+    finally:
+        pinned = pin.restore()
+    worst = 0.0
+    for gm, gp in zip(tree_leaves(grads_m), tree_leaves(grads_p)):
+        scale = gp.abs().max().item()
+        check(torch.isfinite(gm).all().item() and torch.allclose(
+            gm, gp, rtol=TRAIN_GRAD_TOL, atol=TRAIN_GRAD_TOL * scale),
+            "phase 20: step 0's mesh gradients against no mesh")
+        worst = max(worst, (gm - gp).abs().max().item() / max(scale, 1e-30))
+    del grads_m, grads_p, pin
+    _free(torch)
+    tbatch = lambda i: _to_dev(torch, lm_batch(LMDataConfig(
+        vocab=cfg.vocab, seq_len=P20_TRAIN_S, global_batch=b,
+        doc_len=P20_TRAIN_S), i), dev)
+    step = make_train_step(cfg, ctx(4), AdamWConfig(
+        lr=1e-3, warmup_steps=2, total_steps=P20_STEPS))
+    p, opt, losses, step_ms = params, adamw_init(params), [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(P20_STEPS):
+        bt = tbatch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, opt, m = step(p, opt, bt)
+        losses.append(m["loss"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"phase 20: the mesh steps did not train: {losses}")
+    say("moe_mesh_training", arch=cfg.name, mesh=mesh.shape,
+        step0=dict(batch=b, seq=P20_GRAD_S, compute="float32",
+                   capacity="no-drop", remat=cfg.remat,
+                   loss_mesh=float(loss_m), loss_no_mesh=float(loss_p),
+                   max_err_over_max_leaf=worst,
+                   tolerance=f"rtol {TRAIN_GRAD_TOL}, atol "
+                             f"{TRAIN_GRAD_TOL} x max|leaf|",
+                   routing=pinned),
+        steps=P20_STEPS, batch=b, seq=P20_TRAIN_S, compute=cfg.compute_dtype,
+        remat=cfg.remat, moe_pipeline_chunks=4, losses=losses,
+        step_ms=step_ms, step_ms_median=float(np.median(step_ms[1:])),
+        peak_gb=_peak_gb(torch))
+    del params, p, opt, step, toks
+    _free(torch)
+    left = torch.cuda.memory_allocated() / 1e9
+    check(left < 1.0, f"phase 20: {left:.1f} GB still allocated before the "
+          "launcher")
+    ef_launcher(torch, dev)
+    say("phase20", wall_s=round(time.perf_counter() - t_phase, 3))
+
+
+def ef_launcher(torch, dev):
+    """Phase 20 (e): the launcher with ``--devices 4 --ef-bits 8 --ring-tp
+    --moe-pipeline-chunks 4``: ef on a pure-DP (4, 1) mesh, EP at ep 1,
+    ring TP falling back; step 0's loss bitwise the same launcher's
+    without ``--ef-bits``, the residual nonzero, the ef pass timed.  The
+    depth is cut to P20_EF_LAYERS: at 24 layers the launcher's AdamW step
+    alone peaks at 61 GB (phase 18), and the residual, its successor and
+    the compressed mean add 16 GB more, over the card's 80."""
+    from repro_torch import configs
+    from repro_torch.dist import P, VirtualMesh, ef_allreduce_mean
+    from repro_torch.launch import train as ltrain
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    full = configs.get_config(MOE_ARCH)
+    cut = dataclasses.replace(full, n_layers=P20_EF_LAYERS)
+    orig = configs.get_config
+    configs.get_config = lambda arch: cut if arch == MOE_ARCH \
+        else orig(arch)
+    argv = ["--arch", MOE_ARCH, "--devices", "4", "--ring-tp",
+            "--moe-pipeline-chunks", "4"]
+    try:
+        t0 = time.perf_counter()
+        ef = ltrain.main(argv + ["--ef-bits", "8", "--steps",
+                                 str(P20_STEPS)])
+        ef_s = time.perf_counter() - t0
+        plain = ltrain.main(argv + ["--steps", "1"])
+    finally:
+        configs.get_config = orig
+    _, err = ef["state"].opt_state
+    res = max(e.abs().max().item() for e in tree_leaves(err))
+    check(ef["device"].startswith("cuda") and ef["devices"] == 4
+          and ef["losses"][0] == plain["losses"][0] and res > 0
+          and all(np.isfinite(ef["losses"])),
+          f"phase 20: the launcher with --ef-bits: loss {ef['losses'][0]} "
+          f"against {plain['losses'][0]} without, residual {res}")
+    loss0 = plain["losses"][0]
+    del plain
+    _free(torch)
+    params = ef["state"].params      # gradient-shaped leaves for the timing
+    dp = VirtualMesh((4, 1), ("data", "model"), dev)
+    specs = tree_map(lambda _: P(), params)
+    with torch.inference_mode():
+        ef_ms = _time(torch, lambda: ef_allreduce_mean(
+            params, err, dp, ("data",), specs, bits=8), reps=3, warmup=1)
+    n_bytes = sum(t.numel() for t in tree_leaves(params)) * 4
+    say("moe_mesh_launcher", argv=argv + ["--ef-bits", "8"],
+        cut=f"depth {P20_EF_LAYERS} of {full.n_layers} layers, full width",
+        params=sum(t.numel() for t in tree_leaves(params)),
+        mesh=dp.shape, losses=ef["losses"],
+        step0_loss_without_ef=loss0, step0_bitwise=True,
+        residual_max_abs=res, step_ms=ef["step_ms"],
+        step_ms_median=float(np.median(ef["step_ms"][1:])),
+        wall_s=round(ef_s, 3), ef_pass_ms=ef_ms,
+        ef_pass_gradient_gb=n_bytes / 1e9)
+    del ef, params, err
+    _free(torch)
+
 
 if __name__ == "__main__":
     main()

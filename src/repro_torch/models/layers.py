@@ -41,27 +41,94 @@ Tensor = torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel matmuls: the plain product the reference falls back to
-# without a mesh
+# ring-pipelined tensor-parallel matmuls (DistCtx.use_ring_tp)
+#
+# With Megatron-style sequence parallelism the residual stream is sharded on
+# the sequence dim over the model axis; a column-parallel matmul needs the
+# full sequence gathered first, and its row-parallel partner a
+# reduce(-scatter) after.  These route that pair through the ring-pipelined
+# collectives of dist/collectives.py, whose per-step transfer overlaps the
+# previous step's product (MGG Fig. 7(b) applied to the dense LM stack).  On
+# one card the global tensor is cut into its (data, model) blocks on the
+# virtual mesh, the collective runs over the stack, and the global result is
+# joined back: the same values as ``x @ w`` in another order of sums.
 # ---------------------------------------------------------------------------
 
-def _no_mesh(ctx) -> None:
-    if ctx is not None and getattr(ctx, "mesh", None) is not None:
-        raise NotImplementedError(
-            "ring-pipelined tensor parallelism over a mesh is ROADMAP "
-            "item 9 (ring TP and NCCL across real cards)")
+def _ring_tp_active(ctx, *dims_divisible) -> bool:
+    """True when ctx opted in, the model axis is real, and shapes divide."""
+    if ctx is None or not getattr(ctx, "use_ring_tp", False) \
+            or getattr(ctx, "mesh", None) is None:
+        return False
+    m = int(ctx.mesh.shape.get(ctx.model_axis, 1))
+    if m <= 1:
+        return False
+    return all(d % m == 0 for d in dims_divisible)
+
+
+def _data_size(ctx) -> int:
+    return int(np.prod([int(ctx.mesh.shape.get(a, 1))
+                        for a in ctx.data_axes]))
 
 
 def ring_tp_colwise(x: Tensor, w: Tensor, ctx) -> Tensor:
-    """``x @ w`` (the reference's single-chip fallback)."""
-    _no_mesh(ctx)
-    return x @ w
+    """``x @ w`` with x (B, S, D) sequence-sharded and w (D, F) column-
+    parallel over the model axis → (B, S, F) feature-sharded.
+
+    The sequence all-gather rides the ring fused into the matmul
+    (``ring_allgather_matmul``): row block j is multiplied the moment it
+    arrives while block j+1 is in flight.  Falls back to a plain matmul
+    when the flag is off or shapes don't divide (decode's S = 1 always).
+    """
+    b, s, d = x.shape
+    f = w.shape[-1]
+    if not _ring_tp_active(ctx, s, f) or b % _data_size(ctx) != 0:
+        return x @ w
+    from ..dist.collectives import ring_allgather_matmul
+    from ..dist.sharding import MeshSharding
+
+    mesh, axis = ctx.mesh, ctx.model_axis
+    m, lead = int(mesh.shape[axis]), mesh.ndim
+    data = tuple(ctx.data_axes)
+    xs = MeshSharding(mesh, (data, axis, None)).cut(x)  # (*M, B_l, S/m, D)
+    ws = MeshSharding(mesh, (None, axis)).cut(w)        # (*M, D, F/m)
+    shp, (bl, sl, _) = xs.shape[:lead], xs.shape[lead:]
+    fl = ws.shape[-1]
+    out = ring_allgather_matmul(xs.reshape(shp + (bl * sl, d)), ws, mesh,
+                                axis)                   # (*M, m·B_l·S_l, F/m)
+    out = out.reshape(shp + (m, bl, sl, fl)).movedim(lead, lead + 1)
+    return MeshSharding(mesh, (data, None, axis)).join(
+        out.reshape(shp + (bl, m * sl, fl)))
 
 
 def ring_tp_rowwise(x: Tensor, w: Tensor, ctx) -> Tensor:
-    """``x @ w`` (the reference's single-chip fallback)."""
-    _no_mesh(ctx)
-    return x @ w
+    """``x @ w`` with x (B, S, F) feature-sharded and w (F, D) row-parallel
+    over the model axis → (B, S, D) sequence-sharded.
+
+    The partial-sum reduce-scatter is fused into a pipelined ring
+    (``matmul_reducescatter``): each step computes one output row block
+    while the travelling accumulator is on the wire.
+    """
+    b, s, f = x.shape
+    d = w.shape[-1]
+    if not _ring_tp_active(ctx, s, f) or b % _data_size(ctx) != 0:
+        return x @ w
+    from ..dist.collectives import matmul_reducescatter
+    from ..dist.sharding import MeshSharding
+
+    mesh, axis = ctx.mesh, ctx.model_axis
+    m, lead = int(mesh.shape[axis]), mesh.ndim
+    data = tuple(ctx.data_axes)
+    xs = MeshSharding(mesh, (data, None, axis)).cut(x)  # (*M, B_l, S, F/m)
+    ws = MeshSharding(mesh, (axis, None)).cut(w)        # (*M, F/m, D)
+    shp, (bl, _, fl) = xs.shape[:lead], xs.shape[lead:]
+    sl = s // m
+    # shard-major row order so shard i's reduce-scatter chunk is its own
+    # sequence block (matching the colwise gather order)
+    lhs = xs.reshape(shp + (bl, m, sl, fl)).movedim(lead + 1, lead)
+    out = matmul_reducescatter(lhs.reshape(shp + (m * bl * sl, fl)), ws,
+                               mesh, axis)              # (*M, B_l·S_l, D)
+    return MeshSharding(mesh, (data, axis, None)).join(
+        out.reshape(shp + (bl, sl, d)))
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,12 @@ sequence, as in the reference.
 
 The expert products are ``torch.bmm`` (the reference's einsums sit
 outside any Pallas kernel).  The expert-parallel path
-(:func:`moe_apply_ep_shard`, an ``all_to_all`` over a mesh) is ROADMAP
-item 9 and raises.
+(:func:`moe_apply_ep_shard`) runs every shard of a virtual mesh at once:
+each shard routes its own tokens (its capacity from its own token count)
+with the dispatch and combine of :func:`moe_apply`, and the ``(E, C, d)``
+buffers are exchanged over the model axis by ``all_to_all`` (a copy on
+the mesh's side stream), chunked along capacity so that chunk *i+1*'s
+exchange overlaps chunk *i*'s expert FFN.
 """
 from __future__ import annotations
 
@@ -76,26 +80,30 @@ def _dispatch_indices(tope: Tensor, n_experts: int, capacity: int):
 
     Returns per-slot token ids (E, C), per-slot validity, and for each
     (token, k) pair its rank within its expert (its slot when kept) and
-    its keep flag, as the reference's ``_dispatch_indices``.
+    its keep flag, as the reference's ``_dispatch_indices``.  ``tope``
+    may carry leading dims (one dispatch a shard): each is dispatched on
+    its own, and the outputs carry the same leading dims.
     """
-    t, k = tope.shape
+    *lead, t, k = tope.shape
     dev = tope.device
-    flat_e = tope.reshape(-1)                       # (T·k,)
-    order = torch.argsort(flat_e, stable=True)      # pairs grouped by expert
-    inv = torch.argsort(order, stable=True)         # pair → rank in sorted
-    sorted_e = flat_e[order]
+    flat_e = tope.reshape(*lead, t * k)                         # (..., T·k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)  # pairs by expert
+    inv = torch.argsort(order, dim=-1, stable=True)     # pair → rank
+    sorted_e = torch.gather(flat_e, -1, order)
     ids = torch.arange(n_experts, dtype=flat_e.dtype, device=dev)
-    start = torch.searchsorted(sorted_e, ids)                   # (E,)
+    ids = ids.expand(*lead, n_experts).contiguous()
+    start = torch.searchsorted(sorted_e, ids)                   # (..., E)
     end = torch.searchsorted(sorted_e, ids + 1)
     # slot s of expert e ← pair order[start[e] + s]
-    slot_pair = start[:, None] + torch.arange(capacity, device=dev)[None, :]
-    slot_valid = slot_pair < end[:, None]
+    slot_pair = start[..., :, None] + torch.arange(capacity, device=dev)
+    slot_valid = slot_pair < end[..., None]
     slot_pair = slot_pair.clamp(0, t * k - 1)
-    slot_token = order[slot_pair] // k                          # (E, C)
-    pair_rank = inv - start[flat_e]                 # rank within expert
+    slot_token = torch.gather(order, -1, slot_pair.reshape(
+        *lead, n_experts * capacity)).reshape(slot_pair.shape) // k
+    pair_rank = inv - torch.gather(start, -1, flat_e)   # rank within expert
     pair_kept = pair_rank < capacity
-    return (slot_token, slot_valid, pair_rank.reshape(t, k),
-            pair_kept.reshape(t, k))
+    return (slot_token, slot_valid, pair_rank.reshape(*lead, t, k),
+            pair_kept.reshape(*lead, t, k))
 
 
 class _Dispatch(torch.autograd.Function):
@@ -134,32 +142,118 @@ def _expert_ffn(p, xe: Tensor, cfg) -> Tensor:
 
 def moe_apply(p: Dict[str, Any], x: Tensor, cfg, *,
               capacity_factor: Optional[float] = None,
-              ctx=None) -> Tensor:
+              expert_fn=None, ctx=None) -> Tensor:
     """Single-program MoE: dispatch → expert FFN → combine.  x: (B, S, D).
-    ``ctx`` is accepted for the reference's signature (its sharding
-    anchors are the identity on one card)."""
-    b, s, d = x.shape
+    ``expert_fn(p, xe, cfg)`` replaces the expert FFN on the (E, C, d)
+    buffer (the EP path's hook).  ``ctx`` is accepted for the reference's
+    signature (its sharding anchors are the identity on one card)."""
+    return _moe(p, x, cfg, capacity_factor, expert_fn or _expert_ffn, 0)
+
+
+def _moe(p, x: Tensor, cfg, capacity_factor, expert_fn, lead: int):
+    """:func:`moe_apply` over ``x`` (``*shards, B, S, D``) with ``lead``
+    leading shard dims: each shard routes its own ``B·S`` tokens at the
+    capacity of that count, through one dispatch gather and one combine
+    over all shards (flat indices offset by shard), and ``expert_fn``
+    sees the stacked ``(*shards, E, C, d)`` buffers."""
+    shards = x.shape[:lead]
+    n_sh = int(torch.Size(shards).numel())
+    b, s, d = x.shape[lead:]
     t = b * s
-    x2d = x.reshape(t, d)
+    e, k = cfg.n_experts, cfg.top_k
+    x2d = x.reshape(n_sh * t, d)
     gates, tope = _route(p, x2d, cfg)
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
-    capacity = max(1, int(t * cfg.top_k / cfg.n_experts * capacity_factor))
+    capacity = max(1, int(t * k / e * capacity_factor))
+    tope_g = tope.reshape(n_sh, t, k) if lead else tope
     slot_token, slot_valid, pair_slot, pair_kept = _dispatch_indices(
-        tope, cfg.n_experts, capacity)
+        tope_g, e, capacity)
     # token t's k-th pair reads (expert, slot) of the flat (E·C, d) buffer
-    pair_idx = tope * capacity + pair_slot.clamp(0, capacity - 1)
+    pair_idx = tope_g * capacity + pair_slot.clamp(0, capacity - 1)
+    if lead:        # shard g's tokens and slots sit g·T and g·E·C further
+        g = torch.arange(n_sh, device=x.device)
+        slot_token = slot_token + (g * t)[:, None, None]
+        pair_idx = (pair_idx + (g * e * capacity)[:, None, None]
+                    ).reshape(n_sh * t, k)
+        pair_kept = pair_kept.reshape(n_sh * t, k)
     xe = _Dispatch.apply(x2d, slot_token, slot_valid, pair_idx, pair_kept)
-    ye = _expert_ffn(p, xe, cfg)                        # (E, C, d)
-    y_pairs = ye.reshape(cfg.n_experts * capacity, d)[pair_idx.reshape(-1)]
+    ye = expert_fn(p, xe.reshape(shards + (e, capacity, d)), cfg)
+    y_pairs = ye.reshape(n_sh * e * capacity, d)[pair_idx.reshape(-1)]
     w = (gates * pair_kept).to(x.dtype)
-    return torch.einsum("tkd,tk->td", y_pairs.reshape(t, cfg.top_k, d),
-                        w).reshape(b, s, d)
+    return torch.einsum("tkd,tk->td", y_pairs.reshape(n_sh * t, k, d),
+                        w).reshape(x.shape)
 
 
-def moe_apply_ep_shard(p, x, cfg, mesh, **kw):
-    """The expert-parallel path: experts sharded over a mesh's model axis,
-    the dispatch buffer exchanged (and pipelined) by ``all_to_all``."""
-    raise NotImplementedError(
-        "expert-parallel MoE over a mesh (all_to_all dispatch) is ROADMAP "
-        "item 9 (ring TP and NCCL across real cards)")
+def moe_apply_ep_shard(
+    p: Dict[str, Any],
+    x: Tensor,
+    cfg,
+    mesh,
+    *,
+    data_axes=("data",),
+    model_axis: str = "model",
+    capacity_factor: Optional[float] = None,
+    pipeline_chunks: int = 1,
+) -> Tensor:
+    """EP MoE over a virtual mesh: experts sharded over ``model_axis``.
+
+    Tokens are cut over the data axes and, when ``S % ep == 0`` and ``S >=
+    ep``, over the model axis too (every shard routes a distinct token
+    block; otherwise they are replicated over it).  Each shard's (E, C, d)
+    dispatch buffer is exchanged with ``all_to_all`` to (E/ep, C·ep, d);
+    with ``pipeline_chunks > 1`` the capacity axis is chunked and the
+    exchange of chunk *i+1* is enqueued before the expert FFN of chunk
+    *i* consumes its buffer — MGG's communication-computation overlap
+    (paper Fig. 7b).
+    """
+    from ..dist.sharding import MeshSharding
+
+    ep = int(mesh.shape[model_axis])
+    if cfg.n_experts % ep:
+        raise ValueError(f"{cfg.n_experts} experts over a model axis of "
+                         f"{ep}")
+    lead, a = mesh.ndim, mesh.axis(model_axis)
+
+    def expert_fn(p_blk, xe, cfg):
+        # xe: (*M, E, C, d) local dispatch buffers → exchange → experts
+        c = xe.shape[-2]
+        chunks = min(pipeline_chunks, c)
+        if c % chunks:
+            chunks = 1
+        xc = xe.unflatten(lead + 1, (chunks, c // chunks))
+
+        def exchange(z):  # (E, c', d) → (E/ep, c'·ep, d)
+            return mesh.all_to_all(z, model_axis, 0, 1)
+
+        outs = []
+        cur = exchange(xc.select(lead + 1, 0))
+        for i in range(chunks):
+            nxt = exchange(xc.select(lead + 1, i + 1)) \
+                if i + 1 < chunks else None
+            mesh.wait(cur[1])
+            with mesh.span("expert_ffn"):
+                y = _local_experts(p_blk, cur[0], cfg, a, lead)
+            outs.append(mesh.all_to_all(y, model_axis, 1, 0))
+            if nxt is not None:
+                cur = nxt
+        for _, token in outs:
+            mesh.wait(token)
+        return torch.cat([y for y, _ in outs], dim=lead + 1)
+
+    seq_shardable = x.shape[1] % ep == 0 and x.shape[1] >= ep
+    sh = MeshSharding(mesh, (tuple(data_axes),
+                             model_axis if seq_shardable else None, None))
+    y = _moe(p, sh.cut(x), cfg, capacity_factor, expert_fn, lead)
+    return sh.join(y)
+
+
+def _local_experts(p, xe: Tensor, cfg, a: int, lead: int) -> Tensor:
+    """Every shard's FFN on its own experts: ``xe`` (*M, E/ep, C', d), shard
+    ``j`` along mesh dim ``a`` holding experts ``[j·E/ep, (j+1)·E/ep)``.
+    The other mesh dims fold into the rows, so each expert's table is read
+    by one batched product."""
+    z = xe.movedim(a, 0).movedim(lead, 1)      # (ep, E/ep, *rest, C', d)
+    shp = z.shape
+    y = _expert_ffn(p, z.reshape(shp[0] * shp[1], -1, shp[-1]), cfg)
+    return y.reshape(shp).movedim(1, lead).movedim(0, a)

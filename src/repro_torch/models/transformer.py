@@ -22,18 +22,20 @@ that axis.  ``remat`` (the reference's ``jax.checkpoint``) is
 ``torch.utils.checkpoint`` around each dense or moe block, each hybrid
 group (not its tail) and each xlstm group when autograd records the
 cache-less forward: it changes memory, not values.  Caches are updated in
-place.  The encdec family (whisper) is ``models/encdec.py``; a ``mesh``
-raises (item 9).  Training runs with ``use_flash_attention`` off, as the
+place.  The encdec family (whisper) is ``models/encdec.py``.  Over a
+virtual mesh (``DistCtx``) the TP matmuls may take the ring and the moe
+family its expert-parallel path.  Training runs with ``use_flash_attention`` off, as the
 reference's must: K7 is forward only.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import P
 from ..train.tree import tree_map
 from . import moe as moe_lib
 from . import ssm as ssm_lib
@@ -55,17 +57,31 @@ def _ported(cfg) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class DistCtx:
-    """Distribution context.  The port runs on one card: ``constrain`` is
-    the identity, and a ``mesh`` makes the tensor-parallel matmuls and the
-    expert-parallel MoE raise (ROADMAP item 9).  ``moe_pipeline_chunks``
-    (the EP dispatch's pipelining depth) acts only with a mesh, as in the
-    reference."""
+    """Distribution context threaded through the model (no mesh ⇒ one
+    device).  ``mesh`` is a :class:`~repro_torch.dist.mesh.VirtualMesh`:
+    with ``use_ring_tp`` the TP matmuls take the ring-pipelined
+    collectives (``models/layers.py``; they fall back to the plain matmul
+    whenever shapes don't divide the model axis: decode's S = 1, odd head
+    counts, ...), and the moe family's ``expert_mode="ep"`` takes the
+    expert-parallel path when the model axis divides the experts.
+    ``constrain`` is the identity: a layout hint changes no value on one
+    card.  ``seq_shard_acts`` (Megatron-style sequence parallelism) is off
+    for the recurrent families, as the reference's launchers set it."""
 
     mesh: Optional[Any] = None
-    moe_pipeline_chunks: int = 1
+    data_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    moe_pipeline_chunks: int = 1   # MGG pipelining depth for EP dispatch
+    shard_activations: bool = True
+    use_ring_tp: bool = False
+    seq_shard_acts: bool = True
 
-    def constrain(self, h: torch.Tensor) -> torch.Tensor:
+    def constrain(self, h: torch.Tensor, spec=None) -> torch.Tensor:
         return h
+
+    def act_spec(self, seq_sharded: bool = True) -> P:
+        seq = seq_sharded and self.seq_shard_acts
+        return P(self.data_axes, self.model_axis if seq else None, None)
 
 
 def _norm(h, w, cfg):
@@ -128,9 +144,11 @@ def _moe_block_init(gen: torch.Generator, cfg, n: Optional[int] = None):
 def _moe_block(bp, h, cfg, positions, cache, ctx):
     h, new_cache = _attn_sub(bp, h, cfg, positions, cache, ctx)
     z = _norm(h, bp["ln2"], cfg)
-    if cfg.expert_mode == "ep" and ctx.mesh is not None:
+    if (cfg.expert_mode == "ep" and ctx.mesh is not None
+            and cfg.n_experts % ctx.mesh.shape[ctx.model_axis] == 0):
         y = moe_lib.moe_apply_ep_shard(
             bp["moe"], z, cfg, ctx.mesh,
+            data_axes=ctx.data_axes, model_axis=ctx.model_axis,
             pipeline_chunks=ctx.moe_pipeline_chunks)
     else:
         y = moe_lib.moe_apply(bp["moe"], z, cfg, ctx=ctx)

@@ -23,9 +23,10 @@ reference's ``block_until_ready``: the step time exists whether or not a
 tracer records it, so tracing adds no synchronization and the losses are
 bitwise the same with it on or off.
 
-Not ported here: the error-feedback compressed all-reduce (``ef_bits >
-0``: ROADMAP item 9, with the mesh it needs) raises
-``NotImplementedError`` naming the item.
+With ``ef_bits > 0`` (a pure data-parallel mesh) the gradients pass
+through the error-feedback compressed all-reduce
+(``dist/compress.py``) after accumulation and before AdamW, and the
+optimizer state is the pair ``(adamw_state, ef_err)``.
 """
 from __future__ import annotations
 
@@ -73,16 +74,32 @@ def make_train_step(
     many microbatches (rows ``[i·b/a, (i+1)·b/a)``, as the reference's
     reshape), whose gradients are added in order to fp32 zeros and then
     divided by ``accum_steps``; the loss is their mean.
+
+    With ``ef_bits > 0`` the gradients pass through
+    ``dist.compress.ef_allreduce_mean`` over ``ctx.data_axes`` before the
+    optimizer: the int-``ef_bits`` wire format, its residual carried into
+    the next step.  This needs a mesh whose model axis is trivial (pure
+    data parallelism) and makes ``opt_state`` the pair ``(adamw_state,
+    ef_err)`` with ``ef_err = ef_state_init(params)``.
     """
-    if int(ef_bits) > 0:
-        raise NotImplementedError(
-            "ef_bits > 0 (the error-feedback compressed gradient "
-            "all-reduce) is ROADMAP item 9: it needs a mesh of cards")
+    ef_on = int(ef_bits) > 0
+    if ef_on:
+        if ctx.mesh is None:
+            raise ValueError("ef_bits > 0 needs a mesh (ctx.mesh is None)")
+        if int(ctx.mesh.shape.get(ctx.model_axis, 1)) > 1:
+            raise ValueError(
+                "ef_bits > 0 is a pure-DP path; model axis "
+                f"{ctx.model_axis!r} has size "
+                f"{ctx.mesh.shape[ctx.model_axis]} > 1")
+        from ..dist.compress import ef_allreduce_mean
+        from ..dist.sharding import P
     if accum_steps < 1:
         raise ValueError(f"accum_steps {accum_steps} < 1")
     loss_fn = make_loss_fn(cfg, ctx)
 
     def step(params, opt_state, batch):
+        if ef_on:
+            opt_state, ef_err = opt_state
         if accum_steps == 1:
             loss, _, grads = _grads_of(loss_fn, params, batch)
         else:
@@ -101,8 +118,16 @@ def make_train_step(
                 lsum = loss if lsum is None else lsum + loss
             grads = tree_map(lambda g: g / accum_steps, gsum)
             loss = lsum / accum_steps
+        if ef_on:
+            # the int-bits wire format + error feedback; the mean over the
+            # data axes is the data-parallel gradient all-reduce
+            grads, ef_err = ef_allreduce_mean(
+                grads, ef_err, ctx.mesh, ctx.data_axes,
+                tree_map(lambda _: P(), grads), bits=ef_bits)
         params, opt_state, om = adamw_update(grads, opt_state, params,
                                              opt_cfg)
+        if ef_on:
+            opt_state = (opt_state, ef_err)
         return params, opt_state, dict(loss=loss, **om)
 
     return step

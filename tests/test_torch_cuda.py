@@ -13,7 +13,11 @@ moe and hybrid smoke models' forwards (K7) and prefill + decode on the
 card against the CPU, the moe dispatch's backward and a moe loss's
 gradients bitwise across runs, and the hybrid's training on the card;
 K7 at whisper's encoder shape, and the smoke whisper's flag-on forward
-and its loss and gradients on the card against the CPU.
+and its loss and gradients on the card against the CPU; the virtual
+mesh's collectives on the card against the CPU, its rotations and
+exchanges ordered after their producer and their buffers kept until the
+side stream is done with them, and ring TP and the expert-parallel MoE
+(forwards and gradients) on the card against the CPU.
 
 These tests need an NVIDIA card and nvcc (a CUDA kernel has no CPU mode);
 without them they skip.  On the card, run them with
@@ -1515,3 +1519,107 @@ def test_whisper_loss_and_grads_on_card_match_cpu(cuda):
     for g, w in zip(tree_leaves(runs[0][2]), tree_leaves(want[2])):
         torch.testing.assert_close(g.cpu(), w, rtol=2e-4,
                                    atol=2e-4 * w.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# the virtual mesh: collectives, ordering, ring TP and EP on the card
+
+def _mesh_pair(cuda, shape=(2, 4), names=("data", "x")):
+    from repro_torch.dist import VirtualMesh
+    return VirtualMesh(shape, names, cuda), VirtualMesh(shape, names, "cpu")
+
+
+def test_collectives_on_card_match_cpu(cuda):
+    """The three collectives over a (2, 4) mesh on the card (copies on the
+    side stream) against the same calls on the CPU, and the allgather's
+    gradients (the backward's rotations on the side stream too)."""
+    from repro_torch.dist import (matmul_reducescatter, pipelined_all_to_all,
+                                  ring_allgather_matmul)
+    dm, cm = _mesh_pair(cuda)
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(2, 4, 48, 64, generator=g), torch.randn(64, 40,
+                                                               generator=g)
+    want = ring_allgather_matmul(a, b, cm, "x")
+    got = ring_allgather_matmul(a.to(cuda), b.to(cuda), dm, "x")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    lhs, rhs = torch.randn(2, 4, 50, 16, generator=g), torch.randn(
+        2, 4, 16, 24, generator=g)
+    want = matmul_reducescatter(lhs, rhs, cm, "x")
+    got = matmul_reducescatter(lhs.to(cuda), rhs.to(cuda), dm, "x")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    z = torch.randn(2, 4, 32, 9, 3, generator=g)
+    fn = lambda c: 2.0 * c + 1.0
+    kw = dict(split_axis=0, concat_axis=1, chunk_axis=1, chunks=4)
+    want = pipelined_all_to_all(z, cm, "x", fn, **kw)
+    got = pipelined_all_to_all(z.to(cuda), dm, "x", fn, **kw)
+    assert torch.equal(got.cpu(), want)
+    grads = []
+    for mesh, dev in ((cm, "cpu"), (dm, cuda)):
+        x = a.to(dev).requires_grad_(True)
+        w = b.to(dev).requires_grad_(True)
+        out = ring_allgather_matmul(x, w, mesh, "x")
+        grads.append(torch.autograd.grad(out.square().sum(), (x, w)))
+    for got, want in zip(grads[1], grads[0]):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_mesh_transfers_wait_for_their_producer(cuda):
+    """A spin kernel holds the current stream, then writes the blocks: the
+    rotation and the exchange on the side stream must still read what was
+    written (they wait on the current stream).  Then the side stream is
+    held and the source freed while its copy is queued: a tensor made in
+    its place and written at once must not reach the copy (the buffers
+    are recorded on the side stream)."""
+    dm, _ = _mesh_pair(cuda)
+    x = torch.zeros(2, 4, 256, 1024, device=cuda)
+    want = torch.arange(8.0, device=cuda).reshape(2, 4, 1, 1).expand_as(x)
+    torch.cuda._sleep(50_000_000)
+    x.copy_(want)
+    y, token = dm.permute(x, "x")
+    z, t2 = dm.all_to_all(x, "x", 0, 1)
+    dm.wait(token)
+    dm.wait(t2)
+    assert torch.equal(y.cpu(), torch.roll(want, 1, dims=1).cpu())
+    assert torch.equal(z.cpu(), dm.all_to_all(want.contiguous(), "x", 0,
+                                              1)[0].cpu())
+    src = want.contiguous()
+    with torch.cuda.stream(dm._ring._side):
+        torch.cuda._sleep(50_000_000)
+    y, token = dm.permute(src, "x")
+    del src
+    junk = torch.full((2, 4, 256, 1024), -1.0, device=cuda)
+    dm.wait(token)
+    assert torch.equal(y.cpu(), torch.roll(want, 1, dims=1).cpu())
+    del junk
+
+
+def test_ring_tp_and_ep_on_card_match_cpu(cuda):
+    """The smoke codeqwen1.5-7b with ring TP over a (2, 2) mesh and the
+    smoke granite-moe-1b-a400m with ring TP and EP over a (2, 4) mesh
+    (pipeline chunks 2), fp32: the logits and the loss's gradients on the
+    card against the same on the CPU (rtol 2e-4, atol 2e-4 × max|·|)."""
+    import dataclasses
+    from repro_torch.train import make_loss_fn
+    from repro_torch.train.trainer import _grads_of
+    for arch, shape in (("codeqwen1.5-7b", (2, 2)),
+                        ("granite-moe-1b-a400m", (2, 4))):
+        cfg = dataclasses.replace(LMC.get_smoke_config(arch),
+                                  compute_dtype="float32", remat=False)
+        params = LMT.init_params(torch.Generator().manual_seed(0), cfg)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            1, cfg.vocab, (4, 16)).astype(np.int32))
+        dm, cm = _mesh_pair(cuda, shape, ("data", "model"))
+        out = []
+        for mesh, dev in ((cm, "cpu"), (dm, cuda)):
+            ctx = LMT.DistCtx(mesh=mesh, use_ring_tp=True,
+                              moe_pipeline_chunks=2)
+            p = tree_map(lambda t: t.to(dev), params)
+            batch = {"tokens": toks.to(dev)}
+            logits, _ = LMT.forward(p, cfg, batch["tokens"], ctx=ctx)
+            out.append((logits, _grads_of(make_loss_fn(cfg, ctx), p,
+                                          batch)))
+        (lw, (_, _, gw)), (lg, (_, _, gg)) = out
+        torch.testing.assert_close(lg.cpu(), lw, rtol=2e-4, atol=2e-4)
+        for g, w in zip(tree_leaves(gg), tree_leaves(gw)):
+            torch.testing.assert_close(g.cpu(), w, rtol=2e-4,
+                                       atol=2e-4 * w.abs().max().item())

@@ -194,11 +194,26 @@ def test_moe_and_hybrid_families_build_and_step(arch):
 
 
 def test_mesh_raises_naming_the_roadmap_item():
-    ctx = TT.DistCtx(mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        TL.ring_tp_colwise(torch.ones(1, 2, 3), torch.ones(3, 4), ctx)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        TL.ring_tp_rowwise(torch.ones(1, 2, 3), torch.ones(3, 4), ctx)
+    """The TP matmuls over a mesh (the name is kept from when they refused
+    it, ROADMAP item 9): with ``use_ring_tp`` over a (2, 2) virtual mesh
+    both take the ring and give ``x @ w`` within 1e-5; without the flag,
+    on a model axis of 1 or where S does not divide it, they are ``x @
+    w`` bit for bit, as the reference falls back."""
+    from repro_torch.dist import VirtualMesh
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 8, 6, generator=g)
+    w = torch.randn(6, 4, generator=g)
+    mesh = VirtualMesh((2, 2), ("data", "model"), "cpu")
+    on = TT.DistCtx(mesh=mesh, use_ring_tp=True)
+    for fn in (TL.ring_tp_colwise, TL.ring_tp_rowwise):
+        torch.testing.assert_close(fn(x, w, on), x @ w, rtol=1e-5,
+                                   atol=1e-5)
+        for ctx in (TT.DistCtx(mesh=mesh), TT.DistCtx(
+                mesh=VirtualMesh((4, 1), ("data", "model"), "cpu"),
+                use_ring_tp=True)):
+            assert torch.equal(fn(x, w, ctx), x @ w)
+        assert torch.equal(fn(x[:, :3], w, on), x[:, :3] @ w)
 
 
 # ---------------------------------------------------------------------------

@@ -627,28 +627,41 @@ def test_train_lm_launcher_tunes_accum_on_cpu():
 
 
 # whisper has no launcher path (nor in the reference): its refusal names
-# the module to train it through; the first case keeps the id it had when
-# it named ROADMAP item 10.5, which ported that module
+# the module to train it through.  Each case keeps the id it had when it
+# named the ROADMAP item that ported it (10.5: that module; 9: the mesh
+# flags, which now run: ``--ef-bits`` without ``--devices`` is ignored
+# with the reference's line, ``--ring-tp`` without a mesh is the plain
+# matmul, so both train as the same launcher without the flag)
 @pytest.mark.parametrize("argv,match", [
     pytest.param(["--arch", "whisper-base"], "models.encdec",
                  id="argv0-10.5"),
-    (["--arch", XL, "--ef-bits", "8"], "item 9"),
-    (["--arch", XL, "--ring-tp"], "item 9"),
+    pytest.param(["--arch", XL, "--ef-bits", "8"], None,
+                 id="argv1-item 9"),
+    pytest.param(["--arch", XL, "--ring-tp"], None, id="argv2-item 9"),
 ])
-def test_unported_paths_raise_naming_their_item(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        ttrain.main(["--device", "cpu", "--smoke", "--steps", "1",
-                     "--seq", "8", "--batch", "2", *argv])
+def test_unported_paths_raise_naming_their_item(argv, match, capsys):
+    base = ["--device", "cpu", "--smoke", "--steps", "1", "--seq", "8",
+            "--batch", "2"]
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            ttrain.main(base + argv)
+        return
+    out = ttrain.main(base + argv)
+    assert out["devices"] == 1
+    assert out["losses"] == ttrain.main(base + argv[:2])["losses"]
+    if "--ef-bits" in argv:
+        assert "--ef-bits ignored: single-device run" in \
+            capsys.readouterr().out
 
 
 def test_encdec_and_ef_bits_raise_in_the_step_factory():
-    """What still raises around the step factory: ``ef_bits`` (item 9),
-    and whisper in ``train_lm`` (no launcher path, as in the reference),
-    naming ``models.encdec``."""
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """What raises around the step factory: ``ef_bits`` without a mesh
+    (the reference's ``ValueError``), and whisper in ``train_lm`` (no
+    launcher path, as in the reference), naming ``models.encdec``."""
+    with pytest.raises(ValueError, match="needs a mesh"):
         make_train_step(TC.get_smoke_config(XL), TT.DistCtx(),
                         AdamWConfig(), ef_bits=8)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         make_train_step(TC.get_smoke_config("whisper-base"), TT.DistCtx(),
                         AdamWConfig(), ef_bits=8)
     with pytest.raises(NotImplementedError, match="models.encdec"):

@@ -386,13 +386,39 @@ def test_train_launcher_on_cpu_takes_pipeline_chunks():
 
 
 def test_expert_parallel_over_a_mesh_raises_item_9():
-    cfg = TC.get_smoke_config(GRANITE)
-    assert cfg.expert_mode == "ep"
+    """The expert-parallel path over a mesh (the name is kept from when it
+    refused it, ROADMAP item 9): over a (2, 4) virtual mesh, at chunks 1
+    and 2, it equals ``moe_apply`` run on each shard's own token block at
+    that block's capacity (rtol 1e-5, atol 1e-5 × max|·|), with tokens
+    replicated over the model axis where S does not divide it; the
+    forward takes it under ``DistCtx(mesh)`` only where the model axis
+    divides the experts (the reference's condition), else ``moe_apply``
+    bit for bit; and a model axis that does not divide the experts
+    raises."""
+    from repro_torch.dist import VirtualMesh
+
+    _, cfg = _cfgs(GRANITE)
+    assert cfg.expert_mode == "ep" and cfg.n_experts == 8
     params = TT.init_params(torch.Generator().manual_seed(0), cfg)
-    bp = {k: v for k, v in params["blocks"].items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        TM.moe_apply_ep_shard(bp["moe"], torch.zeros(1, 2, cfg.d_model),
-                              cfg, object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        TT.forward(params, cfg, torch.ones(1, 4, dtype=torch.int32),
-                   ctx=TT.DistCtx(mesh=object(), moe_pipeline_chunks=2))
+    p = {k: v[0] for k, v in params["blocks"]["moe"].items()
+         if k != "router"}
+    p["router"] = {"w": params["blocks"]["moe"]["router"]["w"][0]}
+    mesh = VirtualMesh((2, 4), ("data", "model"), "cpu")
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(2, 8, cfg.d_model)).astype(np.float32))
+    for s, blk in ((8, 2), (3, 3)):       # S 3: replicated over "model"
+        xs = x[:, :s]
+        want = torch.cat([torch.cat([
+            TM.moe_apply(p, xs[d:d + 1, j * blk:(j + 1) * blk], cfg)
+            for j in range(s // blk)], 1) for d in range(2)])
+        for chunks in (1, 2):
+            got = TM.moe_apply_ep_shard(p, xs, cfg, mesh,
+                                        pipeline_chunks=chunks)
+            _close(got, _np(want), f"EP S {s} chunks {chunks}", rtol=1e-5)
+    toks = torch.ones(2, 4, dtype=torch.int32)
+    odd = VirtualMesh((1, 3), ("data", "model"), "cpu")
+    assert torch.equal(TT.forward(params, cfg, toks,
+                                  ctx=TT.DistCtx(mesh=odd))[0],
+                       TT.forward(params, cfg, toks)[0])
+    with pytest.raises(ValueError, match="experts over a model axis"):
+        TM.moe_apply_ep_shard(p, x, cfg, odd)

@@ -167,7 +167,10 @@ def test_port_imports_no_jax():
         "        'repro_torch.serve.router', 'repro_torch.serve.cluster',\n"
         "        'repro_torch.testing.hypo', 'repro_torch.obs.validate',\n"
         "        'repro_torch.train.trainer', 'repro_torch.launch.train',\n"
-        "        'repro_torch.launch.train_lm', 'repro_torch.models.encdec'}\n"
+        "        'repro_torch.launch.train_lm', 'repro_torch.models.encdec',\n"
+        "        'repro_torch.dist.mesh', 'repro_torch.dist.collectives',\n"
+        "        'repro_torch.dist.compress', 'repro_torch.dist.sharding',\n"
+        "        'repro_torch.launch.mesh'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"

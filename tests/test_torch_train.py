@@ -20,7 +20,17 @@ Tolerances: logits and gradients rtol 2e-4 (the reference's own
 fused-vs-unfused tolerance; fp32 sums in another order), the loss
 trajectory rtol 1e-3, AdamW rtol 1e-6.  Inside the port, the same step
 run twice gives bitwise-equal gradients.
+
+The dump also holds the reference's LM cases that need its four devices:
+the smoke codeqwen1.5-7b with ring TP on (data 2, model 2) and (1, 4)
+meshes (logits, loss and every gradient, held at the reference's own
+ring-vs-SPMD tolerances of ``tests/multidev/ring_tp.py``: rtol 2e-4, atol
+2e-4; 1e-5, 1e-6; rtol 5e-3, atol 5e-4), and the smoke
+granite-moe-1b-a400m's expert-parallel MoE on a (1, 4) mesh at pipeline
+chunks 1 and 2 (rtol 1e-5, atol 1e-5 × max|·|, after asserting the router
+logit gap of ``test_torch_moe``), against the port's on virtual meshes.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -131,6 +141,66 @@ def _reference_dump():
         p, opt, loss = step(p, opt)
         losses.append(float(loss))
     out["traj/losses"] = np.asarray(losses)
+    out.update(_lm_mesh_dump())
+    return out
+
+
+TP_MESHES = ((2, 2), (1, 4))
+TP_B, TP_S = 4, 16
+EP_CHUNKS = (1, 2)
+
+
+def _lm_configs(configs):
+    tp = dataclasses.replace(configs.get_smoke_config("codeqwen1.5-7b"),
+                             param_dtype="float32", compute_dtype="float32",
+                             remat=False)
+    ep = dataclasses.replace(configs.get_smoke_config("granite-moe-1b-a400m"),
+                             compute_dtype="float32", remat=False)
+    return tp, ep
+
+
+def _lm_inputs(tp, ep):
+    rng = np.random.default_rng(0)
+    return (rng.integers(0, tp.vocab, size=(TP_B, TP_S)).astype(np.int32),
+            rng.normal(size=(2, 16, ep.d_model)).astype(np.float32))
+
+
+def _lm_mesh_dump():
+    """The reference's ring TP and expert-parallel MoE on its devices."""
+    import jax
+    from repro import configs
+    from repro.dist import make_mesh
+    from repro.models import moe
+    from repro.models import transformer as T
+    from repro.train.checkpoint import _flat_with_names
+
+    tp, ep = _lm_configs(configs)
+    toks, x = _lm_inputs(tp, ep)
+    out = {}
+    params = T.init_params(jax.random.key(0), tp, vocab_multiple=4)
+    for name, leaf in _flat_with_names(params):
+        out[f"tp/p/{name}"] = np.asarray(leaf)
+    for shape in TP_MESHES:
+        ctx = T.DistCtx(mesh=make_mesh(shape, ("data", "model")),
+                        use_ring_tp=True)
+        key = f"tp/{shape[0]}x{shape[1]}"
+        out[f"{key}/logits"] = np.asarray(jax.jit(
+            lambda p, t, ctx=ctx: T.forward(p, tp, t, ctx=ctx)[0])(
+                params, toks))
+        loss, grads = jax.jit(jax.value_and_grad(
+            lambda p, ctx=ctx: T.loss_fn(p, tp, {"tokens": toks},
+                                         ctx=ctx)[0]))(params)
+        out[f"{key}/loss"] = np.asarray(loss)
+        for name, leaf in _flat_with_names(grads):
+            out[f"{key}/g/{name}"] = np.asarray(leaf)
+    p = moe.moe_init(jax.random.key(2), ep)
+    for name, leaf in _flat_with_names(p):
+        out[f"ep/p/{name}"] = np.asarray(leaf)
+    mesh = make_mesh((1, 4), ("data", "model"))
+    for chunks in EP_CHUNKS:
+        out[f"ep/chunks{chunks}"] = np.asarray(jax.jit(
+            lambda p, x, c=chunks: moe.moe_apply_ep_shard(
+                p, x, ep, mesh, pipeline_chunks=c))(p, x))
     return out
 
 
@@ -359,3 +429,83 @@ def test_launcher_trains_on_cpu(tmp_path, model):
     assert rep["device"] == "cpu" and len(rep["losses"]) == 3
     assert np.isfinite(rep["losses"]).all() and 0 <= rep["test_acc"] <= 1
     assert (tmp_path / "m.json").exists()
+
+
+# ---------------------------------------------------------------------------
+# the LM over a mesh: ring TP and the expert-parallel MoE (four devices in
+# the reference, virtual meshes in the port)
+
+def _lm_port_params(ref, prefix, like):
+    return tree_unflatten(like, [
+        torch.from_numpy(ref[f"{prefix}/p/{name}"])
+        for name, _ in tree_flatten_with_names(like)])
+
+
+@pytest.mark.parametrize("shape", TP_MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_ring_tp_matches_reference_on_its_mesh(ref, shape):
+    """The smoke codeqwen1.5-7b's forward and loss gradients with ring TP
+    over a virtual (data, model) mesh against the reference's over its
+    devices; its prefill (S 8 takes the ring) within 2e-4 of the no-mesh
+    prefill (the reference's check), and a decode step (S = 1 falls back
+    to the plain matmul) from the same cache bit for bit the no-mesh
+    one's."""
+    from repro_torch import configs as tconfigs
+    from repro_torch.dist import VirtualMesh
+    from repro_torch.models import transformer as TT
+
+    tp, _ = _lm_configs(tconfigs)
+    toks, _ = _lm_inputs(tp, _lm_configs(tconfigs)[1])
+    params = _lm_port_params(ref, "tp", TT.init_params(
+        torch.Generator().manual_seed(0), tp, vocab_multiple=4))
+    ctx = TT.DistCtx(mesh=VirtualMesh(shape, ("data", "model"), CPU),
+                     use_ring_tp=True)
+    key = f"tp/{shape[0]}x{shape[1]}"
+    t = torch.from_numpy(toks)
+    logits, _ = TT.forward(params, tp, t, ctx=ctx)
+    np.testing.assert_allclose(logits.numpy(), ref[f"{key}/logits"],
+                               rtol=2e-4, atol=2e-4)
+    loss, grads = value_and_grad(
+        lambda p: TT.loss_fn(p, tp, {"tokens": t}, ctx=ctx)[0], params)
+    np.testing.assert_allclose(float(loss), float(ref[f"{key}/loss"]),
+                               rtol=1e-5, atol=1e-6)
+    named = tree_flatten_with_names(grads)
+    assert len(named) == sum(k.startswith(f"{key}/g/") for k in ref)
+    for name, gr in named:
+        np.testing.assert_allclose(gr.numpy(), ref[f"{key}/g/{name}"],
+                                   rtol=5e-3, atol=5e-4, err_msg=name)
+    caches = [TT.init_cache(tp, TP_B, 12, torch.float32) for _ in range(2)]
+    first = [TT.prefill(params, tp, t[:, :8], cache, ctx=c)[0]
+             for c, cache in zip((ctx, TT.DistCtx()), caches)]
+    np.testing.assert_allclose(first[0].numpy(), first[1].numpy(),
+                               rtol=2e-4, atol=2e-4)
+    pos = torch.full((TP_B,), 8, dtype=torch.int32)
+    kv = caches[0]["kv"]
+    twin = {"kv": dataclasses.replace(kv, k=kv.k.clone(), v=kv.v.clone(),
+                                      key_pos=kv.key_pos.clone())}
+    steps = [TT.decode_step(params, tp, t[:, 8], pos, cache, ctx=c)[0]
+             for c, cache in ((ctx, caches[0]), (TT.DistCtx(), twin))]
+    assert torch.equal(steps[0], steps[1])
+
+
+@pytest.mark.parametrize("chunks", EP_CHUNKS)
+def test_expert_parallel_matches_reference_on_its_mesh(ref, chunks):
+    """granite's smoke MoE, experts over a (1, 4) model axis (2 a shard),
+    every shard routing its own 4 tokens, the exchange chunked along
+    capacity: against the reference's ``moe_apply_ep_shard``."""
+    from repro_torch import configs as tconfigs
+    from repro_torch.dist import VirtualMesh
+    from repro_torch.models import moe as TM
+
+    from test_torch_moe import _assert_gap
+
+    _, ep = _lm_configs(tconfigs)
+    _, x = _lm_inputs(_lm_configs(tconfigs)[0], ep)
+    p = _lm_port_params(ref, "ep", TM.moe_init(
+        torch.Generator().manual_seed(0), ep))
+    _assert_gap(x.reshape(-1, ep.d_model), p["router"]["w"].numpy(),
+                ep.top_k)
+    got = TM.moe_apply_ep_shard(p, torch.from_numpy(x), ep, VirtualMesh(
+        (1, 4), ("data", "model"), CPU), pipeline_chunks=chunks).numpy()
+    want = ref[f"ep/chunks{chunks}"]
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
