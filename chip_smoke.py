@@ -12,7 +12,10 @@ Phases, each of which passes or ends the run with a non-zero exit:
    prints;
 2. every kernel against its plain PyTorch version on the card over a
    sweep of shapes (rtol/atol 1e-5; K1, K2, K5 and K6 bitwise, K3 and K4
-   over a hub bitwise; K7
+   over a hub bitwise; K5 over its plan's edge shapes: one row, a chunk
+   less one, exactly, plus one, more than 4 turns of its grid-stride loop,
+   D 1/3/4/100/128/130/257, sentinel ids, all ids equal, src 4 bytes
+   off 16; K7
    fp32 rtol = atol 2e-5, bf16 1e-2 and each row's rms difference within
    2e-2 of the row's rms; K1, K2 and K6 also at ps = 40 and at 300,000
    partitions, more than one grid of K1 holds; K8 rtol = atol 1e-4
@@ -60,7 +63,10 @@ Phases, each of which passes or ends the run with a non-zero exit:
    a hot cache of N // 8 rows over the pinned host table): 10 steps with
    the launch counts read around them; ``gather_rows`` bitwise equal to
    ``x[ids]`` at capacities 0, N // 8 and N; K5 timed at the step's
-   shapes (and the median of 25 calls each timed alone);
+   shapes as every kernel is (``ms`` back to back, ``ms_median`` of 25
+   calls each timed alone, quartiles), and the same calls enqueued while a
+   spin kernel holds the stream (``device_ms``, ``device_ms_median``), with
+   its plan and ``bytes_per_s``;
 9. the training launcher at a small scale, both branches;
 10. the top-k compressed ring at full size: the reference's fig9e
    configuration (GCN 3 × 96, 4 classes, ``ps=8, dist=2``, layer 0
@@ -120,7 +126,7 @@ Phases, each of which passes or ends the run with a non-zero exit:
    floor ``max(resident ms, streamed bytes / H2D rate)``, and, with the
    card held by a spin kernel, every prefetch returning before its ring
    ends (no fetch waits for the card); (c) K5 at the padded table's shape
-   (capacity N // 8), bitwise its plain version and timed beside it,
+   (capacity N // 8), bitwise its plain version and timed as in phase 8,
    ``index_select`` and its bound (the kernels line's K5 ``padded_table``);
    (d) a GCN serving trace with feature updates at capacity N // 8, its
    logits bitwise resident serving's on the same trace, full and cached
@@ -507,8 +513,12 @@ P20_B, P20_S, P20_GRAD_S, P20_TRAIN_S, P20_STEPS = 2, 4096, 1024, 512, 10
 P20_CHUNKS = (1, 4)
 # phase 20 (e): the ef launcher's granite, its depth cut (full width)
 P20_EF_LAYERS = 16
-# K5 at the sampled step's shape: a median over this many timed calls
+# K5 at the sampled step's shape: a median over this many timed calls, and
+# the spin (cycles, ~10 ms) that holds the stream while they are enqueued
 K5_MEDIAN_CALLS = 25
+K5_HOLD_CYCLES = 20_000_000
+# K5 sweep: widths of every path (words, 16-byte vectors, vpr > THREADS)
+K5_SWEEP_D = (1, 3, 4, 100, 128, 130, 257)
 # K1 and K6 sweeps: more partitions than one grid of K1 holds (what fits
 # the card at once), so each of its warps walks several
 GRID_P = 300_000
@@ -675,20 +685,9 @@ def main():
             check(torch.equal(got[-1], base[-1]),
                   f"scatter-sum D={d}: the sentinel row got a gradient")
             n_cases += 1
-    for d in (1, 16, 100, 130):          # K5: row gather, repeats, sentinels
-        for b, t in ((1, 1), (37, 10), (5000, 3000)):
-            src = torch.from_numpy(gen.normal(size=(t, d)).astype(
-                np.float32)).to(dev)
-            ids = gen.integers(0, t, b)
-            ids[::7] = ids[0]                       # repeated rows
-            ids[3::11] = -1                         # out of range: zero rows
-            idx = torch.from_numpy(ids.astype(np.int32)).to(dev)
-            want = ref.gather_rows_ref(src, idx)
-            got = ops.gather_rows(src, idx)
-            check(torch.equal(got, want) and torch.equal(
-                got, ops.gather_rows(src, idx)),
-                f"gather_rows D={d} B={b} not bitwise its plain version")
-            n_cases += 1
+    t_k5 = time.perf_counter()
+    n_cases += sweep_gather_rows(torch, K, ref, dev, gen)
+    k5_sweep_s = time.perf_counter() - t_k5
     for d in (1, 13, 96, 130, 600):      # K6: every register-batch path
         for k in sorted({1, max(1, d // 4), d}):
             for id_dtype in (torch.int16, torch.int32):
@@ -728,6 +727,7 @@ def main():
     n_cases += k9_cases
     say("kernels_vs_plain", cases=n_cases, max_abs_err=worst,
         tolerance="rtol 1e-5 atol 1e-5; K1-K6 bitwise",
+        k5_sweep_s=round(k5_sweep_s, 3),
         flash_cases=flash_cases, flash_max_abs_err=flash_err,
         flash_bf16_max_row_rms_ratio=flash_row,
         flash_tolerance="fp32 rtol 2e-5 atol 2e-5, bf16 rtol 1e-2 atol 1e-2 "
@@ -1910,10 +1910,55 @@ def time_scatter(torch, K, arrays, plan, rate, dev, d):
                 ms_by_chunk_len=dict(sorted(by_chunk.items())))
 
 
-def time_gather_rows(torch, K, tiers, ids, rate, dev):
-    """Time one ``gather_rows`` call's worth of K5 (the cold gather and the
-    hot gather of one step's outermost block) at the sampled shapes."""
-    ref = K.ref
+def sweep_gather_rows(torch, K, ref, dev, gen):
+    """K5 bitwise its plain version (and across two launches) over its
+    plan's edge shapes: one row, a chunk of UNROLL x THREADS vectors less
+    one, exactly and plus one, more than 4 turns of the grid-stride loop,
+    at every width of K5_SWEEP_D; ids repeated, -1, T and 2^31 - 1 among
+    them, or all equal; and src 4 bytes off 16 (the word path).
+    Returns the cases run."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = 0
+    for d in K5_SWEEP_D:
+        for offset in (False, True) if d % 4 == 0 else (False,):
+            width = 4 if d % 4 == 0 and not offset else 1
+            vpr = d // width
+            chunk = K.rows.UNROLL * K.rows.THREADS
+            grid = sms * K.rows.blocks_per_sm(dev.index, width)
+            a_chunk = -(-chunk // vpr)
+            for b in (1, a_chunk - 1, a_chunk, a_chunk + 1,
+                      5 * grid * chunk // vpr + 3):
+                for equal in (False, True):
+                    t = 500
+                    src = torch.from_numpy(gen.normal(size=(t, d)).astype(
+                        np.float32)).to(dev)
+                    ids = gen.integers(0, t, b)
+                    if equal:
+                        ids[:] = t // 2
+                    else:
+                        ids[3::13] = ids[0]             # repeated rows
+                        ids[::5] = -1                   # zero rows
+                        ids[1::7] = t
+                        ids[2::11] = 2 ** 31 - 1
+                    idx = torch.from_numpy(ids.astype(np.int32)).to(dev)
+                    if offset:
+                        flat = torch.empty(t * d + 1, device=dev)
+                        src = flat[1:].view(t, d).copy_(src)
+                    want = ref.gather_rows_ref(src, idx)
+                    got = K.rows.gather_rows(src, idx).clone()
+                    check(torch.equal(got, want) and torch.equal(
+                        got, K.rows.gather_rows(src, idx)),
+                        f"gather_rows D={d} B={b} offset={offset} "
+                        f"equal={equal}: not bitwise its plain version")
+                    n += 1
+    return n
+
+
+def k5_calls(torch, tiers, ids, dev):
+    """The two K5 launches of one ``TieredFeatures.gather_rows`` call over
+    ``ids`` (the cold gather from the uploaded rows, whose pad row serves
+    the hot ids, and the hot gather from the table, whose row 0 serves the
+    cold ids) as ``(src, idx)`` pairs, with the hot and cold row counts."""
     pos = np.nonzero(ids >= 0)[0]
     live = ids[pos]
     slots = tiers.cache.slots(live)
@@ -1926,6 +1971,41 @@ def time_gather_rows(torch, K, tiers, ids, rate, dev):
     hot_sel[pos[hot]] = slots[hot]
     calls = [(cold_up, torch.from_numpy(cold_sel).to(dev)),
              (tiers.cache.table, torch.from_numpy(hot_sel).to(dev))]
+    return calls, int(hot.sum()), n_cold
+
+
+def k5_bytes(torch, calls):
+    """K5's bound in bytes over ``calls``: the distinct rows read once
+    each, the ids, the rows written."""
+    return sum(int(torch.unique(idx).numel()) * src.shape[1] * 4
+               + idx.numel() * 4 + idx.numel() * src.shape[1] * 4
+               for src, idx in calls)
+
+
+def _held_ms(torch, fn, n, spin=K5_HOLD_CYCLES):
+    """``n`` calls of ``fn`` enqueued while a spin kernel holds the stream,
+    so that the card runs them from a full queue and no host time between
+    launches is counted: (each call's ms between its own events, their
+    mean back to back, whether the spin outlasted the enqueue)."""
+    fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(spin)
+    for e in ev[:-1]:
+        e.record()
+        fn()
+    ev[-1].record()
+    queued = not ev[0].query()
+    torch.cuda.synchronize()
+    each = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+    return each, ev[0].elapsed_time(ev[-1]) / n, queued
+
+
+def time_gather_rows(torch, K, tiers, ids, rate, dev):
+    """Time one ``gather_rows`` call's worth of K5 (the cold gather and the
+    hot gather of one step's outermost block) at the sampled shapes."""
+    ref = K.ref
+    calls, n_hot, n_cold = k5_calls(torch, tiers, ids, dev)
     longs = [idx.long() for _, idx in calls]
     err = 0.0
     for src, idx in calls:
@@ -1951,22 +2031,40 @@ def time_gather_rows(torch, K, tiers, ids, rate, dev):
         t_k5 = _time(torch, k5)
         t_lib = _time(torch, lib)
         each = _each_ms(torch, k5, K5_MEDIAN_CALLS)
-    d = cold_up.shape[1]
-    # the distinct rows read once each, the ids, the rows written
-    nbytes = sum(int(torch.unique(idx).numel()) * d * 4 + idx.numel() * 4
-                 + idx.numel() * d * 4 for _, idx in calls)
+        dev_each, t_dev, q_k5 = _held_ms(torch, k5, K5_MEDIAN_CALLS)
+        _, t_dev_lib, q_lib = _held_ms(torch, lib, K5_MEDIAN_CALLS)
+    check(q_k5 and q_lib,
+          "K5's timing: the spin kernel ended before the calls were queued")
+    d = calls[0][0].shape[1]
+    nbytes = k5_bytes(torch, calls)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = [dict(K.rows.plan(int(idx.numel()), d, sms, K.rows.blocks_per_sm(
+        dev.index, 4))._asdict(), unroll=K.rows.UNROLL,
+        threads=K.rows.THREADS) for _, idx in calls]
     return dict(name="gather_rows", route="cuda", source=SOURCE["gather_rows"],
                 replaces=REPLACES["gather_rows"], max_abs_err=err,
                 ms=t_k5, plain_ms=t_plain, bound_ms=nbytes / rate * 1e3,
                 bound_by="bytes", library_ms=t_lib, library="index_select",
-                bytes=nbytes, rows=int(ids.size), hot_rows=int(hot.sum()),
+                bytes=nbytes, bytes_per_s=nbytes / (t_k5 / 1e3),
+                plan=plans, rows=int(ids.size), hot_rows=n_hot,
                 cold_rows=n_cold, width=d,
                 ms_median=float(np.median(each)),
                 ms_quartiles=[float(np.percentile(each, q))
                               for q in (25, 75)],
                 ms_median_of=f"{K5_MEDIAN_CALLS} calls (2 launches each: "
                              "the cold and the hot gather), each timed "
-                             "alone by CUDA events")
+                             "alone by CUDA events",
+                device_ms=t_dev, device_library_ms=t_dev_lib,
+                device_bytes_per_s=nbytes / (t_dev / 1e3),
+                device_ms_median=float(np.median(dev_each)),
+                device_ms_quartiles=[float(np.percentile(dev_each, q))
+                                     for q in (25, 75)],
+                device_ms_of=f"the same {K5_MEDIAN_CALLS} calls enqueued "
+                             "while a spin kernel holds the stream, so the "
+                             "card runs them from a full queue and the "
+                             "host's time between launches does not count: "
+                             "each between its own events (median, "
+                             "quartiles) and back to back (mean)")
 
 
 # ---------------------------------------------------------------------------

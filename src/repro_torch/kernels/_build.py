@@ -78,8 +78,10 @@ _SIGNATURES = {
     # n_hubs, chunk_start, chunk_end, n_chunks, chunk_len, sums, stream
     "mgg_segment_add_ordered": [_P, _P, _P, _P, _P, _L, _I, _P, _P, _L, _P,
                                 _P, _L, _I, _P, _P],
-    # src, idx, out, B, T, D, stream
-    "mgg_gather_rows": [_P, _P, _P, _L, _L, _I, _P],
+    # src, idx, out, B, T, D, width, grid, stream
+    "mgg_gather_rows": [_P, _P, _P, _L, _L, _I, _I, _I, _P],
+    # &blocks, width
+    "mgg_gather_rows_occupancy": [_P, _I],
     # values, idx, nbrs, mask, out, P, ps, k, D, id_bytes, stream
     "mgg_sparse_gather_sum": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     # q, k, v, o, B, S, H, KV, hd, q/k/v strides (b, s, h), causal, window,

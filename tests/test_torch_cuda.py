@@ -279,19 +279,71 @@ def test_scatter_sum_matches_plain_and_is_deterministic(cuda, p, ps, d):
     assert torch.equal(got, ops.scatter_sum_ordered(base.to(cuda), *args))
 
 
-@pytest.mark.parametrize("b,t,d", [(1, 1, 1), (37, 10, 16), (5000, 3000, 100),
-                                   (999, 64, 130)])
-def test_gather_rows_bitwise_equals_plain(cuda, b, t, d):
-    rng = np.random.default_rng(b)
+# K5's edge shapes: rows given as a count or as a place in its plan's
+# schedule ("chunk" rows cover one chunk of UNROLL x THREADS vectors; "turns"
+# rows make the grid-stride loop turn more than 4 times); the ids of a case:
+# "sentinels" (random, repeated, -1, T and 2^31 - 1 among them), "equal"
+# (all one id), "offset" (src 4 bytes off 16: the word path),
+# "wrap" (B * D past 2^31 floats: rows near the end checked against src)
+K5_D = (1, 3, 4, 100, 128, 130, 257)
+K5_CASES = [(1, 1, 1, "sentinels"), (37, 10, 16, "sentinels"),
+            (5000, 3000, 100, "sentinels"), (999, 64, 130, "sentinels"),
+            *[(b, 500, d, "sentinels") for d in K5_D
+              for b in (1, "chunk-1", "chunk", "chunk+1", "turns")],
+            ("chunk+1", 500, 4, "equal"), (5000, 3000, 100, "equal"),
+            ("chunk+1", 500, 4, "offset"), (5000, 3000, 100, "offset"),
+            ("chunk+1", 500, 128, "offset"),
+            (22_000_000, 1000, 100, "wrap")]
+
+
+def _k5_rows(b, d, width, device):
+    """Rows of a K5 case: ``b`` itself, or its place in the plan."""
+    if isinstance(b, int):
+        return b
+    vpr = d // width
+    chunk = -(-rows.UNROLL * rows.THREADS // vpr)     # rows a chunk
+    if b == "turns":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        grid = sms * rows.blocks_per_sm(device.index or 0, width)
+        return 5 * grid * rows.UNROLL * rows.THREADS // vpr + 3
+    return chunk + {"chunk-1": -1, "chunk": 0, "chunk+1": 1}[b]
+
+
+@pytest.mark.parametrize("b,t,d,case", K5_CASES)
+def test_gather_rows_bitwise_equals_plain(cuda, b, t, d, case):
+    """K5: one launch, bitwise its plain version and bitwise across two
+    calls, over its plan's edge shapes (K5_CASES)."""
+    width = 4 if d % 4 == 0 and case != "offset" else 1
+    b = _k5_rows(b, d, width, cuda)
+    rng = np.random.default_rng(b + d)
     src = torch.from_numpy(rng.normal(size=(t, d)).astype(np.float32)).to(
         cuda)
     ids = rng.integers(0, t, b)
-    ids[::5] = -1                                    # zero rows
+    if case == "equal":
+        ids[:] = t // 2
+    else:
+        ids[::5] = -1                                # zero rows
+        ids[1::7] = t
+        ids[2::11] = 2 ** 31 - 1
+        ids[3::13] = ids[0]                          # repeated rows
     idx = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    if case == "offset":                             # 4 bytes off 16
+        flat = torch.empty(t * d + 1, dtype=torch.float32, device=cuda)
+        src = flat[1:].view(t, d).copy_(src)
+        assert src.data_ptr() % 16 == 4
     before = rows.gather_rows.launches
-    got = ops.gather_rows(src, idx)
+    got = rows.gather_rows(src, idx)
     assert rows.gather_rows.launches == before + 1
+    if case == "wrap":                               # 8.8 GB of output
+        assert b * d > 2 ** 31
+        for lo in (0, b // 2, b - 1000):
+            sl = slice(lo, lo + 1000)
+            want = ref.gather_rows_ref(src, idx[sl])
+            assert torch.equal(got[sl], want), f"rows {lo}.. differ"
+        return
     assert torch.equal(got, ref.gather_rows_ref(src, idx))
+    first = got.clone()
+    assert torch.equal(first, rows.gather_rows(src, idx))
 
 
 @pytest.mark.parametrize("model,fused,interleave,dist",

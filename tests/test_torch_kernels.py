@@ -4,6 +4,8 @@ the reference's custom VJP, the row gather against its Pallas kernel — the
 ordered segment add and scatter-sum against sequential loops, and the
 CPU/CUDA routing.  The CUDA kernels themselves are held against the plain
 versions on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -222,6 +224,86 @@ def test_gather_rows_out_of_range_ids_give_zero_rows():
     got = ref.gather_rows_ref(src, idx)
     np.testing.assert_array_equal(got.numpy(), [[9, 10, 11], [0, 0, 0],
                                                 [0, 0, 0], [0, 1, 2]])
+
+
+def _k5_visits(B, D, p, unroll=rows.UNROLL, threads=rows.THREADS):
+    """How often K5's grid-stride schedule under plan ``p`` visits each of
+    the output's ``B · D / width`` vectors, simulated with the kernel's own
+    arithmetic (csrc/rows.cu: one divmod a thread, then (quotient,
+    remainder) steps with one carry)."""
+    vpr = D // p.width
+    g0 = (np.arange(p.grid)[:, None] * unroll * threads
+          + np.arange(threads)).ravel()
+    assert int(g0.max()) < 2 ** 31 and p.grid * unroll * threads < 2 ** 31
+    r, c = np.divmod(g0, vpr)
+    lane = divmod(threads, vpr)
+    stride = p.grid * unroll * threads
+    chunk = divmod(stride - (unroll - 1) * threads, vpr)
+
+    def advance(r, c, step):
+        r, c = r + step[0], c + step[1]
+        carry = c >= vpr
+        return r + carry, c - carry * vpr
+
+    seen = np.zeros(B * vpr, np.int64)
+    while (r < B).any():
+        for u in range(unroll):
+            assert ((c >= 0) & (c < vpr)).all()
+            live = r < B
+            np.add.at(seen, r[live] * vpr + c[live], 1)
+            if u + 1 < unroll:
+                r, c = advance(r, c, lane)
+        r, c = advance(r, c, chunk)
+    return seen
+
+
+@pytest.mark.parametrize("sms,bps", [(1, 1), (3, 2), (132, 8)])
+@pytest.mark.parametrize("d", [1, 3, 4, 100, 130, 257])
+def test_gather_rows_plan_visits_every_vector_once(d, sms, bps):
+    """K5's schedule covers every vector of the output exactly once, over
+    B at and around a chunk of vectors, a grid the chunks fill and one
+    that walks many turns, on cards of 1, 3 and 132 SMs."""
+    chunk_rows = -(-rows.UNROLL * rows.THREADS // (d // (4 if d % 4 == 0
+                                                         else 1)))
+    for b in (1, 7, chunk_rows - 1, chunk_rows, chunk_rows + 1,
+              5 * chunk_rows + 3):
+        for width in sorted({1, 4 if d % 4 == 0 else 1}):
+            p = rows.plan(b, d, sms, bps, width=width)
+            seen = _k5_visits(b, d, p)
+            assert seen.size == b * d // width
+            assert (seen == 1).all(), (b, d, sms, bps, p)
+
+
+@pytest.mark.parametrize("b,d,sms,bps", [
+    (1, 1, 132, 8), (1, 100, 132, 8), (42_000, 100, 132, 8),
+    (2_450_000, 100, 132, 8), (22_000_000, 100, 132, 8),
+    (5_000_000, 1, 132, 8), (1000, 257, 78, 4), (1000, 3, 132, 0)])
+def test_gather_rows_plan_stays_in_range(b, d, sms, bps):
+    """The plan's grid is at least 1 and at most the blocks the card holds
+    at once (at least one a SM), and its span within 31 bits; the width is
+    4 exactly where D % 4 == 0 unless 1 is asked for.  U (4-8 vectors a
+    thread) and the block (a multiple of 32, at most 1024 threads) are the
+    kernel's constants, the same in rows.cu."""
+    assert 4 <= rows.UNROLL <= 8
+    assert rows.THREADS % 32 == 0 and 32 <= rows.THREADS <= 1024
+    cu = (Path(rows.__file__).parent / "csrc" / "rows.cu").read_text()
+    assert f"constexpr int kUnroll = {rows.UNROLL};" in cu
+    assert f"constexpr int kThreads = {rows.THREADS};" in cu
+    p = rows.plan(b, d, sms, bps)
+    assert 1 <= p.grid <= sms * max(1, bps)
+    assert p.grid * rows.UNROLL * rows.THREADS < 2 ** 31
+    assert p.width == (4 if d % 4 == 0 else 1)
+    vectors = b * d // p.width
+    assert p.grid == min(sms * max(1, bps),
+                         -(-vectors // (rows.UNROLL * rows.THREADS)))
+    assert rows.plan(b, d, sms, bps, width=1).width == 1
+
+
+def test_gather_rows_plan_refuses_what_the_kernel_lacks():
+    with pytest.raises(ValueError):
+        rows.plan(10, 6, 132, 8, width=4)          # 4 does not divide 6
+    with pytest.raises(ValueError):
+        rows.plan(10, 8, 132, 8, width=2)
 
 
 def test_new_kernels_refuse_cpu_tensors_and_count_nothing_there():
