@@ -135,7 +135,7 @@ Phases, each of which passes or ends the run with a non-zero exit:
 15. the serving cluster, after phase 14: (a) at full width, phase 3's
    model and graph behind 4 static replicas (``ps=8, dist=1``), each its
    own engine over its own 8-shard virtual ring on the card (build
-   seconds and device GB each), serving one Zipf trace of 400 requests
+   seconds and device GB each), serving one Zipf trace of 200 requests
    with a hot-set rotation and 5 % feature updates through the locality
    router and through the least-load router (fresh serving engines over
    the same engines, launches counted): every request answered, every
@@ -181,10 +181,11 @@ Phases, each of which passes or ends the run with a non-zero exit:
    tokens up to a step whose top-2 margin is under 1e-3 * max|logit|,
    and each request's batched logits equal its solo logits within rtol
    1e-4, atol 1e-4 * max|logit| at every step up to and including the
-   first where the tokens part (all 32 when they never do); then the
-   serving launcher at its defaults (8 requests, 32 new tokens,
-   4 slots) with its own parameters, every request answered with 32
-   tokens, tokens/s, prefill and decode-step times.  (d) Ring TP on (a)'s
+   first where the tokens part (all 16 when they never do; 16 new
+   tokens a request); then the serving launcher at its defaults (8
+   requests, 4 slots) but 16 new tokens (``--max-new``) with its own
+   parameters, every request answered with 16 tokens, tokens/s, prefill
+   and decode-step times.  (d) Ring TP on (a)'s
    parameters over a virtual (data 2, model 4) mesh (``dist/mesh.py``,
    every q/k/v/o and gate/up/down projection on the ring): the B 2 x S
    4096 flag-on forward in fp32 within rtol 2e-4, atol 2e-4 * max|logits|
@@ -214,10 +215,10 @@ Phases, each of which passes or ends the run with a non-zero exit:
    of 513, fp32, within 2e-3, and one decode step at the launcher's
    serving shape (4 slots, bf16) timed and profiled.  (c) In fp32 compute,
    batched tokens equal solo tokens under phase 11's top-2 margin rule,
-   and batched logits equal solo logits step by step as in phase 11;
-   then the serving launcher at its defaults with ``--arch xlstm-125m``,
-   K8 launches counted, every request answered with 32 tokens, tokens/s,
-   prefill and decode-step times.
+   and batched logits equal solo logits step by step as in phase 11 (32
+   new tokens); then the serving launcher as in phase 11 with ``--arch
+   xlstm-125m``, K8 launches counted, every request answered with 16
+   tokens, tokens/s, prefill and decode-step times.
 17. LM training at full width, after phase 12's state is freed (K9 is
    also swept in phase 2: hd 8/16/64/192/256, H 1/2/4, B 1/3/8, S
    1/7/256 against autograd through the plain loop, rtol 1e-4 and atol
@@ -257,8 +258,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
    (device ms by kind: K7, routing and sort, the dispatch and combine
    gathers, matrix products, the rest) and one layer's parts timed
    alone; ``prefill`` of 512 + ``decode_step`` against the forward of
-   513 at no-drop capacity, fp32, within 2e-3; the serving launcher at
-   its defaults; ``launch/train.py`` at its defaults for 30 steps, the
+   513 at no-drop capacity, fp32, within 2e-3; the serving launcher as
+   in phase 11; ``launch/train.py`` at its defaults for 15 steps, the
    last 5 losses below the first 5, and one step from the trained state
    run twice: loss and every gradient bitwise equal.  (b) zamba2-7b as
    published (81 layers: 13 groups of 6 mamba blocks each followed by
@@ -267,7 +268,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
    checks with 13 K7 launches, profiled and one mamba block's parts
    timed (the SSD chunk loop, the projections) with the shared block;
    prefill + decode (fp32, within 2e-3); batched == solo tokens and
-   logits as in phase 11 (c); the serving launcher; training at its
+   logits as in phase 11 (c) (16 new tokens); the serving launcher;
+   training at its
    depth cut to 13 layers (2 groups and a tail of 1; AdamW's state for
    6.6 B parameters does not fit one card), full width: step 0's
    gradients at seq 256 (chunk 256) every one finite and bitwise across
@@ -331,6 +333,30 @@ Phases, each of which passes or ends the run with a non-zero exit:
    loss bitwise the same launcher's without ``--ef-bits``, its residual
    nonzero, and the ef pass over its gradients timed.
 
+21. the dry-run counts held on the card, after phase 20 (at most 30 s;
+   its meta cells trace in a process of their own, started after phase 1,
+   so their CPU seconds hide behind the card's phases): (a) phase 3's
+   served pass (one full pass, two aggregations at D = 16), counted live
+   under ``launch/op_cost.py`` while phase 3's engine was on the card: its
+   rotation bytes equal ``launch/dryrun_gnn.py``'s count of the same plan
+   on meta and ``collective_bytes`` a shard x 8 x 2, its K1/K3 launches
+   and bytes the host plan's work (``kernels/cost.py`` on the plan's
+   index arrays), exactly; (b) phase 11's mistral-nemo-12b bf16 flag-on 2
+   x 4096 forward counted on meta: its dot flops equal, as integers, the
+   same counter's on phase 11's live forward on the card, its K7 records
+   40 x 274945015808 flops, and ``forward_mfu`` (counted flops / phase
+   11's timed forward / the card's bf16 peak) printed; (c) the reference's
+   ``tests/multidev/dryrun_lite.py`` cells (granite-moe-1b-a400m train_4k,
+   xlstm-125m decode_32k, whisper-base prefill_32k) at full width on a
+   (2, 2) meta mesh: flops > 0, the train cell's collectives > 0, each
+   cell's seconds; (d) xlstm-125m train_4k on one shard: its parameters'
+   and AdamW state's argument bytes equal phase 17's on the card.  Every
+   kernel's ``bytes``/``flops`` in the kernels line comes from
+   ``kernels/cost.py``, the functions the counters record with.
+
+Phase 6's GCN engine (ps 16, dist 2) is built once and serves phases 13
+(b), 14 and 16, whose plans it equals.
+
 The line before the last is a JSON object of the kernels K1–K9; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository beside it, the script exits non-zero and prints no result.
@@ -347,6 +373,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
+T0 = time.perf_counter()
+# what phase 21 holds on the card: the counts and bytes phases 3, 11 and 17
+# took live, while their state was on the card
+DRY = {}
 
 CARD_RATES = [  # (name fragments, bytes/s): NVIDIA data sheets, dense
     (("H200",), 4.8e12),
@@ -487,6 +517,10 @@ K9_RMS_TOL = 1e-3
 # length; the dense family one step at full width, cut to 2 layers
 TRAIN_ARCH, TRAIN_LM_STEPS, TRAIN_GRAD_TOL = "xlstm-125m", 30, 2e-4
 TRAIN_4K_B, TRAIN_4K_S = 2, 4096
+# the LM serving launcher's new tokens a request (its default is 32) and
+# batched == solo's, on mistral-nemo-12b and zamba2-7b (32 on xlstm-125m):
+# decode depth cut for the card run's time, every request still checked
+LM_SERVE_NEW, LM_BVS_NEW = 16, 16
 DENSE_TRAIN_ARCH, DENSE_TRAIN_LAYERS = "mistral-nemo-12b", 2
 # phase 18: the moe and hybrid families, B x S = 2 x 4096 forwards, prefill
 # of 512 + decode; zamba2 trained at full width with its depth cut to 2
@@ -496,6 +530,8 @@ MOE_ARCH, HYB_ARCH, MIX_ARCH = ("granite-moe-1b-a400m", "zamba2-7b",
                                 "mixtral-8x7b")
 P18_B, P18_S, P18_PREFIX = 2, 4096, 512
 HYB_TRAIN_LAYERS, HYB_TRAIN_STEPS = 13, 10
+# granite's steps through the training launcher (its loss falls by step 5)
+MOE_TRAIN_STEPS = 15
 MIX_LAYERS, MIX_TRAIN_LAYERS = 2, 1
 # phase 19: whisper-base at its published widths and depth, frames of the
 # stub frontend's N_FRAMES (1500) and 448 tokens (the most Whisper
@@ -531,8 +567,13 @@ TUNER_SCALE = REDUCED_SCALE
 SAMPLED_FANOUT, SAMPLED_BATCH = (5, 10), (512, 1024)
 # phase 14: the streamed ring's plan on the full stand-in
 STREAM_PS, STREAM_DIST = 16, 2
+# phase 6's GCN engine at (STREAM_PS, STREAM_DIST) on the full stand-in and
+# the shared ring, built once: phases 13 (b), 14 and 16 take the same plan
+# and device arrays (freed before phase 11)
+SHARED = {}
 # phase 15: replicas of phase 3's engine, and the requests of their trace
-CLUSTER_REPLICAS, CLUSTER_REQUESTS = 4, 400
+# (the hot set rotates after half of them)
+CLUSTER_REPLICAS, CLUSTER_REQUESTS = 4, 200
 # phase 16: the fetch baseline's page sizes (rows)
 BASELINE_PAGES = (1, 16)
 
@@ -557,7 +598,9 @@ def held(got, want, what):
 
 
 def say(phase, **kw):
-    print(json.dumps(dict(phase=phase, **kw), default=str), flush=True)
+    """A phase's line; ``t_s`` is the seconds since the run began."""
+    print(json.dumps(dict(phase=phase, **kw, t_s=round(
+        time.perf_counter() - T0, 1)), default=str), flush=True)
 
 
 def main():
@@ -602,6 +645,7 @@ def main():
     sass, n_fn = flash_tc_sass(_build)
     check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
           f"K7's bf16 kernel holds no wgmma or no TMA load: {sass}")
+    cells = start_dry_run_cells()
     say("environment", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, device=name,
         kernel_build_s=round(build_s, 3), nvcc_s=_build.build_seconds,
@@ -842,6 +886,20 @@ def main():
         tolerance_pb4="rtol 1e-5 atol 1e-5 against the plain path, "
                       "bitwise the pb=None aggregation")
 
+    # phase 21 (a)'s live count: one full served pass under the counter,
+    # and the plan (on the host, its device arrays moved to meta) it ran
+    from repro_torch.launch import dryrun_gnn, op_cost
+    srv.cache.invalidate()
+    srv.submit(seeds)
+    t_dry = time.perf_counter()
+    live = op_cost.analyze(srv.step)
+    DRY["served"] = dict(live=live, plan=eng.plan,
+                         arrays=dryrun_gnn.to_meta(lay0),
+                         d=int(params["layers"][0]["w"].shape[1]),
+                         aggregations=len(params["layers"]),
+                         seconds=round(time.perf_counter() - t_dry, 3))
+    live.output = None
+
     # launches of one full forward pass
     K.reset_launch_counts()
     with torch.inference_mode():
@@ -899,6 +957,7 @@ def main():
     # -- 16. the baselines ----------------------------------------------------
     baselines(torch, C, K, ops, ref, g, ring, dev, x, part, launches)
     del part
+    SHARED.clear()
 
     # -- 11. dense-LM inference: the GNN phases' device state goes first ----
     del params, results, ring, apply, init
@@ -942,6 +1001,9 @@ def main():
     left = torch.cuda.memory_allocated() / 1e9
     check(left < 1.0, f"{left:.1f} GB still allocated after phase 19")
     granite_mesh(torch, K, dev, launches)
+
+    # -- 21. the dry-run counts held on the card ----------------------------
+    dry_run_on_card(torch, K, flops, cells)
 
     for k in kernels:
         by_path = {p: launches[p][k["name"]] for p in launches
@@ -1078,6 +1140,7 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
     products plan: 7 remote ring steps + 7 interleaved local slices, D=16,
     the width both GCN layers aggregate at) with its real layer-0 input."""
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.kernels.ops import SegmentChunks, chunk_length
 
     with torch.inference_mode():
@@ -1103,12 +1166,16 @@ def time_kernels(torch, eng, srv, params, ref, neighbor_agg, arrays, rate):
         valid = sum(int(g.mask.sum()) for _, g in groups)
         n_p = sum(g.num_partitions for _, g in groups)
         ps = groups[0][1].nbrs.shape[1]
-        n_seg = sum(int(g.seg_rows.numel()) for _, g in groups)
         # each group's distinct gathered rows read once, every slot its id
-        # and mask, every partition writes one row
+        # and mask, every partition writes one row (kernels/cost.py, the
+        # work each launch records)
         distinct = sum(int(g.grad.rows.numel()) for _, g in groups)
-        gather_bytes = distinct * d * 4 + n_p * ps * (4 + 1) + n_p * d * 4
-        seg_bytes = n_p * d * 4 + n_p * 4 + n_seg * 4 * 2 + n_seg * d * 4 * 2
+        gather_bytes = sum(cost.gather_sum(cost.host(g.nbrs),
+                                           cost.host(g.mask), d).bytes
+                           for _, g in groups)
+        seg_bytes = sum(cost.segment_add(g.num_partitions,
+                                         int(g.seg_rows.numel()), d).bytes
+                        for _, g in groups)
 
         def k1():
             for b, g in groups:
@@ -1288,6 +1355,17 @@ def _tables(torch, C, eng, x, y, train_mask, dev):
             torch.from_numpy(pad1(train_mask.astype(np.float32))).to(dev))
 
 
+def shared_engine(C, g, ring):
+    """The GCN engine at (``STREAM_PS``, ``STREAM_DIST``) on ``g`` and
+    ``ring``: built by phase 6, the same object for phases 13 (b), 14 and
+    16 (their plans were built alike, the partition a function of ``g``
+    and the shard count)."""
+    if "engine" not in SHARED:
+        SHARED["engine"] = C.GNNEngine.build(g, ring, ps=STREAM_PS,
+                                             dist=STREAM_DIST)
+    return SHARED["engine"]
+
+
 def train_full_graph(torch, C, K, g, ring, dev, ncls, rate, launches):
     """Phase 6: GCN training on the full products stand-in."""
     from repro_torch.train import (AdamWConfig, adamw_init, adamw_update,
@@ -1296,7 +1374,7 @@ def train_full_graph(torch, C, K, g, ring, dev, ncls, rate, launches):
     t0 = time.perf_counter()
     d_in = 100
     x, y, train_mask = graph_features(g.num_nodes, d_in, ncls, seed=0)
-    eng = C.GNNEngine.build(g, ring, ps=16, dist=2)
+    eng = shared_engine(C, g, ring)
     xp, yp, mp = _tables(torch, C, eng, x, y, train_mask, dev)
     del x
     params = C.gcn_init(torch.Generator().manual_seed(0), d_in, ncls,
@@ -1811,9 +1889,11 @@ def time_sparse_gather_sum(torch, C, K, z, k, arrays, plan, rate):
     id_bytes = idx.element_size()
     # each group's distinct gathered rows (its GradIndex segments) read
     # once, k values and k ids each; every slot its id and mask; every
-    # partition writes one D-wide row
+    # partition writes one D-wide row (kernels/cost.py)
     distinct = sum(int(grp.grad.rows.numel()) for _, _, grp in groups)
-    nbytes = distinct * k * (4 + id_bytes) + n_p * ps * (4 + 1) + n_p * d * 4
+    nbytes = sum(K.cost.sparse_gather_sum(
+        K.cost.host(grp.nbrs), K.cost.host(grp.mask), k, d, id_bytes).bytes
+        for _, _, grp in groups)
     return dict(name="sparse_gather_sum", route="cuda",
                 source=SOURCE["sparse_gather_sum"],
                 replaces=REPLACES["sparse_gather_sum"], max_abs_err=err,
@@ -1890,10 +1970,10 @@ def time_scatter(torch, K, arrays, plan, rate, dev, d):
     longest = [int(x.max()) for x in lens]
     slots = sum(ix.num_slots for _, ix in groups)
     segs = sum(int(ix.rows.numel()) for _, ix in groups)
-    distinct_g = sum(int(torch.unique(ix.src).numel()) for _, ix in groups)
     # g's rows read once each, ids and offsets, dbuf's rows read and written
-    nbytes = distinct_g * d * 4 + slots * 4 + (2 * segs + len(groups)) * 4 \
-        + 2 * segs * d * 4
+    # (kernels/cost.py)
+    nbytes = sum(K.cost.scatter_sum(K.cost.host(ix.src), int(ix.rows.numel()),
+                                    d).bytes for _, ix in groups)
     return dict(name="scatter_sum_ordered", route="cuda",
                 source=SOURCE["scatter_sum_ordered"],
                 replaces=REPLACES["scatter_sum_ordered"], max_abs_err=err,
@@ -1974,11 +2054,10 @@ def k5_calls(torch, tiers, ids, dev):
     return calls, int(hot.sum()), n_cold
 
 
-def k5_bytes(torch, calls):
+def k5_bytes(K, calls):
     """K5's bound in bytes over ``calls``: the distinct rows read once
-    each, the ids, the rows written."""
-    return sum(int(torch.unique(idx).numel()) * src.shape[1] * 4
-               + idx.numel() * 4 + idx.numel() * src.shape[1] * 4
+    each, the ids, the rows written (kernels/cost.py)."""
+    return sum(K.cost.gather_rows(K.cost.host(idx), src.shape[1]).bytes
                for src, idx in calls)
 
 
@@ -2036,7 +2115,7 @@ def time_gather_rows(torch, K, tiers, ids, rate, dev):
     check(q_k5 and q_lib,
           "K5's timing: the spin kernel ended before the calls were queued")
     d = calls[0][0].shape[1]
-    nbytes = k5_bytes(torch, calls)
+    nbytes = k5_bytes(K, calls)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plans = [dict(K.rows.plan(int(idx.numel()), d, sms, K.rows.blocks_per_sm(
         dev.index, 4))._asdict(), unroll=K.rows.UNROLL,
@@ -2294,7 +2373,7 @@ def tuner_on_card(torch, C, K, g, ring, dev, ncls, launches):
     if committed == default:
         default_ms = committed_ms
     else:
-        dflt = C.GNNEngine.build(g, ring, ps=16, dist=2, partition=part)
+        dflt = shared_engine(C, g, ring)
         tbd = _tables(torch, C, dflt, x, y, train_mask, dev)
         default_ms = _time(torch, lambda: step(dflt, tbd, params, opt),
                            reps=10, warmup=3)
@@ -2641,8 +2720,7 @@ def tiered_streaming(torch, C, K, g, ring, dev, x, part, ncls, rate,
     t_phase = time.perf_counter()
     n, d = x.shape
     store = FeatureStore(x, copy=False, pin=True)
-    eng = C.GNNEngine.build(g, ring, ps=STREAM_PS, dist=STREAM_DIST,
-                            partition=part)
+    eng = shared_engine(C, g, ring)
     arrays = eng.stream_arrays(0)
     plan, dist = eng.plan, eng.plan.dist
     hot = np.argsort(-g.degrees, kind="stable")
@@ -2981,9 +3059,10 @@ def cluster_phase(torch, C, K, g, x, params, part, dev, ncls, launches,
                                else tracers[k])
                 for k, i in enumerate(which)]
 
-    phases = [TrafficPhase(requests=220, alpha=1.1, rate=200.0, seeds_max=4,
+    half = CLUSTER_REQUESTS // 2 + 10
+    phases = [TrafficPhase(requests=half, alpha=1.1, rate=200.0, seeds_max=4,
                            update_frac=0.05),
-              TrafficPhase(requests=220, alpha=1.1, rate=200.0, rotate=True,
+              TrafficPhase(requests=half, alpha=1.1, rate=200.0, rotate=True,
                            seeds_max=4, update_frac=0.05)]
     events = _first_requests(list(ZipfTraffic(n, d, phases, seed=2)),
                              CLUSTER_REQUESTS)
@@ -3261,8 +3340,7 @@ def baselines(torch, C, K, ops, ref, g, ring, dev, x, part, launches):
     t_phase = time.perf_counter()
     n, d = x.shape
     n_dev = ring.n_dev
-    eng = C.GNNEngine.build(g, ring, ps=STREAM_PS, dist=STREAM_DIST,
-                            partition=part)
+    eng = shared_engine(C, g, ring)
     plan, arrays = eng.plan, eng.ring_arrays[0]
     g_full = g.with_self_loops()
     ids = np.arange(n, dtype=np.int64)
@@ -3672,6 +3750,16 @@ def lm_inference(torch, K, dev, rate, flops, launches):
         breakdown = profile_pass(torch, lambda: T.forward(
             params, flag["bfloat16"][True], toks), reps=1)
     say("lm_forward", batch=b, seq=s, **fwd, **breakdown)
+    # phase 21 (b)'s live count: the bf16 flag-on forward once under the
+    # counter (its time is the one timed above)
+    from repro_torch.launch import op_cost
+    with torch.inference_mode():
+        live = op_cost.analyze(T.forward, params, flag["bfloat16"][True],
+                               toks)
+    DRY["nemo_forward"] = dict(dot_flops=live.dot_flops,
+                               kernels=live.kernels,
+                               ms=fwd["forward_ms"]["bfloat16_flash"])
+    del live
     k7 = time_flash(torch, K, dev, cfg, rate, flops)
 
     # (b) prefill of LM_PREFIX tokens, then one decode step, against the
@@ -3703,7 +3791,8 @@ def lm_inference(torch, K, dev, rate, flops, launches):
     # (c) serving: batched == solo in fp32 on these parameters, then the
     # launcher at its defaults with its own (one copy of the weights at a
     # time: these are freed first)
-    say("lm_batched_vs_solo", **batched_vs_solo(ServeEngine, params, f32))
+    say("lm_batched_vs_solo", **batched_vs_solo(ServeEngine, params, f32,
+                                                LM_BVS_NEW))
     del params
     import gc
     gc.collect()
@@ -3720,11 +3809,12 @@ def lm_inference(torch, K, dev, rate, flops, launches):
 
 
 def _serve_launcher(serve_lm, arch):
-    """The LM serving launcher at its defaults (8 requests of 32 tokens
-    through 4 slots) on the card, every request answered; its report."""
-    rep = serve_lm.main(["--arch", arch])
+    """The LM serving launcher at its defaults (8 requests through 4
+    slots) but ``LM_SERVE_NEW`` new tokens a request, on the card, every
+    request answered; its report."""
+    rep = serve_lm.main(["--arch", arch, "--max-new", str(LM_SERVE_NEW)])
     check(rep["device"].startswith("cuda") and rep["requests"] == 8
-          and all(r.steps == 32 for r in rep["results"]),
+          and all(r.steps == LM_SERVE_NEW for r in rep["results"]),
           f"the LM serving launcher did not answer every request of {arch} "
           "on the card")
     return dict(arch=rep["arch"], requests=rep["requests"],
@@ -3736,39 +3826,40 @@ def _serve_launcher(serve_lm, arch):
                 decode_steps=len(rep["decode_ms"]))
 
 
-def batched_vs_solo(ServeEngine, params, cfg):
+def batched_vs_solo(ServeEngine, params, cfg, new=32):
     """Phases 11 (c) and 12 (c): the launcher's 8 prompts through 4 slots,
-    batched, against each prompt run alone, in ``cfg``'s (fp32) compute.
+    ``new`` tokens each, batched, against each prompt run alone, in
+    ``cfg``'s (fp32) compute.
     Tokens are compared up to the first step whose top-2 logit margin in
     the solo run is under 1e-3 * max|logit|, where the two may rightly
     part.  Logits are compared at every step up to and including the first
     step where the tokens part (after it the two runs feed other inputs),
-    all 32 when they never part, within rtol LOGIT_TOL and atol LOGIT_TOL
-    * max|logit| of the solo run's compared steps: cuBLAS's products
-    differ by batch size, so not bitwise."""
+    all ``new`` when they never part, within rtol LOGIT_TOL and atol
+    LOGIT_TOL * max|logit| of the solo run's compared steps: cuBLAS's
+    products differ by batch size, so not bitwise."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab, size=rng.integers(4, 17))
                .astype(np.int32) for _ in range(8)]
     eng = ServeEngine(params, cfg, batch_slots=4, max_seq=512)
-    batched = eng.generate(prompts, max_new=32, keep_logits=True)
+    batched = eng.generate(prompts, max_new=new, keep_logits=True)
     agree, stops, steps, diffs = [], [], [], []
     for i, p in enumerate(prompts):
-        solo = eng.generate([p], max_new=32, keep_logits=True)[0]
+        solo = eng.generate([p], max_new=new, keep_logits=True)[0]
         b_lg, s_lg = batched[i].logits, solo.logits
-        check(len(solo.tokens) == 32 and len(batched[i].tokens) == 32
-              and b_lg.shape == s_lg.shape == (32, s_lg.shape[1]),
-              f"request {i}: not 32 tokens and their logits")
+        check(len(solo.tokens) == new and len(batched[i].tokens) == new
+              and b_lg.shape == s_lg.shape == (new, s_lg.shape[1]),
+              f"request {i}: not {new} tokens and their logits")
         top2 = np.partition(s_lg, -2, axis=-1)[:, -2:]
         margins = (np.abs(top2[:, 1] - top2[:, 0])
                    / np.abs(s_lg).max(axis=-1))
-        n = next((j for j, m in enumerate(margins) if m < 1e-3), 32)
-        if n < 32:
+        n = next((j for j, m in enumerate(margins) if m < 1e-3), new)
+        if n < new:
             stops.append(dict(request=i, step=n, margin=float(margins[n])))
         check(batched[i].tokens[:n] == solo.tokens[:n],
               f"request {i}: batched tokens differ from solo before step {n}")
         agree.append(n)
-        part = next((j for j in range(32)
-                     if batched[i].tokens[j] != solo.tokens[j]), 31)
+        part = next((j for j in range(new)
+                     if batched[i].tokens[j] != solo.tokens[j]), new - 1)
         scale = float(np.abs(s_lg[:part + 1]).max())
         diff = float(np.abs(b_lg[:part + 1] - s_lg[:part + 1]).max())
         check(np.allclose(b_lg[:part + 1], s_lg[:part + 1], rtol=LOGIT_TOL,
@@ -3802,9 +3893,7 @@ def time_flash(torch, K, dev, cfg, rate, flops, b=LM_B, s=LM_S,
     base = [torch.randn((b, s, n, hd), generator=g, device=dev)
             for n in (h, kv, kv)]
     # the (query, key) pairs kept: causal, within the window
-    pairs = sum(min(i + 1, w) if w else i + 1 for i in range(s)) if causal \
-        else s * s
-    n_flops = 4 * b * h * hd * pairs
+    pairs = K.cost.attention_pairs(s, causal, w)
     out = {}
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
@@ -3825,7 +3914,9 @@ def time_flash(torch, K, dev, cfg, rate, flops, b=LM_B, s=LM_S,
                     qt, kt, vt, is_causal=causal, enable_gqa=True), reps=10,
                 warmup=2)
             name = str(dtype).replace("torch.", "")
-            nbytes = sum(t.numel() for t in (q, k, v, q)) * q.element_size()
+            n_flops, nbytes, _ = K.cost.flash_attention(
+                b, s, h, kv, hd, causal=causal, window=w,
+                itemsize=q.element_size())
             t_flops = n_flops / flops[name] * 1e3
             t_bytes = nbytes / rate * 1e3
             out[name] = dict(
@@ -3849,7 +3940,7 @@ def time_flash(torch, K, dev, cfg, rate, flops, b=LM_B, s=LM_S,
                 dtype="bfloat16", float32=out["float32"],
                 shape=dict(batch=b, seq=s, heads=h, kv_heads=kv, head_dim=hd,
                            causal=causal, window=w),
-                flops=n_flops, bytes=main["bytes"], kept_pairs=pairs)
+                flops=main["flops"], bytes=main["bytes"], kept_pairs=pairs)
 
 # ---------------------------------------------------------------------------
 # xlstm inference (phase 12) and K8
@@ -4136,8 +4227,7 @@ def time_slstm(torch, K, xp, wr, st, rate, flops):
         decode_dev = profile_pass(torch, decode, reps=100)
         t_plain = _time(torch, lambda: K.ref.slstm_scan_ref(xp, wr, st),
                         reps=1, warmup=0)
-    n_flops = 2 * b * s * h * hd * 4 * hd
-    nbytes = 4 * (xp.numel() + b * s * h * hd + wr.numel() + 8 * b * h * hd)
+    n_flops, nbytes, _ = K.cost.slstm_scan(b, s, h, hd)
     t_flops = n_flops / flops["float32"] * 1e3
     t_bytes = nbytes / rate * 1e3
     return dict(name="slstm_scan", route="cuda", source=SOURCE["slstm_scan"],
@@ -4458,6 +4548,9 @@ def lm_training(torch, K, dev, rate, flops, launches):
     gen = torch.Generator(device=dev).manual_seed(0)
     params = T.init_params(gen, c4, vocab_multiple=16)
     opt = adamw_init(params)
+    # phase 21 (d) holds the dry run's argument bytes to these
+    DRY["xlstm_train_state_bytes"] = sum(
+        t.numel() * t.element_size() for t in tree_leaves((params, opt)))
     batch = _to_dev(torch, lm_batch(LMDataConfig(
         vocab=cfg.vocab, seq_len=s4, global_batch=b4, doc_len=s4), 0), dev)
     step = make_train_step(c4, T.DistCtx(), AdamWConfig(
@@ -4753,9 +4846,7 @@ def time_slstm_backward(torch, K, ops, ref, dev, rate, flops):
     rms = [_rms_ratio(torch, a, c) for a, c in zip(kern, plain)]
     check(max(rms) <= K9_RMS_TOL,
           f"K9 at S = {s}: rms differences over rms {rms} above {K9_RMS_TOL}")
-    n_flops = 2 * b * s * h * hd * 4 * hd
-    nbytes = 4 * (b * s * h * hd * (1 + 4 + 3) + wr.numel() + 7 * b * h * hd
-                  + b * s * h * 4 * hd + 4 * b * h * hd)
+    n_flops, nbytes, _ = K.cost.slstm_scan_backward(b, s, h, hd)
     t_flops = n_flops / flops["float32"] * 1e3
     t_bytes = nbytes / rate * 1e3
     return dict(name="slstm_scan_backward", route="cuda",
@@ -5011,23 +5102,23 @@ def moe_hybrid(torch, K, dev, rate, flops, launches):
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rep = ltrain.main(["--arch", MOE_ARCH, "--steps", str(TRAIN_LM_STEPS)])
+    rep = ltrain.main(["--arch", MOE_ARCH, "--steps", str(MOE_TRAIN_STEPS)])
     wall = time.perf_counter() - t0
     losses = rep["losses"]
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    check(rep["device"].startswith("cuda") and len(losses) == TRAIN_LM_STEPS
+    check(rep["device"].startswith("cuda") and len(losses) == MOE_TRAIN_STEPS
           and all(np.isfinite(losses)) and last < first,
           f"{MOE_ARCH} did not train: first 5 {first}, last 5 {last}")
     peak = _peak_gb(torch)
     tcfg = dataclasses.replace(cfg, ssm_chunk=min(cfg.ssm_chunk, 256))
     batch = _to_dev(torch, lm_batch(LMDataConfig(
         vocab=cfg.vocab, seq_len=256, global_batch=8, doc_len=256),
-        TRAIN_LM_STEPS), dev)
+        MOE_TRAIN_STEPS), dev)
     loss, n_leaves = _grads_twice(torch, _grads_of,
                                   make_loss_fn(tcfg, T.DistCtx()),
                                   rep["state"].params, batch, MOE_ARCH)
     say("moe_training", arch=cfg.name, seq=256, batch=8, remat=cfg.remat,
-        compute=cfg.compute_dtype, steps=TRAIN_LM_STEPS, losses=losses,
+        compute=cfg.compute_dtype, steps=MOE_TRAIN_STEPS, losses=losses,
         loss_first5_mean=first, loss_last5_mean=last,
         step_ms=rep["step_ms"],
         step_ms_median=float(np.median(rep["step_ms"][1:])), peak_gb=peak,
@@ -5067,7 +5158,7 @@ def moe_hybrid(torch, K, dev, rate, flops, launches):
         forward_513="one chunk of 513 (the reference's rule)")
     del toks
     say("hybrid_batched_vs_solo", **batched_vs_solo(ServeEngine, params,
-                                                    f32))
+                                                    f32, LM_BVS_NEW))
     del params
     _free(torch)
     say("hybrid_served", **_serve_launcher(serve_lm, HYB_ARCH))
@@ -5965,5 +6056,195 @@ def ef_launcher(torch, dev):
     _free(torch)
 
 
+
+# ---------------------------------------------------------------------------
+# the dry-run counts held on the card (phase 21)
+# ---------------------------------------------------------------------------
+
+# phase 21 (c): the reference's tests/multidev/dryrun_lite.py cells, at
+# full width on a (2, 2) meta mesh; (d): xlstm-125m's train_4k on one shard
+DRY_CELLS = (("granite-moe-1b-a400m", "train_4k"),
+             ("xlstm-125m", "decode_32k"), ("whisper-base", "prefill_32k"))
+DRY_CELLS_PATH = os.path.join(ROOT, "build", "phase21_cells.json")
+DRY_CELLS_TIMEOUT = 300
+
+
+def dry_run_cells(out_path):
+    """Phase 21 (c) and (d) on meta tensors, the CPU's work alone: run by
+    ``python3 chip_smoke.py --dry-run-cells OUT`` in a process of its own
+    (no card: it is started with no CUDA device visible), beside the card's
+    phases, so that its seconds hide behind theirs.  Writes each cell's
+    record to ``out_path``."""
+    sys.path.insert(0, SRC)
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for arch, shape, mesh in [(a, s, (2, 2)) for a, s in DRY_CELLS] + [
+            ("xlstm-125m", "train_4k", (1, 1))]:
+        t0 = time.perf_counter()
+        r = dryrun.run_cell(arch, shape, False, mesh=VirtualMesh(
+            mesh, ("data", "model"), "meta"))
+        out[f"{arch} {shape} {r['mesh']}"] = dict(
+            flops=r["flops"], bytes_accessed=r["bytes_accessed"],
+            collective_bytes=r["collectives"]["total_bytes"],
+            per_op=r["collectives"]["per_op"],
+            kernels=r["collectives"]["kernels"], memory=r["memory"],
+            seconds=round(time.perf_counter() - t0, 3))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def start_dry_run_cells():
+    """Start :func:`dry_run_cells` in its own process (stopped at exit if
+    it is still running); phase 21 waits for it."""
+    import atexit
+
+    os.makedirs(os.path.dirname(DRY_CELLS_PATH), exist_ok=True)
+    if os.path.exists(DRY_CELLS_PATH):
+        os.remove(DRY_CELLS_PATH)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dry-run-cells",
+         DRY_CELLS_PATH], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return dict(proc=proc, started=time.perf_counter())
+
+
+def dry_run_on_card(torch, K, flops, cells):
+    """Phase 21: the dry-run counter (``launch/op_cost.py``,
+    ``kernels/cost.py``) held to what ran on the card.  (a) Phase 3's
+    served pass (products stand-in, 8 shards, ps 8, dist 1; GCN 16 x 2:
+    two aggregations at D = 16), counted live on the card: its rotation
+    bytes == ``dryrun_gnn``'s count of the same plan on meta (two
+    aggregations) == ``collective_bytes`` a shard x 8 shards x 2, and its
+    K1/K3 launches and bytes == the host plan's work (``plan_work``),
+    exactly.  (b) Phase 11's mistral-nemo-12b bf16 flag-on B 2 x S 4096
+    forward counted on meta: its dot flops == the same counter's on phase
+    11's live forward on the card, as integers, and K7's records == 40 x
+    K7's work at that shape; ``forward_mfu`` = the counted flops over phase
+    11's timed forward over the card's bf16 peak.  (c) The reference's
+    ``dryrun_lite`` cells at full width on a (2, 2) meta mesh: flops > 0,
+    the train cell's collectives > 0, each cell's seconds.  (d) xlstm-125m
+    train_4k on one shard: the parameters' and AdamW state's argument
+    bytes == phase 17's on the card.  (c) and (d) run in their own process
+    from phase 1 on (:func:`start_dry_run_cells`); the phase's own wall
+    is at most 30 s."""
+    import dataclasses as dc
+
+    from repro_torch import configs
+    from repro_torch.core import collective_bytes
+    from repro_torch.launch import dryrun_gnn, op_cost
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    # (a) the served pass
+    served = DRY.pop("served")
+    plan, d, n_agg = served["plan"], served["d"], served["aggregations"]
+    live = served["live"]
+    t0 = time.perf_counter()
+    meta = dryrun_gnn.count_ring(plan, d, served["arrays"])
+    exact = dryrun_gnn.plan_work(plan, d)
+    count_s = time.perf_counter() - t0
+    rot = live.collectives.get("collective-permute", {})
+    meta_rot = meta.collectives.get("collective-permute", {})
+    model = collective_bytes(plan, d)
+    check(rot.get("bytes") == n_agg * meta_rot.get("bytes", -1)
+          == n_agg * model * plan.n_dev and rot.get("count") == n_agg
+          * meta_rot.get("count", -1) == n_agg * plan.dist
+          * (plan.n_dev - 1),
+          f"phase 21 (a): rotations live {rot}, on meta {meta_rot}, "
+          f"collective_bytes {model} a shard x {plan.n_dev} x {n_agg}")
+    for name, w in exact.items():
+        got = live.kernels.get(name, {})
+        check(got == dict(launches=n_agg * w["launches"], flops=0,
+                          bytes=n_agg * w["bytes"], exact=True)
+              and meta.kernels[name]["launches"] == w["launches"],
+              f"phase 21 (a): {name} live {got}, the host plan's {w} x "
+              f"{n_agg}, on meta {meta.kernels.get(name)}")
+    say("dryrun_served_pass", padded_rows=plan.padded_nodes,
+        shards=plan.n_dev, config=dict(ps=plan.ps, dist=plan.dist), width=d,
+        aggregations=n_agg, rotation_bytes=rot["bytes"],
+        rotations=rot["count"], rotation_bytes_per_shard_per_aggregation=
+        meta_rot["bytes"] // plan.n_dev, collective_bytes=model,
+        live_kernels=live.kernels, plan_kernels=exact,
+        meta_kernels=meta.kernels, live_count_s=served["seconds"],
+        plan_and_meta_count_s=round(count_s, 3))
+    del live, served, meta
+
+    # (b) mistral-nemo-12b's forward on meta
+    nemo = DRY.pop("nemo_forward")
+    cfg = dc.replace(configs.get_config(LM_ARCH), compute_dtype="bfloat16",
+                     use_flash_attention=True)
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator().manual_seed(0), cfg,
+                           vocab_multiple=16, device="meta")
+    toks = torch.empty((LM_B, LM_S), dtype=torch.int32, device="meta")
+    with torch.inference_mode():
+        oc = op_cost.analyze(T.forward, params, cfg, toks)
+    meta_s = time.perf_counter() - t0
+    k7 = K.cost.flash_attention(LM_B, LM_S, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.head_dim, causal=True,
+                                window=cfg.sliding_window, itemsize=2)
+    want_k7 = dict(launches=cfg.n_layers, flops=cfg.n_layers * k7.flops,
+                   bytes=cfg.n_layers * k7.bytes, exact=True)
+    check(oc.dot_flops == nemo["dot_flops"] and
+          oc.kernels["flash_attention"] == nemo["kernels"]["flash_attention"]
+          == want_k7 and want_k7["flops"] == 40 * 274945015808,
+          f"phase 21 (b): meta {oc.dot_flops} flops, {oc.kernels}; live "
+          f"{nemo['dot_flops']}, {nemo['kernels']}; K7 {want_k7}")
+    mfu = oc.dot_flops / (nemo["ms"] / 1e3) / flops["bfloat16"]
+    say("dryrun_forward", arch=cfg.name, batch=LM_B, seq=LM_S,
+        compute="bfloat16", flash=True, dot_flops=oc.dot_flops,
+        dot_flops_live=nemo["dot_flops"],
+        k7_flops=oc.kernels["flash_attention"]["flops"],
+        products_flops=oc.dot_flops - oc.kernels["flash_attention"]["flops"],
+        bytes_accessed=oc.bytes_accessed, forward_ms=nemo["ms"],
+        peak_flops=flops["bfloat16"], forward_mfu=mfu,
+        forward_mfu_is="counted flops / phase 11's timed bf16 flag-on "
+                       "forward / the card's bf16 peak",
+        meta_count_s=round(meta_s, 3))
+    del params, oc
+
+    # (c), (d) the cells, from their own process
+    proc = cells["proc"]
+    try:
+        log, _ = proc.communicate(timeout=DRY_CELLS_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"phase 21: the meta cells did not end in {DRY_CELLS_TIMEOUT} s")
+    check(proc.returncode == 0 and os.path.exists(DRY_CELLS_PATH),
+          f"phase 21: the meta cells' process failed: {log[-3000:]}")
+    with open(DRY_CELLS_PATH) as f:
+        got = json.load(f)
+    for arch, shape in DRY_CELLS:
+        r = got[f"{arch} {shape} 2x2"]
+        check(r["flops"] > 0, f"phase 21 (c): {arch} {shape}: no flops")
+        check(shape != "train_4k" or r["collective_bytes"] > 0,
+              f"phase 21 (c): {arch} {shape}: no collectives")
+    one = got["xlstm-125m train_4k 1x1"]
+    sizes = one["memory"]["argument_sizes"]
+    card_bytes = DRY.pop("xlstm_train_state_bytes")
+    check(sizes[0] + sizes[1] == card_bytes,
+          f"phase 21 (d): the dry run's parameters and AdamW state "
+          f"{sizes[:2]} against {card_bytes} bytes on the card")
+    say("dryrun_cells", mesh="2x2 (meta)",
+        cells={k: {f: v[f] for f in ("flops", "bytes_accessed",
+                                      "collective_bytes", "per_op",
+                                      "seconds")}
+               for k, v in got.items() if k.endswith("2x2")},
+        xlstm_train_one_shard=dict(argument_sizes=sizes,
+                                   card_state_bytes=card_bytes,
+                                   seconds=one["seconds"]),
+        process_s=round(time.perf_counter() - cells["started"], 3),
+        cells_s=round(sum(v["seconds"] for v in got.values()), 3))
+    say("phase21", wall_s=round(time.perf_counter() - t_phase, 3),
+        budget_s=30)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dry-run-cells"]:
+        dry_run_cells(sys.argv[2])
+    else:
+        main()

@@ -69,8 +69,8 @@ from ..kernels import ops, ref
 from ..kernels.ops import GradIndex, SegmentChunks
 from .placement import AggregationPlan
 
-__all__ = ["WorkGroup", "RingArrays", "plan_device_arrays", "mgg_aggregate",
-           "mgg_aggregate_sparse", "mgg_aggregate_streamed",
+__all__ = ["WorkGroup", "RingArrays", "host_groups", "plan_device_arrays",
+           "mgg_aggregate", "mgg_aggregate_sparse", "mgg_aggregate_streamed",
            "mgg_aggregate_sparse_streamed", "block_neighbor_sum",
            "bulk_groups", "bulk_aggregate", "fetch_groups",
            "fetch_rows_aggregate", "reference_aggregate",
@@ -175,24 +175,24 @@ class RingArrays:
     remote_steps: Tuple[WorkGroup, ...]  # remote tile work per ring step
 
 
-def plan_device_arrays(plan: AggregationPlan, *, interleave: bool = True,
-                       device="cpu",
-                       remote_steps: Optional[Tuple[WorkGroup, ...]] = None
-                       ) -> RingArrays:
-    """Flatten ``plan``'s per-shard arrays into per-step :class:`WorkGroup`\\ s
-    on ``device`` (host-side, once per plan).  ``remote_steps`` reuses the
-    remote groups of the same plan's arrays under the other ``interleave``
-    flag (they do not depend on it), so only the local work is built."""
+def host_groups(plan: AggregationPlan, *, interleave: bool = True,
+                remote: bool = True):
+    """The host arrays ``(nbrs, mask, targets)`` of each launch group of
+    ``plan`` — every shard's partitions flattened into one launch, rows
+    offset into the flat buffer and output, SPMD padding dropped — as
+    ``(local, local_steps, remote_steps)``: the local work up front (or
+    None), the interleaved local slice of each ring step, the remote tile
+    work of each step (``()`` without ``remote``)."""
     n_dev, rows, tile_rows = plan.n_dev, plan.rows_per_dev, plan.tile_rows
     n_steps = plan.num_steps if n_dev > 1 else 0
     dev = np.arange(n_dev, dtype=np.int64)
 
-    def group(nbrs, mask, tgt, nbr_rows) -> WorkGroup:
+    def group(nbrs, mask, tgt, nbr_rows):
         keep = mask.any(-1)  # (n_dev, P): SPMD padding carries no slot
         flat_nbrs = (nbrs.astype(np.int64)
                      + dev[:, None, None] * nbr_rows)[keep]
         flat_tgt = (tgt.astype(np.int64) + dev[:, None] * rows)[keep]
-        return WorkGroup.build(flat_nbrs, mask[keep], flat_tgt, device)
+        return flat_nbrs, mask[keep], flat_tgt
 
     local, local_steps = None, ()
     if interleave and n_steps > 0:
@@ -206,16 +206,35 @@ def plan_device_arrays(plan: AggregationPlan, *, interleave: bool = True,
     else:
         local = group(plan.local_nbrs, plan.local_mask, plan.local_targets,
                       rows)
+    remote_steps = tuple(
+        group(plan.remote_nbrs[:, s], plan.remote_mask[:, s],
+              plan.remote_targets[:, s], tile_rows)
+        for s in range(n_steps)) if remote else ()
+    return local, local_steps, remote_steps
+
+
+def plan_device_arrays(plan: AggregationPlan, *, interleave: bool = True,
+                       device="cpu",
+                       remote_steps: Optional[Tuple[WorkGroup, ...]] = None
+                       ) -> RingArrays:
+    """Flatten ``plan``'s per-shard arrays into per-step :class:`WorkGroup`\\ s
+    on ``device`` (host-side, once per plan; :func:`host_groups`).
+    ``remote_steps`` reuses the remote groups of the same plan's arrays
+    under the other ``interleave`` flag (they do not depend on it), so only
+    the local work is built."""
+    n_steps = plan.num_steps if plan.n_dev > 1 else 0
+    local, local_steps, remote = host_groups(
+        plan, interleave=interleave, remote=remote_steps is None)
+    build = lambda g: WorkGroup.build(*g, device)
     if remote_steps is None:
-        remote_steps = tuple(
-            group(plan.remote_nbrs[:, s], plan.remote_mask[:, s],
-                  plan.remote_targets[:, s], tile_rows)
-            for s in range(n_steps))
+        remote_steps = tuple(build(g) for g in remote)
     elif len(remote_steps) != n_steps:
         raise ValueError(f"{len(remote_steps)} remote steps given, the plan "
                          f"has {n_steps}")
-    return RingArrays(interleave=bool(interleave), local=local,
-                      local_steps=local_steps, remote_steps=remote_steps)
+    return RingArrays(interleave=bool(interleave),
+                      local=None if local is None else build(local),
+                      local_steps=tuple(build(g) for g in local_steps),
+                      remote_steps=remote_steps)
 
 
 def _gather_sum(buf, grp: WorkGroup, use_kernel: bool,

@@ -13,7 +13,8 @@ State is one fp32 residual a gradient leaf (:func:`ef_state_init`), held
 beside the optimizer state.  The mean over the data axes is the
 reference's ``pmean``: each leaf is cut into its mesh blocks
 (``dist/sharding.py``), the blocks are summed over the shards of those
-axes in order, then divided by their count.
+axes in order, then divided by their count; the counters of
+``kernels/cost.py`` record it as one all-reduce of every shard's block.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Any, Sequence, Tuple
 
 import torch
 
+from ..kernels import cost
 from ..train.tree import tree_map
 from .sharding import MeshSharding
 
@@ -51,6 +53,8 @@ def _pmean(v: torch.Tensor, mesh, axes: Tuple[str, ...], spec):
     """``lax.pmean(v, axes)`` of a leaf laid on ``mesh`` by ``spec``."""
     sh = MeshSharding(mesh, spec)
     blocks = sh.cut(v)
+    cost.record_transfer(
+        "all-reduce", lambda: blocks.numel() * blocks.element_size(), False)
     dims = [mesh.axis(a) for a in axes]
     count = math.prod(mesh.shape[a] for a in axes)
     flat = blocks.movedim(dims, list(range(len(dims)))).flatten(

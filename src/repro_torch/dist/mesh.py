@@ -156,7 +156,7 @@ class VirtualMesh:
             dst.record_stream(side)
             if self.log is not None:
                 copy = self._logged(op, x.numel() * x.element_size())
-        return dst, self._ring._enqueue(copy, x, dst)
+        return dst, self._ring._enqueue(copy, x, dst, _WIRE[op.kind])
 
     def _logged(self, op: _Op, nbytes: int):
         def copy(src, dst):
@@ -203,6 +203,12 @@ class _Transfer(torch.autograd.Function):
         gx, token = ctx.mesh._issue(ctx.bwd, g)
         ctx.mesh.wait(token)
         return gx, None, None, None, None
+
+
+# a transfer's kind under the reference's collective names (what the
+# counters of kernels/cost.py record)
+_WIRE = {"rotate": "collective-permute", "rotate_back": "collective-permute",
+         "all_to_all": "all-to-all"}
 
 
 def _permute_op(a: int, back: bool) -> _Op:

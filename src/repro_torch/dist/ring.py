@@ -15,6 +15,12 @@ one, as the reference's ``ppermute`` does.  On the CPU the same calls run in
 order.  The backward ring rotates the other way (:meth:`rotate_back`, the
 transpose of ``perm = (i, i+1)``), ordered the same way.  NCCL across real
 cards is a later slice.
+
+On the meta device (passed explicitly: a dry run, ``launch/dryrun_gnn.py``)
+a ring moves no data and allocates nothing.  On every device each transfer
+reports its kind (the reference's collective name) and bytes to the active
+counters (``kernels/cost.py``), as asynchronous where it runs on the side
+stream: on the card, and on meta, which stands in for the card.
 """
 from __future__ import annotations
 
@@ -22,13 +28,16 @@ from typing import Optional
 
 import torch
 
+from ..kernels import cost
+
 __all__ = ["VirtualRing", "resolve_device"]
 
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks
-    for the CPU.  Raises when CUDA is asked for (or defaulted to) and is
-    missing — the port never falls back to the CPU on its own."""
+    for the CPU (or, for a dry run, for meta).  Raises when CUDA is asked
+    for (or defaulted to) and is missing — the port never falls back to the
+    CPU, or to meta, on its own."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -36,7 +45,7 @@ def resolve_device(device="cuda") -> torch.device:
                 "CUDA is not available; pass device='cpu' to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
@@ -70,9 +79,15 @@ class VirtualRing:
         :meth:`rotate`."""
         return self._enqueue(_roll_back_into, src, dst)
 
-    def _enqueue(self, copy, src, dst) -> Optional[torch.cuda.Event]:
+    def _enqueue(self, copy, src, dst, kind: str = "collective-permute"
+                 ) -> Optional[torch.cuda.Event]:
+        """Issue ``copy`` of each (src, dst) pair; the counters record one
+        ``kind`` transfer of the sources' bytes."""
         pairs = tuple(zip(src, dst)) if isinstance(src, tuple) \
             else ((src, dst),)
+        cost.record_transfer(
+            kind, lambda: sum(s.numel() * s.element_size() for s, _ in pairs),
+            self._side is not None or self.device.type == "meta")
         if self._side is None:
             for s, d in pairs:
                 copy(s, d)

@@ -12,9 +12,13 @@
   backward;
 * ref — the plain PyTorch versions the CPU path and the tests run;
 * ops — the front door that picks one by the tensor's device, and the
-  gather-sums' autograd Functions.
+  gather-sums' autograd Functions;
+* cost — each kernel's work a launch (flops, bytes), which its bound and
+  the dry-run counters read; meta — the kernels' stand-ins on meta
+  tensors, for a dry run.
 """
-from . import flash_attention, neighbor_agg, ops, ref, rows, slstm_scan
+from . import (cost, flash_attention, meta, neighbor_agg, ops, ref, rows,
+               slstm_scan)
 from .ops import (GradIndex, gather_rows, neighbor_gather_sum,
                   scatter_sum_ordered, segment_add_ordered,
                   sparse_neighbor_gather_sum)

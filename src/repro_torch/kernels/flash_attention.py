@@ -10,7 +10,8 @@ runs on the tensor cores and reads q, k and v with TMA, which needs a
 anything else is refused, never copied.  fp32 runs on the CUDA cores.  It
 takes CUDA tensors only, checks them, allocates the output, launches on
 PyTorch's current stream, raises if the launch failed and adds one to its
-``launches`` count.  A tensor that needs a gradient is refused: the kernel
+``launches`` count (and its work to the active counters, ``kernels/
+cost.py``).  A tensor that needs a gradient is refused: the kernel
 has no backward, as the reference's has none.  The front door that routes
 a CPU tensor to the plain version is ``kernels/ops.py``.
 """
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, cost
 from .neighbor_agg import _raise_on, _stream
 
 __all__ = ["flash_attention", "HEAD_DIMS", "reset_launch_counts",
@@ -87,6 +88,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         int(window), _DTYPES[q.dtype], _stream(q.device))
     _raise_on(rc, "flash_attention")
     flash_attention.launches += 1
+    cost.record("flash_attention", lambda: cost.flash_attention(
+        b, s, h, kv, hd, causal=causal, window=window,
+        itemsize=q.element_size()))
     return out
 
 

@@ -17,14 +17,16 @@ Counterpart of ``repro/kernels/neighbor_agg.py``:
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates the output, launches on PyTorch's current stream,
-raises if the launch failed, and adds one to its ``launches`` count.  The
-library is built on first use (kernels/_build.py), never at import.
+raises if the launch failed, and adds one to its ``launches`` count;
+where a counter is active (``kernels/cost.py``) it records the launch's
+work there too, from host copies of its index arrays.  The library is
+built on first use (kernels/_build.py), never at import.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, cost
 
 __all__ = ["gather_sum_pipelined", "gather_sum_blocked",
            "segment_add_ordered", "scatter_sum_ordered", "sparse_gather_sum",
@@ -89,6 +91,8 @@ def gather_sum_pipelined(buf: torch.Tensor, nbrs: torch.Tensor,
         p, ps, buf.shape[1], _stream(buf.device))
     _raise_on(rc, "gather_sum_pipelined")
     gather_sum_pipelined.launches += 1
+    cost.record("gather_sum_pipelined", lambda: cost.gather_sum(
+        cost.host(nbrs), cost.host(mask), buf.shape[1]))
     return out
 
 
@@ -106,6 +110,8 @@ def gather_sum_blocked(buf: torch.Tensor, nbrs: torch.Tensor,
         p, ps, buf.shape[1], pb, _stream(buf.device))
     _raise_on(rc, "gather_sum_blocked")
     gather_sum_blocked.launches += 1
+    cost.record("gather_sum_blocked", lambda: cost.gather_sum(
+        cost.host(nbrs), cost.host(mask), buf.shape[1]))
     return out
 
 
@@ -163,6 +169,8 @@ def segment_add_ordered(out: torch.Tensor, partial: torch.Tensor,
     _segment_add(out, partial, order, seg_rows, seg_start, chunks,
                  "segment_add_ordered")
     segment_add_ordered.launches += 1
+    cost.record("segment_add_ordered", lambda: cost.segment_add(
+        partial.shape[0], seg_rows.shape[0], out.shape[1]))
     return out
 
 
@@ -175,6 +183,8 @@ def scatter_sum_ordered(dbuf: torch.Tensor, g: torch.Tensor,
     _segment_add(dbuf, g, index.src, index.rows, index.start, index.chunks,
                  "scatter_sum_ordered")
     scatter_sum_ordered.launches += 1
+    cost.record("scatter_sum_ordered", lambda: cost.scatter_sum(
+        cost.host(index.src), index.rows.shape[0], dbuf.shape[1]))
     return dbuf
 
 
@@ -216,6 +226,8 @@ def sparse_gather_sum(values: torch.Tensor, idx: torch.Tensor,
         out.data_ptr(), p, ps, k, d_feat, ID_BYTES[idx.dtype], _stream(dev))
     _raise_on(rc, "sparse_gather_sum")
     sparse_gather_sum.launches += 1
+    cost.record("sparse_gather_sum", lambda: cost.sparse_gather_sum(
+        cost.host(nbrs), cost.host(mask), k, d_feat, ID_BYTES[idx.dtype]))
     return out
 
 

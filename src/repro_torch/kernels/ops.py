@@ -1,7 +1,11 @@
 """Front door to the port's kernels (counterpart of ``repro/kernels/ops.py``).
 
 A CPU tensor takes the plain version (kernels/ref.py); a CUDA tensor takes
-a kernel, with no fallback; any other device raises.  The TPU wrapper's
+a kernel, with no fallback; a meta tensor (a dry run: ``launch/dryrun.py``)
+takes the kernel's stand-in in kernels/meta.py, an empty result of the
+kernel's shape whose work goes to the active counters
+(``kernels/cost.py``); any other device raises.  Nothing falls back to
+meta: only a tensor already on it gets there.  The TPU wrapper's
 128-lane column padding and ``db ≤ 1024`` block choice were layout rules
 of the TPU: the CUDA kernels take any width ``D`` as it is.  Its VMEM rule
 (``ops.py:192``: a blocked stripe that does not fit runs pipelined) becomes
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 
 from . import flash_attention as _flash
-from . import neighbor_agg, ref, rows
+from . import meta, neighbor_agg, ref, rows
 from . import slstm_scan as _slstm
 
 __all__ = ["GradIndex", "SegmentChunks", "SEG_CHUNK", "chunk_length",
@@ -51,7 +55,7 @@ SEG_CHUNK = 64
 
 
 def _route(t: torch.Tensor, what: str = "gather-sum") -> str:
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no {what} for device {t.device}")
     return t.device.type
 
@@ -210,14 +214,22 @@ class _GatherSum(torch.autograd.Function):
         return dbuf, None, None, None, None, None
 
 
+def _kernels(route: str, wrappers):
+    """``wrappers`` (a module of kernel wrappers that launch on the card),
+    or on the meta route their stand-ins in kernels/meta.py."""
+    return meta if route == "meta" else wrappers
+
+
 def _gather_sum_fwd(buf, nbrs, mask, pb, use_kernel):
-    if not use_kernel or _route(buf) == "cpu":
+    route = _route(buf)
+    if not use_kernel or route == "cpu":
         return ref.neighbor_gather_sum_ref(buf, nbrs, mask)
     if pb is not None and not neighbor_agg.blocked_fits(pb, nbrs.shape[1]):
         pb = None
+    kernels = _kernels(route, neighbor_agg)
     if pb is None:
-        return neighbor_agg.gather_sum_pipelined(buf, nbrs, mask)
-    return neighbor_agg.gather_sum_blocked(buf, nbrs, mask, pb=pb)
+        return kernels.gather_sum_pipelined(buf, nbrs, mask)
+    return kernels.gather_sum_blocked(buf, nbrs, mask, pb=pb)
 
 
 def neighbor_gather_sum(buf: torch.Tensor, nbrs: torch.Tensor,
@@ -284,9 +296,11 @@ def sparse_gather_sum_grad(g: torch.Tensor, idx: torch.Tensor,
 
 
 def _sparse_gather_sum_fwd(values, idx, nbrs, mask, d_feat, use_kernel):
-    if not use_kernel or _route(values) == "cpu":
+    route = _route(values)
+    if not use_kernel or route == "cpu":
         return ref.sparse_gather_sum_ref(values, idx, nbrs, mask, d_feat)
-    return neighbor_agg.sparse_gather_sum(values, idx, nbrs, mask, d_feat)
+    return _kernels(route, neighbor_agg).sparse_gather_sum(
+        values, idx, nbrs, mask, d_feat)
 
 
 def sparse_neighbor_gather_sum(values: torch.Tensor, idx: torch.Tensor,
@@ -319,11 +333,12 @@ def segment_add_ordered(out: torch.Tensor, partial: torch.Tensor,
     """In place ``out[tgt] += partial``, deterministic: each destination
     row adds its partials in partition order, a hub row of ``chunks`` its
     chunk sums in chunk order (K3 on the card)."""
-    if _route(out) == "cpu":
+    route = _route(out)
+    if route == "cpu":
         return ref.segment_add_ordered_ref(out, partial, order, seg_rows,
                                            seg_start, chunks)
-    return neighbor_agg.segment_add_ordered(out, partial, order, seg_rows,
-                                            seg_start, chunks)
+    return _kernels(route, neighbor_agg).segment_add_ordered(
+        out, partial, order, seg_rows, seg_start, chunks)
 
 
 def scatter_sum_ordered(dbuf: torch.Tensor, g: torch.Tensor,
@@ -331,17 +346,19 @@ def scatter_sum_ordered(dbuf: torch.Tensor, g: torch.Tensor,
     """In place ``dbuf[index.rows[s]] += Σ g[index.src[k]]`` over segment
     ``s`` in the index's fixed order, the gather-sum's backward (K4 on the
     card)."""
-    if _route(dbuf) == "cpu":
+    route = _route(dbuf)
+    if route == "cpu":
         return ref.scatter_sum_ordered_ref(dbuf, g, index)
-    return neighbor_agg.scatter_sum_ordered(dbuf, g, index)
+    return _kernels(route, neighbor_agg).scatter_sum_ordered(dbuf, g, index)
 
 
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[i] = src[idx[i]]`` (K5 on the card), bitwise the rows of
     ``src``; the tiered store's assembly."""
-    if _route(src, "row gather") == "cpu":
+    route = _route(src, "row gather")
+    if route == "cpu":
         return ref.gather_rows_ref(src, idx)
-    return rows.gather_rows(src, idx)
+    return _kernels(route, rows).gather_rows(src, idx)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -349,9 +366,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal / sliding-window GQA softmax attention in the model's
     ``(B, S, H, hd)`` layout (K7 on the card, forward only: a tensor that
     needs a gradient is refused there)."""
-    if _route(q, "flash attention") == "cpu":
+    route = _route(q, "flash attention")
+    if route == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window)
-    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return _kernels(route, _flash).flash_attention(q, k, v, causal=causal,
+                                                   window=window)
 
 
 class _SLSTMScan(torch.autograd.Function):
@@ -367,7 +386,7 @@ class _SLSTMScan(torch.autograd.Function):
         ctx.use_kernel = use_kernel
         state = dict(h=h0, c=c0, n=n0, m=m0)
         if use_kernel:
-            hs, new, saved = _slstm.slstm_scan(
+            hs, new, saved = _kernels(xp.device.type, _slstm).slstm_scan(
                 xp.detach(), wr.detach(),
                 {k: v.detach() for k, v in state.items()}, save=True)
             ctx.save_for_backward(wr, h0, c0, n0, m0, hs,
@@ -387,7 +406,7 @@ class _SLSTMScan(torch.autograd.Function):
         else:
             wr, h0, c0, n0, m0, hs, g, cs, ns, ms = (
                 t.detach() for t in ctx.saved_tensors)
-            dxp, d0 = _slstm.slstm_scan_backward(
+            dxp, d0 = _kernels(dhs.device.type, _slstm).slstm_scan_backward(
                 dhs.detach().contiguous(),
                 {k: v.detach().contiguous() for k, v in dstate.items()}, wr,
                 dict(g=g, c=cs, n=ns, m=ms), dict(c=c0, n=n0, m=m0))
@@ -412,6 +431,6 @@ def slstm_scan(xp: torch.Tensor, wr: torch.Tensor, state: dict):
         return ref.slstm_scan_ref(xp, wr, state)
     if not (torch.is_grad_enabled() and any(
             t.requires_grad for t in (xp, wr, *state.values()))):
-        return _slstm.slstm_scan(xp, wr, state)
+        return _kernels(xp.device.type, _slstm).slstm_scan(xp, wr, state)
     hs, *new = _SLSTMScan.apply(xp, wr, *(state[k] for k in "hcnm"), True)
     return hs, dict(zip("hcnm", new))

@@ -5,7 +5,8 @@ Counterpart of ``repro/kernels/rows.py``: :func:`gather_rows` is K5, for
 assembly (``store/tiered.py``).  It takes CUDA tensors only, checks them,
 allocates the output, launches on PyTorch's current stream with the
 geometry of :func:`plan`, raises if the launch failed and adds one to its
-``launches`` count.  The front door that routes a CPU tensor to the plain
+``launches`` count (and its work to the active counters, ``kernels/
+cost.py``).  The front door that routes a CPU tensor to the plain
 version is ``kernels/ops.py``.
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import _build
+from . import _build, cost
 from .neighbor_agg import _check, _raise_on, _stream
 
 __all__ = ["gather_rows", "plan", "Plan", "blocks_per_sm", "UNROLL",
@@ -103,6 +104,7 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         _stream(dev))
     _raise_on(rc, "gather_rows")
     gather_rows.launches += 1
+    cost.record("gather_rows", lambda: cost.gather_rows(cost.host(idx), d))
     return out
 
 

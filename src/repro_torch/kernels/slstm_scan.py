@@ -9,7 +9,8 @@ one thread-block cluster per (row tile, head) that holds the head's ``wr``
 in its blocks' shared memory; :func:`plan` picks the cluster size.  The
 wrapper takes CUDA tensors only, checks them, allocates the outputs,
 launches on PyTorch's current stream, raises if the launch failed and adds
-one to its ``launches`` count.  A tensor that needs a gradient is refused:
+one to its ``launches`` count (and its work to the active counters,
+``kernels/cost.py``).  A tensor that needs a gradient is refused:
 the gradient goes through ``ops._SLSTMScan``, whose forward is K8 with
 ``save=True`` (each step's gates and states kept for the backward) and
 whose backward is :func:`slstm_scan_backward`, K9: the reverse-time scan
@@ -31,7 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, cost
 from .neighbor_agg import _raise_on, _stream
 
 __all__ = ["slstm_scan", "slstm_scan_backward", "plan", "cluster_sizes",
@@ -219,6 +220,8 @@ def _launch(xp, wr, state, bt: int, cluster: int, save: bool = False):
                       f"{smem_bytes(hd, bt, cluster)} bytes of shared "
                       f"memory each{placed})")
     slstm_scan.launches += 1
+    cost.record("slstm_scan", lambda: cost.slstm_scan(b, s, heads, hd,
+                                                      save=save))
     return (hs, new, saved) if save else (hs, new)
 
 
@@ -279,6 +282,8 @@ def _launch_backward(dhs, dstate, wr, saved, state, bt: int, cluster: int):
                       f"{smem_bytes(hd, bt, cluster, True)} bytes of shared "
                       f"memory each{placed})")
     slstm_scan_backward.launches += 1
+    cost.record("slstm_scan_backward",
+                lambda: cost.slstm_scan_backward(b, s, heads, hd))
     return dxp, d0
 
 

@@ -34,9 +34,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..train.tree import tree_map
-from .layers import (KVCache, attention_apply, attention_init, embed_init,
-                     embed_lookup, kv_cache_init, layer_norm, mlp_apply,
-                     mlp_init, unembed_logits)
+from .layers import (KVCache, attention_apply, attention_init, draw_device,
+                     embed_init, embed_lookup, kv_cache_init, layer_norm,
+                     mlp_apply, mlp_init, unembed_logits)
 from .transformer import DistCtx
 
 __all__ = ["init_params", "loss_fn", "encode", "prefill", "decode_step",
@@ -75,33 +75,35 @@ def _pos_emb(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _enc_block_init(gen: torch.Generator, cfg, n: int):
-    return dict(ln1=_ln_init(cfg, gen.device, n),
-                attn=attention_init(gen, cfg, n),
-                ln2=_ln_init(cfg, gen.device, n),
-                mlp=mlp_init(gen, cfg, n=n))
+def _enc_block_init(gen: torch.Generator, cfg, n: int, dev):
+    return dict(ln1=_ln_init(cfg, dev, n),
+                attn=attention_init(gen, cfg, n, dev),
+                ln2=_ln_init(cfg, dev, n),
+                mlp=mlp_init(gen, cfg, n=n, device=dev))
 
 
-def _dec_block_init(gen: torch.Generator, cfg, n: int):
-    return dict(ln1=_ln_init(cfg, gen.device, n),
-                self_attn=attention_init(gen, cfg, n),
-                ln2=_ln_init(cfg, gen.device, n),
-                cross_attn=attention_init(gen, cfg, n),
-                ln3=_ln_init(cfg, gen.device, n),
-                mlp=mlp_init(gen, cfg, n=n))
+def _dec_block_init(gen: torch.Generator, cfg, n: int, dev):
+    return dict(ln1=_ln_init(cfg, dev, n),
+                self_attn=attention_init(gen, cfg, n, dev),
+                ln2=_ln_init(cfg, dev, n),
+                cross_attn=attention_init(gen, cfg, n, dev),
+                ln3=_ln_init(cfg, dev, n),
+                mlp=mlp_init(gen, cfg, n=n, device=dev))
 
 
-def init_params(gen: torch.Generator, cfg,
-                vocab_multiple: int = 16) -> Dict[str, Any]:
-    """The reference's parameter tree, every leaf drawn on ``gen``'s
-    device; the vocabulary padded to ``vocab_multiple`` rows."""
+def init_params(gen: torch.Generator, cfg, vocab_multiple: int = 16, *,
+                device=None) -> Dict[str, Any]:
+    """The reference's parameter tree, every leaf drawn on ``device`` (by
+    default ``gen``'s; ``meta`` allocates nothing); the vocabulary padded
+    to ``vocab_multiple`` rows."""
+    dev = draw_device(gen, device)
     return dict(
         embed=embed_init(gen, cfg.vocab, cfg.d_model, cfg.pdtype,
-                         vocab_multiple),
-        enc_blocks=_enc_block_init(gen, cfg, cfg.n_enc_layers),
-        dec_blocks=_dec_block_init(gen, cfg, cfg.n_layers),
-        enc_ln=_ln_init(cfg, gen.device),
-        dec_ln=_ln_init(cfg, gen.device),
+                         vocab_multiple, dev),
+        enc_blocks=_enc_block_init(gen, cfg, cfg.n_enc_layers, dev),
+        dec_blocks=_dec_block_init(gen, cfg, cfg.n_layers, dev),
+        enc_ln=_ln_init(cfg, dev),
+        dec_ln=_ln_init(cfg, dev),
     )
 
 

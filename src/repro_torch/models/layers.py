@@ -174,13 +174,20 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
 # dense / embedding primitives
 # ---------------------------------------------------------------------------
 
+def draw_device(gen: torch.Generator, device=None) -> torch.device:
+    """Where an init draws: ``device`` when given (``meta`` for a dry
+    run, which takes a CPU generator and allocates nothing), else
+    ``gen``'s device."""
+    return gen.device if device is None else torch.device(device)
+
+
 def dense_init(gen: torch.Generator, fan_in: int, fan_out: int, dtype,
-               n: Optional[int] = None) -> Dict[str, Tensor]:
-    """``w ~ N(0, 2 / (fan_in + fan_out))``, drawn on ``gen``'s device;
+               n: Optional[int] = None, device=None) -> Dict[str, Tensor]:
+    """``w ~ N(0, 2 / (fan_in + fan_out))``, drawn on :func:`draw_device`;
     ``n`` stacks that many layers on a leading axis."""
     shape = (fan_in, fan_out) if n is None else (n, fan_in, fan_out)
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
+                    device=draw_device(gen, device))
     return dict(w=w.mul_((2.0 / (fan_in + fan_out)) ** 0.5).to(dtype))
 
 
@@ -189,10 +196,10 @@ def padded_vocab(vocab: int, multiple: int) -> int:
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype,
-               multiple: int = 16) -> Dict[str, Tensor]:
+               multiple: int = 16, device=None) -> Dict[str, Tensor]:
     vp = padded_vocab(vocab, multiple)
     w = torch.randn((vp, d_model), generator=gen, dtype=torch.float32,
-                    device=gen.device)
+                    device=draw_device(gen, device))
     return dict(w=w.mul_(d_model ** -0.5).to(dtype))
 
 
@@ -213,19 +220,20 @@ def unembed_logits(emb: Dict[str, Tensor], h: Tensor, vocab: int) -> Tensor:
 # attention (GQA + RoPE + qk_norm + sliding window + chunked softmax)
 # ---------------------------------------------------------------------------
 
-def attention_init(gen: torch.Generator, cfg,
-                   n: Optional[int] = None) -> Dict[str, Any]:
+def attention_init(gen: torch.Generator, cfg, n: Optional[int] = None,
+                   device=None) -> Dict[str, Any]:
     hd, dt = cfg.head_dim, cfg.pdtype
     p = dict(
-        wq=dense_init(gen, cfg.d_model, cfg.n_heads * hd, dt, n),
-        wk=dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dt, n),
-        wv=dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dt, n),
-        wo=dense_init(gen, cfg.n_heads * hd, cfg.d_model, dt, n),
+        wq=dense_init(gen, cfg.d_model, cfg.n_heads * hd, dt, n, device),
+        wk=dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dt, n, device),
+        wv=dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dt, n, device),
+        wo=dense_init(gen, cfg.n_heads * hd, cfg.d_model, dt, n, device),
     )
     if cfg.qk_norm:
         lead = () if n is None else (n,)
-        p["q_norm"] = torch.ones(lead + (hd,), dtype=dt, device=gen.device)
-        p["k_norm"] = torch.ones(lead + (hd,), dtype=dt, device=gen.device)
+        dev = draw_device(gen, device)
+        p["q_norm"] = torch.ones(lead + (hd,), dtype=dt, device=dev)
+        p["k_norm"] = torch.ones(lead + (hd,), dtype=dt, device=dev)
     return p
 
 
@@ -402,18 +410,18 @@ def attention_apply(
 # ---------------------------------------------------------------------------
 
 def mlp_init(gen: torch.Generator, cfg, d_ff: Optional[int] = None,
-             n: Optional[int] = None) -> Dict[str, Any]:
+             n: Optional[int] = None, device=None) -> Dict[str, Any]:
     d_ff = d_ff or cfg.d_ff
     dt = cfg.pdtype
     if cfg.mlp_type == "swiglu":
         return dict(
-            gate=dense_init(gen, cfg.d_model, d_ff, dt, n),
-            up=dense_init(gen, cfg.d_model, d_ff, dt, n),
-            down=dense_init(gen, d_ff, cfg.d_model, dt, n),
+            gate=dense_init(gen, cfg.d_model, d_ff, dt, n, device),
+            up=dense_init(gen, cfg.d_model, d_ff, dt, n, device),
+            down=dense_init(gen, d_ff, cfg.d_model, dt, n, device),
         )
     return dict(
-        up=dense_init(gen, cfg.d_model, d_ff, dt, n),
-        down=dense_init(gen, d_ff, cfg.d_model, dt, n),
+        up=dense_init(gen, cfg.d_model, d_ff, dt, n, device),
+        down=dense_init(gen, d_ff, cfg.d_model, dt, n, device),
     )
 
 

@@ -38,15 +38,15 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import dense_init
+from .layers import dense_init, draw_device
 
 __all__ = ["moe_init", "moe_apply", "moe_apply_ep_shard"]
 
 Tensor = torch.Tensor
 
 
-def moe_init(gen: torch.Generator, cfg,
-             n: Optional[int] = None) -> Dict[str, Any]:
+def moe_init(gen: torch.Generator, cfg, n: Optional[int] = None,
+             device=None) -> Dict[str, Any]:
     """The reference's expert tree (router, ``w_up``/``w_gate`` (E, d, f),
     ``w_down`` (E, f, d) ~ N(0, 2 / (d + f))); ``n`` stacks layers."""
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
@@ -55,10 +55,10 @@ def moe_init(gen: torch.Generator, cfg,
 
     def draw(shape):
         w = torch.randn(lead + shape, generator=gen, dtype=torch.float32,
-                        device=gen.device)
+                        device=draw_device(gen, device))
         return w.mul_(scale).to(cfg.pdtype)
 
-    p = dict(router=dense_init(gen, d, e, cfg.pdtype, n),
+    p = dict(router=dense_init(gen, d, e, cfg.pdtype, n, device),
              w_up=draw((e, d, f)), w_down=draw((e, f, d)))
     if cfg.mlp_type == "swiglu":
         p["w_gate"] = draw((e, d, f))

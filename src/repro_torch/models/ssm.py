@@ -32,7 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import dense_init, rms_norm
+from .layers import dense_init, draw_device, rms_norm
 
 __all__ = ["ssm_init", "ssm_apply", "ssm_step", "ssm_state_init"]
 
@@ -47,25 +47,25 @@ def _dims(cfg):
     return d_in, heads, cfg.ssm_state
 
 
-def ssm_init(gen: torch.Generator, cfg,
-             n: Optional[int] = None) -> Dict[str, Any]:
+def ssm_init(gen: torch.Generator, cfg, n: Optional[int] = None,
+             device=None) -> Dict[str, Any]:
     """The reference's mixer tree; ``n`` stacks layers on a leading axis."""
     d, (d_in, heads, ns) = cfg.d_model, _dims(cfg)
     lead = () if n is None else (n,)
-    dev = gen.device
+    dev = draw_device(gen, device)
     # in_proj → [z (d_in), x (d_in), B (N), C (N), dt (heads)]
     zxbcdt = 2 * d_in + 2 * ns + heads
     conv = torch.randn(lead + (_CONV_K, d_in + 2 * ns), generator=gen,
                        dtype=torch.float32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     return dict(
-        in_proj=dense_init(gen, d, zxbcdt, cfg.pdtype, n),
+        in_proj=dense_init(gen, d, zxbcdt, cfg.pdtype, n, dev),
         conv_w=conv.mul_(0.1).to(cfg.pdtype),
         a_log=torch.zeros(lead + (heads,), **f32),       # a = -exp(a_log)
         d_skip=torch.ones(lead + (heads,), **f32),
         dt_bias=torch.zeros(lead + (heads,), **f32),
         norm_w=torch.ones(lead + (d_in,), dtype=cfg.pdtype, device=dev),
-        out_proj=dense_init(gen, d_in, d, cfg.pdtype, n),
+        out_proj=dense_init(gen, d_in, d, cfg.pdtype, n, dev),
     )
 
 

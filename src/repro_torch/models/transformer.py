@@ -41,8 +41,9 @@ from . import moe as moe_lib
 from . import ssm as ssm_lib
 from . import xlstm as xlstm_lib
 from .layers import (KVCache, attention_apply, attention_init, dense_init,
-                     embed_init, embed_lookup, kv_cache_init, layer_norm,
-                     mlp_apply, mlp_init, rms_norm, unembed_logits)
+                     draw_device, embed_init, embed_lookup, kv_cache_init,
+                     layer_norm, mlp_apply, mlp_init, rms_norm,
+                     unembed_logits)
 
 __all__ = ["DistCtx", "init_params", "forward", "loss_fn", "prefill",
            "decode_step", "init_cache", "cache_length"]
@@ -104,13 +105,13 @@ def _norm_init(cfg, device, n: Optional[int] = None):
 # the dense block
 # ---------------------------------------------------------------------------
 
-def _dense_block_init(gen: torch.Generator, cfg, n: Optional[int] = None):
+def _dense_block_init(gen: torch.Generator, cfg, n: Optional[int], dev):
     """One block's parameters, or ``n`` blocks stacked on a leading axis
-    (drawn stacked: no second copy while stacking)."""
-    return dict(ln1=_norm_init(cfg, gen.device, n),
-                attn=attention_init(gen, cfg, n),
-                ln2=_norm_init(cfg, gen.device, n),
-                mlp=mlp_init(gen, cfg, n=n))
+    (drawn stacked: no second copy while stacking), on ``dev``."""
+    return dict(ln1=_norm_init(cfg, dev, n),
+                attn=attention_init(gen, cfg, n, dev),
+                ln2=_norm_init(cfg, dev, n),
+                mlp=mlp_init(gen, cfg, n=n, device=dev))
 
 
 def _attn_sub(bp, h, cfg, positions, cache, ctx):
@@ -134,11 +135,11 @@ def _dense_block_nc(bp, h, cfg, positions, ctx):
 # the moe block
 # ---------------------------------------------------------------------------
 
-def _moe_block_init(gen: torch.Generator, cfg, n: Optional[int] = None):
-    return dict(ln1=_norm_init(cfg, gen.device, n),
-                attn=attention_init(gen, cfg, n),
-                ln2=_norm_init(cfg, gen.device, n),
-                moe=moe_lib.moe_init(gen, cfg, n))
+def _moe_block_init(gen: torch.Generator, cfg, n: Optional[int], dev):
+    return dict(ln1=_norm_init(cfg, dev, n),
+                attn=attention_init(gen, cfg, n, dev),
+                ln2=_norm_init(cfg, dev, n),
+                moe=moe_lib.moe_init(gen, cfg, n, dev))
 
 
 def _moe_block(bp, h, cfg, positions, cache, ctx):
@@ -170,9 +171,9 @@ def _hybrid_layout(cfg):
     return n_groups, gs, cfg.n_layers - n_groups * gs
 
 
-def _mamba_block_init(gen: torch.Generator, cfg, n: int):
-    return dict(ln=_norm_init(cfg, gen.device, n),
-                ssm=ssm_lib.ssm_init(gen, cfg, n))
+def _mamba_block_init(gen: torch.Generator, cfg, n: int, dev):
+    return dict(ln=_norm_init(cfg, dev, n),
+                ssm=ssm_lib.ssm_init(gen, cfg, n, dev))
 
 
 def _mamba_block(bp, h, cfg, state, ctx, *, step: bool):
@@ -243,9 +244,9 @@ def _xlstm_stacks(cfg):
             [(f"xl_{i}_{kind}", kind) for i, kind in enumerate(pat)])
 
 
-def _xlstm_block_init(gen: torch.Generator, cfg, kind: str, n: int):
+def _xlstm_block_init(gen: torch.Generator, cfg, kind: str, n: int, dev):
     mix = xlstm_lib.mlstm_init if kind == "m" else xlstm_lib.slstm_init
-    return dict(ln=_norm_init(cfg, gen.device, n), mix=mix(gen, cfg, n))
+    return dict(ln=_norm_init(cfg, dev, n), mix=mix(gen, cfg, n, dev))
 
 
 def _xlstm_block(bp, h, cfg, kind, state, ctx):
@@ -289,41 +290,46 @@ def _xlstm_forward(params, cfg, h, cache, ctx, remat=False):
 # init
 # ---------------------------------------------------------------------------
 
-def init_params(gen: torch.Generator, cfg,
-                vocab_multiple: int = 16) -> Dict[str, Any]:
+def init_params(gen: torch.Generator, cfg, vocab_multiple: int = 16, *,
+                device=None) -> Dict[str, Any]:
     """The reference's parameter tree for ``cfg``, every leaf drawn on
-    ``gen``'s device (no host copy)."""
+    ``device`` (by default ``gen``'s; no host copy).  ``device="meta"``
+    with a CPU generator builds the tree's shapes and allocates nothing,
+    as a dry run does."""
     _ported(cfg)
+    dev = draw_device(gen, device)
     params: Dict[str, Any] = dict(
         embed=embed_init(gen, cfg.vocab, cfg.d_model, cfg.pdtype,
-                         vocab_multiple),
-        final_norm=_norm_init(cfg, gen.device),
+                         vocab_multiple, dev),
+        final_norm=_norm_init(cfg, dev),
     )
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(
             gen, cfg.d_model,
-            -(-cfg.vocab // vocab_multiple) * vocab_multiple, cfg.pdtype)
+            -(-cfg.vocab // vocab_multiple) * vocab_multiple, cfg.pdtype,
+            device=dev)
     if cfg.family == "xlstm":
         n_groups, stacks = _xlstm_stacks(cfg)
         for name, kind in stacks:
-            params[name] = _xlstm_block_init(gen, cfg, kind, n_groups)
+            params[name] = _xlstm_block_init(gen, cfg, kind, n_groups, dev)
         return params
     if cfg.family == "hybrid":
         n_groups, gs, tail = _hybrid_layout(cfg)
-        params["mamba_main"] = _mamba_block_init(gen, cfg, n_groups * gs)
+        params["mamba_main"] = _mamba_block_init(gen, cfg, n_groups * gs,
+                                                 dev)
         if tail:
-            params["mamba_tail"] = _mamba_block_init(gen, cfg, tail)
+            params["mamba_tail"] = _mamba_block_init(gen, cfg, tail, dev)
         # zamba2's shared transformer block (attention + MLP): ONE
         # parameter set applied after every group
-        params["shared_attn"] = _dense_block_init(gen, cfg)
+        params["shared_attn"] = _dense_block_init(gen, cfg, None, dev)
         return params
     if cfg.family == "moe":
-        params["blocks"] = _moe_block_init(gen, cfg, cfg.n_layers)
+        params["blocks"] = _moe_block_init(gen, cfg, cfg.n_layers, dev)
         return params
-    params["blocks"] = _dense_block_init(gen, cfg, cfg.n_layers)
+    params["blocks"] = _dense_block_init(gen, cfg, cfg.n_layers, dev)
     if cfg.family == "vlm":
         params["vis_proj"] = dense_init(gen, cfg.d_model, cfg.d_model,
-                                        cfg.pdtype)
+                                        cfg.pdtype, device=dev)
     return params
 
 

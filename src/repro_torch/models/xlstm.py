@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops, ref
-from .layers import dense_init, rms_norm
+from .layers import dense_init, draw_device, rms_norm
 
 __all__ = [
     "mlstm_init", "mlstm_apply", "mlstm_step", "mlstm_state_init",
@@ -56,20 +56,20 @@ def _mdims(cfg):
     return d_in, heads, dk
 
 
-def mlstm_init(gen: torch.Generator, cfg,
-               n: Optional[int] = None) -> Dict[str, Any]:
+def mlstm_init(gen: torch.Generator, cfg, n: Optional[int] = None,
+               device=None) -> Dict[str, Any]:
     d, (d_in, heads, dk) = cfg.d_model, _mdims(cfg)
-    dt, dev = cfg.pdtype, gen.device
+    dt, dev = cfg.pdtype, draw_device(gen, device)
     return dict(
-        up=dense_init(gen, d, 2 * d_in, dt, n),      # x, z-gate
-        wq=dense_init(gen, d_in, d_in, dt, n),
-        wk=dense_init(gen, d_in, d_in, dt, n),
-        wv=dense_init(gen, d_in, d_in, dt, n),
-        wif=dense_init(gen, d_in, 2 * heads, dt, n),  # i, f gates
+        up=dense_init(gen, d, 2 * d_in, dt, n, dev),      # x, z-gate
+        wq=dense_init(gen, d_in, d_in, dt, n, dev),
+        wk=dense_init(gen, d_in, d_in, dt, n, dev),
+        wv=dense_init(gen, d_in, d_in, dt, n, dev),
+        wif=dense_init(gen, d_in, 2 * heads, dt, n, dev),  # i, f gates
         fgate_bias=torch.full(_lead(n) + (heads,), 3.0, dtype=torch.float32,
                               device=dev),
         norm_w=torch.ones(_lead(n) + (d_in,), dtype=dt, device=dev),
-        down=dense_init(gen, d_in, d, dt, n),
+        down=dense_init(gen, d_in, d, dt, n, dev),
     )
 
 
@@ -165,23 +165,23 @@ def mlstm_step(p, x, cfg, state):
 # sLSTM
 # ---------------------------------------------------------------------------
 
-def slstm_init(gen: torch.Generator, cfg,
-               n: Optional[int] = None) -> Dict[str, Any]:
+def slstm_init(gen: torch.Generator, cfg, n: Optional[int] = None,
+               device=None) -> Dict[str, Any]:
     d = cfg.d_model
     heads = cfg.n_heads
     hd = d // heads
-    dt, dev = cfg.pdtype, gen.device
+    dt, dev = cfg.pdtype, draw_device(gen, device)
     wr = torch.randn(_lead(n) + (heads, hd, 4 * hd), generator=gen,
                      dtype=torch.float32, device=dev)
     return dict(
         # input weights for the (z, i, f, o) gates, head-major columns
-        wx=dense_init(gen, d, 4 * d, dt, n),
+        wx=dense_init(gen, d, 4 * d, dt, n, dev),
         # block-diagonal recurrent weights, per head: (H, hd, 4*hd)
         wr=wr.mul_(hd ** -0.5).to(dt),
         bias=torch.zeros(_lead(n) + (4 * d,), dtype=torch.float32,
                          device=dev),
         norm_w=torch.ones(_lead(n) + (d,), dtype=dt, device=dev),
-        out=dense_init(gen, d, d, dt, n),
+        out=dense_init(gen, d, d, dt, n, dev),
     )
 
 

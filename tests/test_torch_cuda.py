@@ -17,7 +17,11 @@ and its loss and gradients on the card against the CPU; the virtual
 mesh's collectives on the card against the CPU, its rotations and
 exchanges ordered after their producer and their buffers kept until the
 side stream is done with them, and ring TP and the expert-parallel MoE
-(forwards and gradients) on the card against the CPU.
+(forwards and gradients) on the card against the CPU; and the dry-run
+counter: a smoke model's flops counted on meta equal to those counted live
+on the card, each kernel's record equal to the count its bound used, and
+a ring's rotations and kernel work on the card equal to the meta ring's
+and the host plan's.
 
 These tests need an NVIDIA card and nvcc (a CUDA kernel has no CPU mode);
 without them they skip.  On the card, run them with
@@ -1675,3 +1679,142 @@ def test_ring_tp_and_ep_on_card_match_cpu(cuda):
         for g, w in zip(tree_leaves(gg), tree_leaves(gw)):
             torch.testing.assert_close(g.cpu(), w, rtol=2e-4,
                                        atol=2e-4 * w.abs().max().item())
+
+
+# -- the dry-run counter (launch/op_cost.py, kernels/cost.py) on the card --
+
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "granite-moe-1b-a400m",
+                                  "zamba2-7b", "xlstm-125m",
+                                  "whisper-base"])
+def test_counted_flops_on_meta_equal_the_card(cuda, arch):
+    """A smoke model's flag-on forward counted on meta (nothing allocated)
+    and live on the card: the same dot flops, as integers, and the same
+    K7/K8 records, whose work is a function of their shapes; for the
+    xlstm, a training step too (K8 with its save, K9)."""
+    import dataclasses
+    from repro_torch.launch.op_cost import analyze
+    from repro_torch.models import encdec
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    cfg = dataclasses.replace(LMC.get_smoke_config(arch),
+                              compute_dtype="float32",
+                              use_flash_attention=arch != "xlstm-125m")
+    init = encdec.init_params if cfg.family == "encdec" \
+        else LMT.init_params
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (2, 32)).astype(np.int32))
+    frames = torch.randn((2, 12, cfg.d_model))
+    counts = {}
+    for dev in (torch.device("meta"), cuda):
+        # meta draws with a CPU generator: it allocates nothing
+        gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+        params = init(gen.manual_seed(0), cfg, device=dev)
+        if cfg.family == "encdec":
+            fwd = lambda: encdec.loss_fn(params, cfg, dict(
+                frames=frames.to(dev), tokens=toks.to(dev)))
+        else:
+            fwd = lambda: LMT.forward(params, cfg, toks.to(dev))
+        with torch.inference_mode():
+            counts[dev.type] = [analyze(fwd)]
+        if cfg.family == "xlstm":
+            step = make_train_step(cfg, LMT.DistCtx(), AdamWConfig())
+            counts[dev.type].append(analyze(step, params, adamw_init(params),
+                                            dict(tokens=toks.to(dev))))
+    for m, c in zip(counts["meta"], counts["cuda"]):
+        assert m.dot_flops == c.dot_flops > 0
+        assert m.kernels == c.kernels
+    assert set(counts["cuda"][0].kernels) == (
+        {"slstm_scan"} if cfg.family == "xlstm" else {"flash_attention"})
+
+
+def test_kernel_records_are_the_inline_counts(cuda):
+    """Each kernel launched on the card under a counter records the work
+    ``chip_smoke.py`` computed inline for its bound: K1/K2 the distinct
+    rows of its live slots, K3 its partials and segments, K4 its
+    gradient's distinct rows, K5 its distinct ids, K6 its compressed
+    rows, K7/K8/K9 their shapes."""
+    from repro_torch.kernels import cost
+    rng = np.random.default_rng(5)
+    t, p, ps, d = 600, 500, 8, 16
+    nbrs = rng.integers(0, t, (p, ps))
+    mask = rng.random((p, ps)) < 0.7
+    tgt = np.sort(rng.integers(0, 300, p))
+    g = TC.WorkGroup.build(nbrs, mask, tgt, cuda)
+    buf = torch.randn((t, d), device=cuda)
+    distinct = int(g.grad.rows.numel())
+    gather = distinct * d * 4 + p * ps * 5 + p * d * 4
+    segs = int(g.seg_rows.numel())
+    ix = g.grad
+    src_rows = int(torch.unique(ix.src).numel())
+    idx = torch.from_numpy(rng.integers(0, t, 77).astype(np.int32)).to(cuda)
+    vals, ids = TC.topk_activation(buf, 4)
+    ids = ids.to(torch.int16)
+    q = torch.randn((2, 64, 4, 64), device=cuda, dtype=torch.bfloat16)
+    kv = torch.randn((2, 64, 2, 64), device=cuda, dtype=torch.bfloat16)
+    b, s, h, hd = 2, 9, 2, 16
+    xp = torch.randn((b, s, h * 4 * hd), device=cuda)
+    wr = torch.randn((h, hd, 4 * hd), device=cuda) * 0.1
+    st = {k: torch.zeros((b, h, hd), device=cuda) for k in "hcnm"}
+    with cost.counting() as c:
+        part = neighbor_agg.gather_sum_pipelined(buf, g.nbrs, g.mask)
+        neighbor_agg.gather_sum_blocked(buf, g.nbrs, g.mask, pb=4)
+        neighbor_agg.segment_add_ordered(torch.zeros((300, d), device=cuda),
+                                         part, g.order, g.seg_rows,
+                                         g.seg_start, g.chunks)
+        neighbor_agg.scatter_sum_ordered(torch.zeros((t, d), device=cuda),
+                                         torch.randn((300, d), device=cuda),
+                                         ix)
+        rows.gather_rows(buf, idx)
+        neighbor_agg.sparse_gather_sum(vals, ids, g.nbrs, g.mask, d)
+        k7.flash_attention(q, kv, kv, causal=True, window=0)
+        _, _, saved = k8.slstm_scan(xp, wr, st, save=True)
+        k8.slstm_scan_backward(torch.randn((b, s, h, hd), device=cuda),
+                               {k: torch.zeros_like(v) for k, v in
+                                st.items()}, wr, saved, st)
+    k = {name: (r["launches"], r["flops"], r["bytes"], r["exact"])
+         for name, r in c.kernels.items()}
+    assert k["gather_sum_pipelined"] == k["gather_sum_blocked"] == (
+        1, 0, gather, True)
+    assert k["segment_add_ordered"] == (
+        1, 0, p * d * 4 + p * 4 + segs * 8 + segs * d * 8, True)
+    assert k["scatter_sum_ordered"] == (
+        1, 0, src_rows * d * 4 + ix.num_slots * 4
+        + (2 * int(ix.rows.numel()) + 1) * 4
+        + 2 * int(ix.rows.numel()) * d * 4, True)
+    n_idx = int(torch.unique(idx).numel())
+    assert k["gather_rows"] == (1, 0, n_idx * d * 4 + 77 * 4 + 77 * d * 4,
+                                True)
+    assert k["sparse_gather_sum"] == (
+        1, 0, distinct * 4 * (4 + 2) + p * ps * 5 + p * d * 4, True)
+    pairs = 64 * 65 // 2
+    assert k["flash_attention"] == (
+        1, 4 * 2 * 4 * 64 * pairs,
+        sum(x.numel() for x in (q, kv, kv, q)) * 2, True)
+    assert k["slstm_scan"][:2] == (1, 2 * b * s * h * hd * 4 * hd)
+    assert k["slstm_scan"][2] == 4 * (xp.numel() + b * s * h * hd
+                                      + wr.numel() + 8 * b * h * hd
+                                      + 7 * b * s * h * hd)
+    assert k["slstm_scan_backward"] == (
+        1, 2 * b * s * h * hd * 4 * hd,
+        4 * (b * s * h * hd * 8 + wr.numel() + 7 * b * h * hd
+             + b * s * h * 4 * hd + 4 * b * h * hd), True)
+
+
+def test_ring_counted_on_card_equals_meta_and_the_plan(cuda):
+    """One aggregation on the card under the counter: its rotations are
+    the meta ring's and ``collective_bytes``, its K1/K3 records the host
+    plan's exact work (``launch/dryrun_gnn.plan_work``)."""
+    from repro_torch.launch import dryrun_gnn
+    from repro_torch.launch.op_cost import analyze
+    g = TC.power_law(2000, avg_degree=8.0, locality=0.3, seed=3)
+    plan = TC.build_plan(g, 4, ps=8, dist=2)
+    x = torch.randn((plan.padded_nodes, 24), device=cuda)
+    ring = VirtualRing(4, cuda)
+    arrays = TC.plan_device_arrays(plan, device=cuda)
+    with torch.inference_mode():
+        live = analyze(TC.mgg_aggregate, x, plan, ring, arrays=arrays)
+    meta = dryrun_gnn.count_ring(plan, 24, arrays)
+    assert live.collectives == meta.collectives
+    assert live.collectives["collective-permute"]["bytes"] == \
+        TC.collective_bytes(plan, 24) * 4
+    assert live.n_async == meta.n_async == 2 * 3
+    assert live.kernels == dryrun_gnn.plan_work(plan, 24)

@@ -4,6 +4,7 @@ the reference's custom VJP, the row gather against its Pallas kernel — the
 ordered segment add and scatter-sum against sequential loops, and the
 CPU/CUDA routing.  The CUDA kernels themselves are held against the plain
 versions on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+import types
 from pathlib import Path
 
 import numpy as np
@@ -110,9 +111,14 @@ def test_cpu_tensors_take_plain_versions_and_kernels_refuse_them():
     with pytest.raises(ValueError, match="CUDA kernel called on a cpu"):
         neighbor_agg.segment_add_ordered(
             torch.zeros(3, 8), torch.zeros(4, 8), *_segments(np.arange(4) % 3))
+    # a meta tensor (a dry run) takes the kernel's stand-in: an empty
+    # result of its shape, no launch; any other device still raises
+    out = ops.neighbor_gather_sum(buf.to("meta"), nbrs.to("meta"),
+                                  mask.to("meta"))
+    assert out.device.type == "meta" and out.shape == (4, 8)
+    assert set(neighbor_agg.launch_counts().values()) == {0}
     with pytest.raises(ValueError, match="no gather-sum for device"):
-        ops.neighbor_gather_sum(buf.to("meta"), nbrs.to("meta"),
-                                mask.to("meta"))
+        ops._route(types.SimpleNamespace(device=torch.device("xpu")))
 
 
 def test_blocked_fits_is_the_shared_memory_rule():
@@ -321,8 +327,13 @@ def test_new_kernels_refuse_cpu_tensors_and_count_nothing_there():
                                          ops.GradIndex.build(
                                              np.arange(4)[:, None] % 3,
                                              np.ones((4, 1), bool)))
+    # meta: the stand-in's empty result, no launch; other devices raise
+    out = ops.gather_rows(src.to("meta"), idx.to("meta"))
+    assert out.device.type == "meta" and out.shape == (2, 3)
+    assert rows.launch_counts() == {"gather_rows": 0}
     with pytest.raises(ValueError, match="no row gather for device"):
-        ops.gather_rows(src.to("meta"), idx.to("meta"))
+        ops._route(types.SimpleNamespace(device=torch.device("xpu")),
+                   "row gather")
     with pytest.raises(ValueError, match="needs its grad_index"):
         ops.neighbor_gather_sum(src.requires_grad_(True),
                                 torch.zeros(2, 1, dtype=torch.int32),

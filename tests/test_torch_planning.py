@@ -170,7 +170,10 @@ def test_port_imports_no_jax():
         "        'repro_torch.launch.train_lm', 'repro_torch.models.encdec',\n"
         "        'repro_torch.dist.mesh', 'repro_torch.dist.collectives',\n"
         "        'repro_torch.dist.compress', 'repro_torch.dist.sharding',\n"
-        "        'repro_torch.launch.mesh'}\n"
+        "        'repro_torch.launch.mesh', 'repro_torch.kernels.cost',\n"
+        "        'repro_torch.kernels.meta', 'repro_torch.launch.op_cost',\n"
+        "        'repro_torch.launch.cells', 'repro_torch.launch.dryrun',\n"
+        "        'repro_torch.launch.dryrun_gnn'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"

@@ -29,6 +29,11 @@ ring-vs-SPMD tolerances of ``tests/multidev/ring_tp.py``: rtol 2e-4, atol
 granite-moe-1b-a400m's expert-parallel MoE on a (1, 4) mesh at pipeline
 chunks 1 and 2 (rtol 1e-5, atol 1e-5 × max|·|, after asserting the router
 logit gap of ``test_torch_moe``), against the port's on virtual meshes.
+It also holds the trip-multiplied ``collective-permute`` bytes of the
+reference's ring shard body under ``shard_map`` on its four devices
+(``launch/hlo_cost.py`` of the lowering its GNN dry run compiles), which
+the port's rotations counted on a meta ring (``launch/dryrun_gnn.py``)
+must equal, as both must ``collective_bytes``.
 """
 import dataclasses
 import os
@@ -142,6 +147,51 @@ def _reference_dump():
         losses.append(float(loss))
     out["traj/losses"] = np.asarray(losses)
     out.update(_lm_mesh_dump())
+    out.update(_ring_cost_dump())
+    return out
+
+
+RING_COST_DISTS = (1, 2)
+
+
+def _ring_cost_dump():
+    """The reference's ring shard body lowered on its four devices as its
+    GNN dry run lowers it: the collective-permute bytes ``hlo_cost``
+    counts (a device, trip-multiplied) and ``collective_bytes``."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec
+
+    import repro.core as C
+    from repro.core import pipeline as pp
+    from repro.launch.hlo_cost import analyze
+
+    g = _graph(C)
+    mesh = jax.make_mesh((4,), ("ring",),
+                         axis_types=(jax.sharding.AxisType.Auto,))
+    out = {}
+    for dist in RING_COST_DISTS:
+        plan = C.build_plan(g, 4, ps=PS, dist=dist)
+        arrays = jax.tree.map(
+            lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype),
+            pp.plan_device_arrays(plan))
+        body = functools.partial(
+            pp._mgg_shard_body, axis_name="ring", n_dev=4, dist=dist,
+            tile_rows=plan.tile_rows, interleave=True, use_kernel=False,
+            acc_dtype=jnp.float32)
+        fn = jax.shard_map(body, mesh=mesh,
+                           in_specs=(PartitionSpec("ring"),
+                                     pp._plan_specs("ring")),
+                           out_specs=PartitionSpec("ring"), check_vma=False)
+        with mesh:
+            hlo = jax.jit(fn).lower(jax.ShapeDtypeStruct(
+                (plan.padded_nodes, D), jnp.float32), arrays).compile()
+        cost = analyze(hlo.as_text()).collectives["collective-permute"]
+        out[f"ring_cost/d{dist}/permute_bytes"] = np.asarray(cost["bytes"])
+        out[f"ring_cost/d{dist}/collective_bytes"] = np.asarray(
+            C.collective_bytes(plan, D))
     return out
 
 
@@ -509,3 +559,20 @@ def test_expert_parallel_matches_reference_on_its_mesh(ref, chunks):
     want = ref[f"ep/chunks{chunks}"]
     np.testing.assert_allclose(got, want, rtol=1e-5,
                                atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("dist", RING_COST_DISTS)
+def test_ring_rotation_bytes_match_reference_hlo(ref, dist):
+    """The rotations ``mgg_aggregate`` issues on a meta ring of the same
+    plan, counted by ``launch/op_cost.py``, a shard's share: equal to the
+    reference's trip-multiplied ``collective-permute`` bytes and to
+    ``collective_bytes``."""
+    from repro_torch.launch import dryrun_gnn
+
+    plan = TC.build_plan(_graph(TC), 4, ps=PS, dist=dist)
+    got = dryrun_gnn.count_ring(plan, D).collectives["collective-permute"]
+    want = ref[f"ring_cost/d{dist}/permute_bytes"]
+    assert got["bytes"] / 4 == want == ref[
+        f"ring_cost/d{dist}/collective_bytes"] == TC.collective_bytes(plan,
+                                                                        D)
+    assert got["count"] == dist * 3
