@@ -348,8 +348,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
    11's timed forward / the card's bf16 peak) printed; (c) the reference's
    ``tests/multidev/dryrun_lite.py`` cells (granite-moe-1b-a400m train_4k,
    xlstm-125m decode_32k, whisper-base prefill_32k) at full width on a
-   (2, 2) meta mesh: flops > 0, the train cell's collectives > 0, each
-   cell's seconds; (d) xlstm-125m train_4k on one shard: its parameters'
+   (2, 2) meta mesh: flops > 0, every cell's implied all-gather and
+   all-reduce bytes > 0 (serve cells too), each cell's ``per_op`` with
+   its sources and its seconds; (d) xlstm-125m train_4k on one shard: its parameters'
    and AdamW state's argument bytes equal phase 17's on the card.  Every
    kernel's ``bytes``/``flops`` in the kernels line comes from
    ``kernels/cost.py``, the functions the counters record with.
@@ -6126,7 +6127,9 @@ def dry_run_on_card(torch, K, flops, cells):
     K7's work at that shape; ``forward_mfu`` = the counted flops over phase
     11's timed forward over the card's bf16 peak.  (c) The reference's
     ``dryrun_lite`` cells at full width on a (2, 2) meta mesh: flops > 0,
-    the train cell's collectives > 0, each cell's seconds.  (d) xlstm-125m
+    every cell's (serve cells' too) all-gather and all-reduce bytes > 0
+    (the collectives XLA's partitioner would add, ``dist/implied.py``),
+    each cell's ``per_op`` with its sources and its seconds.  (d) xlstm-125m
     train_4k on one shard: the parameters' and AdamW state's argument
     bytes == phase 17's on the card.  (c) and (d) run in their own process
     from phase 1 on (:func:`start_dry_run_cells`); the phase's own wall
@@ -6221,8 +6224,10 @@ def dry_run_on_card(torch, K, flops, cells):
     for arch, shape in DRY_CELLS:
         r = got[f"{arch} {shape} 2x2"]
         check(r["flops"] > 0, f"phase 21 (c): {arch} {shape}: no flops")
-        check(shape != "train_4k" or r["collective_bytes"] > 0,
-              f"phase 21 (c): {arch} {shape}: no collectives")
+        check(all(r["per_op"].get(k, {}).get("bytes", 0) > 0
+                  for k in ("all-gather", "all-reduce")),
+              f"phase 21 (c): {arch} {shape}: no implied all-gather or "
+              f"all-reduce: {r['per_op']}")
     one = got["xlstm-125m train_4k 1x1"]
     sizes = one["memory"]["argument_sizes"]
     card_bytes = DRY.pop("xlstm_train_state_bytes")

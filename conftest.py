@@ -12,33 +12,39 @@ once a file.
 xdist queues the units largest first (``--loadscope-reorder``, its
 default), which puts the one-test units of those scripts last: the
 longest script then starts only once the big files are handed out, and
-ends the run alone.  So the scripts go to the head of the queue, longest
-first (``LONGEST_FIRST``, from ``--durations`` of a tier-1 run): the six
-longest start at once, one a worker, and the next six (about 20 s each)
-become each worker's second unit, which xdist hands out at the start (a
-worker runs a test only once it holds the next).  Without xdist the hook
+ends the run alone.  So the longest units go to the head of the queue,
+longest first (``LONGEST_FIRST``, from ``--durations`` of a tier-1 run):
+the scripts and the few files of several minutes, the six longest at
+once, one a worker, and the next ones as each worker's second unit,
+which xdist hands out at the start (a worker runs a test only once it
+holds the next).  Without xdist the hook
 is never called (``optionalhook``).
 """
 import pytest
 
 SPLIT_FILES = ("tests/test_system.py",)
 
-# tests/test_system.py's subprocess cases, longest first
-LONGEST_FIRST = tuple(
-    f"tests/test_system.py::{case}" for case in (
-        "test_multidevice_subprocess[mgg_sparse.py]",
-        "test_multidevice_subprocess[collectives_property.py]",
-        "test_multidevice_subprocess[mgg_equivalence.py]",
-        "test_multidevice_subprocess[feature_store.py]",
-        "test_multidevice_subprocess[collectives.py]",
-        "test_multidevice_subprocess[serve_cluster.py]",
-        "test_dryrun_machinery_small_mesh",
-        "test_multidevice_subprocess[serve_gnn.py]",
-        "test_multidevice_subprocess[ring_tp.py]",
-        "test_multidevice_subprocess[gnn_training.py]",
-        "test_multidevice_subprocess[elastic_restore.py]",
-        "test_multidevice_subprocess[sampled_blocks.py]",
-    ))
+# the longest work units first (seconds on one worker in loaded tier-1
+# runs): tests/test_system.py's subprocess cases and the longest whole
+# files, interleaved
+_SCRIPT = "tests/test_system.py::test_multidevice_subprocess[{}]".format
+LONGEST_FIRST = (
+    _SCRIPT("mgg_sparse.py"),                      # 620-680
+    _SCRIPT("collectives_property.py"),            # 495-570
+    "tests/test_layer_plans.py",                   # 330-355
+    _SCRIPT("mgg_equivalence.py"),                 # 190-270
+    "tests/test_torch_collectives.py",             # 205-225
+    "tests/test_models.py",                        # 185
+    _SCRIPT("feature_store.py"),
+    _SCRIPT("collectives.py"),
+    _SCRIPT("serve_cluster.py"),
+    "tests/test_system.py::test_dryrun_machinery_small_mesh",
+    _SCRIPT("serve_gnn.py"),
+    _SCRIPT("ring_tp.py"),
+    _SCRIPT("gnn_training.py"),
+    _SCRIPT("elastic_restore.py"),
+    _SCRIPT("sampled_blocks.py"),
+)
 
 
 @pytest.hookimpl(optionalhook=True)

@@ -86,7 +86,7 @@ class VirtualRing:
         pairs = tuple(zip(src, dst)) if isinstance(src, tuple) \
             else ((src, dst),)
         cost.record_transfer(
-            kind, lambda: sum(s.numel() * s.element_size() for s, _ in pairs),
+            kind, lambda: [s for s, _ in pairs],
             self._side is not None or self.device.type == "meta")
         if self._side is None:
             for s, d in pairs:

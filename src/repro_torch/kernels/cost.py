@@ -46,7 +46,8 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 
 __all__ = ["Work", "Counter", "counting", "hidden", "record",
-           "record_transfer", "host", "distinct", "gather_sum",
+           "record_transfer", "record_implied", "is_counting", "hlo_bytes",
+           "host", "distinct", "gather_sum",
            "worst_gather_sum", "segment_add", "scatter_sum",
            "worst_scatter_sum", "gather_rows", "worst_gather_rows",
            "sparse_gather_sum", "worst_sparse_gather_sum",
@@ -206,12 +207,15 @@ def slstm_scan_backward(b: int, s: int, h: int, hd: int) -> Work:
 class Counter:
     """What the kernels and transfers launched while it is active did:
     ``kernels[name]`` (launches, flops, bytes, exact: False once a record
-    was a worst case) and ``transfers[kind]`` (bytes, count, async: those
-    issued on a side stream, or on meta as the card would issue them)."""
+    was a worst case), ``transfers[kind]`` (bytes, count, async: those
+    issued on a side stream, or on meta as the card would issue them) and
+    ``implied[kind]`` (bytes per device, count: the collectives a real
+    mesh's partitioner would add, ``dist/implied.py``)."""
 
     def __init__(self):
         self.kernels: Dict[str, dict] = {}
         self.transfers: Dict[str, dict] = {}
+        self.implied: Dict[str, dict] = {}
 
     def add_kernel(self, name: str, work: Work) -> None:
         k = self.kernels.setdefault(
@@ -221,12 +225,19 @@ class Counter:
         k["bytes"] += int(work.bytes)
         k["exact"] = k["exact"] and bool(work.exact)
 
-    def add_transfer(self, kind: str, nbytes: int, asynchronous: bool
-                     ) -> None:
-        t = self.transfers.setdefault(kind, dict(bytes=0, count=0, n_async=0))
+    def add_transfer(self, kind: str, nbytes: int, asynchronous: bool,
+                     hlo_bytes: Optional[int] = None) -> None:
+        t = self.transfers.setdefault(
+            kind, dict(bytes=0, count=0, n_async=0, hlo_bytes=0))
         t["bytes"] += int(nbytes)
         t["count"] += 1
         t["n_async"] += int(bool(asynchronous))
+        t["hlo_bytes"] += int(nbytes if hlo_bytes is None else hlo_bytes)
+
+    def add_implied(self, kind: str, nbytes: int, count: int) -> None:
+        t = self.implied.setdefault(kind, dict(bytes=0, count=0))
+        t["bytes"] += int(nbytes)
+        t["count"] += int(count)
 
 
 # the counters recording now, innermost last; and how deep the calls are
@@ -274,14 +285,38 @@ def record(name: str, work_of) -> None:
         c.add_kernel(name, work)
 
 
-def record_transfer(kind: str, nbytes_of, asynchronous: bool) -> None:
-    """Record one transfer of ``nbytes_of()`` bytes under ``kind`` (the
-    reference's collective name) in every active counter."""
+def hlo_bytes(t) -> int:
+    """``t``'s bytes as the reference's CPU-compiled HLO moves them: its
+    backend carries bf16 and fp16 in fp32, so a floating element below 4
+    bytes counts 4."""
+    es = t.element_size()
+    return t.numel() * (max(es, 4) if t.is_floating_point() else es)
+
+
+def record_transfer(kind: str, sources_of, asynchronous: bool) -> None:
+    """Record one transfer of the tensors ``sources_of()`` gives under
+    ``kind`` (the reference's collective name) in every active counter:
+    their bytes, and their bytes at the reference's width
+    (:func:`hlo_bytes`)."""
     if not _ACTIVE:
         return
-    nbytes = nbytes_of()
+    srcs = sources_of()
+    nbytes = sum(s.numel() * s.element_size() for s in srcs)
+    wide = sum(hlo_bytes(s) for s in srcs)
     for c in _ACTIVE:
-        c.add_transfer(kind, nbytes, asynchronous)
+        c.add_transfer(kind, nbytes, asynchronous, wide)
+
+
+def is_counting() -> bool:
+    """True while a counter records (outside a record's own copies)."""
+    return bool(_ACTIVE) and not is_hidden()
+
+
+def record_implied(kind: str, nbytes: int, count: int = 1) -> None:
+    """Record ``count`` implied collectives of ``kind`` moving ``nbytes``
+    per device in all, in every active counter."""
+    for c in _ACTIVE:
+        c.add_implied(kind, nbytes, count)
 
 
 def host(t) -> np.ndarray:

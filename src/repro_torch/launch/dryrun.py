@@ -23,17 +23,28 @@ It writes the reference's JSON keys, with these differences:
   divided by the mesh's size; a hand-written kernel on meta counts the
   most its shapes allow where its work depends on the data
   (``collectives["kernels"]``, ``exact``);
-* ``collectives["per_op"]`` holds two parts, each entry tagged by
-  ``source``.  ``issued``: the transfers the port enqueues (ring TP, the
-  expert-parallel exchange, the ef all-reduce), counted exactly as the
-  step runs, bytes per device.  ``implied``: what the spec trees imply on
-  a real mesh, which on one card moves nothing (``DistCtx.constrain`` is
-  the identity) — an all-gather of each data-sharded parameter block in
-  the forward and again in the backward, a reduce-scatter of its
-  gradient, and an all-reduce of each replicated gradient, per train step
-  (the activations' tensor-parallel reduces, which XLA would add, are not
-  implied here).  Together they stand where the reference has XLA's
-  partitioned collectives;
+* ``collectives["per_op"]`` counts, per device and per step, the
+  collectives of the reference's partitioned HLO under its kinds, each
+  entry tagged by ``source``.  ``issued``: the transfers the port
+  enqueues (ring TP, the expert-parallel exchange, the ef all-reduce),
+  counted exactly as the step runs.  ``implied``: what XLA's SPMD
+  partitioner adds on a real mesh, which on one card moves nothing
+  (``DistCtx.constrain`` is the identity): ``dist/implied.py`` records it
+  at each site the model reaches (the attention's key gathers and halos,
+  the backward's partial-sum reductions, the parameters' FSDP gathers
+  and gradient reductions, cache re-cuts, the loss's shifts, decode's
+  weight gathers, the xlstm's split projections),
+  forward, rematerialised forward and backward.  Mapping rules: the bytes
+  are the reference's ``hlo_cost`` operand bytes, trip-multiplied; XLA's
+  CPU backend carries bf16 in fp32, so a floating transfer counts 4
+  bytes an element (an issued bf16 exchange too; ``OpCost.collectives``
+  keeps the bytes the card moves); where the CPU partitioner emits an
+  all-reduce (and a slice) for a GPU's reduce-scatter, the all-reduce is
+  what is counted; counts are this port's ops and are not held where
+  XLA's combiner merged several into one.  Every family's smoke cells are
+  held kind by kind within 1 % of the reference's on (2, 2) and (1, 4)
+  meshes (``tests/test_torch_collectives.py``,
+  ``tests/test_torch_serve.py``);
 * ``memory``: ``argument_size`` and ``output_size`` are exact, the bytes
   of one device's shards of the arguments and the outputs
   (``argument_sizes`` splits the first by argument); ``temp_size`` is the
@@ -57,7 +68,7 @@ from .cells import all_cells, build_cell
 from .mesh import make_production_mesh
 from .op_cost import analyze
 
-__all__ = ["run_cell", "implied_collectives", "shard_bytes", "main"]
+__all__ = ["run_cell", "shard_bytes", "main"]
 
 
 def _axes(entry) -> tuple:
@@ -93,31 +104,6 @@ def shard_bytes(tree, shardings) -> int:
     matching tree of ``MeshSharding``)."""
     return sum(t.numel() * t.element_size() // _split(s.spec, s.mesh)
                for t, s in _pairs(tree, shardings))
-
-
-def implied_collectives(params, p_shardings, data_axes) -> Dict[str, dict]:
-    """The collectives a train step's spec trees imply on a real mesh,
-    per device (operand bytes, count): each data-sharded parameter block
-    all-gathered in the forward and again in the backward, its gradient
-    reduce-scattered from the block gathered over the data axes, and each
-    replicated gradient all-reduced over them."""
-    out = {k: dict(bytes=0, count=0, source="implied")
-           for k in ("all-gather", "reduce-scatter", "all-reduce")}
-    for t, s in _pairs(params, p_shardings):
-        mesh = s.mesh
-        data = math.prod(mesh.shape.get(a, 1) for a in data_axes)
-        if data <= 1:
-            continue
-        block = t.numel() * t.element_size() // _split(s.spec, mesh)
-        if any(a in data_axes for e in s.spec for a in _axes(e)):
-            out["all-gather"]["bytes"] += 2 * block
-            out["all-gather"]["count"] += 2
-            out["reduce-scatter"]["bytes"] += block * data
-            out["reduce-scatter"]["count"] += 1
-        else:
-            out["all-reduce"]["bytes"] += block
-            out["all-reduce"]["count"] += 1
-    return {k: v for k, v in out.items() if v["count"]}
 
 
 def _output_shardings(cell, out):
@@ -166,17 +152,15 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
     trace_s = time.perf_counter() - t0
     n = mesh.size
     coll = oc.as_dict()
-    per_op = {k: dict(bytes=v["bytes"] / n, count=v["count"],
+    per_op = {k: dict(bytes=oc.hlo_bytes[k] / n, count=v["count"],
                       source="issued") for k, v in coll["per_op"].items()}
-    if train:
-        for k, v in implied_collectives(cell.args[0], cell.in_shardings[0],
-                                        _data_axes(cell)).items():
-            if k in per_op:
-                per_op[k] = dict(bytes=per_op[k]["bytes"] + v["bytes"],
-                                 count=per_op[k]["count"] + v["count"],
-                                 source="issued+implied")
-            else:
-                per_op[k] = v
+    for k, v in oc.implied.items():
+        if k in per_op:
+            per_op[k] = dict(bytes=per_op[k]["bytes"] + v["bytes"],
+                             count=per_op[k]["count"] + v["count"],
+                             source="issued+implied")
+        else:
+            per_op[k] = dict(v, source="implied")
     coll.update(per_op=per_op,
                 total_bytes=sum(v["bytes"] for v in per_op.values()))
     sizes = [shard_bytes(a, s) for a, s in zip(cell.args, cell.in_shardings)]

@@ -68,6 +68,9 @@ class OpCost:
     while_trips: Dict[str, int]
     kernels: Dict[str, dict]
     peak_live_bytes: int
+    implied: Dict[str, Dict[str, int]] = dataclasses.field(
+        default_factory=dict)
+    hlo_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
     output: Any = dataclasses.field(default=None, repr=False)
 
     def as_dict(self) -> Dict:
@@ -172,4 +175,7 @@ def analyze(fn, *args, **kwargs) -> OpCost:
         total_collective_bytes=sum(v["bytes"] for v in per_op.values()),
         n_async=sum(v["n_async"] for v in counter.transfers.values()),
         while_trips={}, kernels=kernels, peak_live_bytes=mode.peak,
+        implied={k: dict(v) for k, v in sorted(counter.implied.items())},
+        hlo_bytes={k: v["hlo_bytes"]
+                   for k, v in sorted(counter.transfers.items())},
         output=out)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import implied
 from ..train.tree import tree_map
 from .layers import (KVCache, attention_apply, attention_init, draw_device,
                      embed_init, embed_lookup, kv_cache_init, layer_norm,
@@ -204,6 +205,7 @@ def loss_fn(params, cfg, batch: Dict[str, torch.Tensor], *,
     logits, _ = _decoder(params, cfg, tokens, enc_out, enc_pos, ctx=ctx,
                          positions=_arange(b, s, tokens.device),
                          remat=cfg.remat)
+    logits = implied.loss(ctx, tokens, logits, False)
     tgt = tokens[:, 1:]
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     ll = torch.gather(logp, -1, tgt[..., None].long())[..., 0]
@@ -251,6 +253,7 @@ def prefill(params, cfg, frames, tokens, cache, *, ctx: DistCtx = DistCtx()):
     cache["cross_k"].copy_(ck)
     cache["cross_v"].copy_(cv)
     cache["enc_pos"].copy_(enc_pos)
+    implied.last_logits(ctx, logits)
     return logits[:, -1], cache
 
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dist import implied
 from ..kernels import ops
 
 __all__ = [
@@ -371,6 +372,8 @@ def attention_apply(
 
     window = cfg.sliding_window or 0
     new_cache = None
+    if cache is None or s > 1:      # keys cut like the stream (a dry run)
+        k, v = implied.attention(ctx, q, k, v, chunk)
     if kv_override is not None:
         if causal:
             out = _chunked_softmax_attention(q, k, v, positions, kv_pos,
@@ -399,6 +402,7 @@ def attention_apply(
         out = _chunked_softmax_attention(q, k, v, positions, positions,
                                          window, chunk)
         tail = min(s, cache.k.shape[1])
+        implied.prefill_cache(ctx, k[:, -tail:])
         _write_cache(cache, k[:, -tail:], v[:, -tail:], positions[:, -tail:])
         new_cache = cache
     out = out.reshape(b, s, cfg.n_heads * hd)

@@ -35,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import implied
 from ..dist.sharding import P
 from ..train.tree import tree_map
 from . import moe as moe_lib
@@ -121,6 +122,8 @@ def _attn_sub(bp, h, cfg, positions, cache, ctx):
 
 
 def _dense_block(bp, h, cfg, positions, cache, ctx):
+    if cache is not None and h.shape[1] == 1:
+        implied.decode_block(ctx, bp, h, cfg)
     h, new_cache = _attn_sub(bp, h, cfg, positions, cache, ctx)
     h = h + mlp_apply(bp["mlp"], _norm(h, bp["ln2"], cfg), cfg, ctx=ctx)
     return ctx.constrain(h), new_cache
@@ -143,6 +146,8 @@ def _moe_block_init(gen: torch.Generator, cfg, n: Optional[int], dev):
 
 
 def _moe_block(bp, h, cfg, positions, cache, ctx):
+    if cache is not None and h.shape[1] == 1:
+        implied.decode_block(ctx, bp, h, cfg)
     h, new_cache = _attn_sub(bp, h, cfg, positions, cache, ctx)
     z = _norm(h, bp["ln2"], cfg)
     if (cfg.expert_mode == "ep" and ctx.mesh is not None
@@ -250,7 +255,8 @@ def _xlstm_block_init(gen: torch.Generator, cfg, kind: str, n: int, dev):
 
 
 def _xlstm_block(bp, h, cfg, kind, state, ctx):
-    z = _norm(h, bp["ln"], cfg)
+    z = implied.xlstm_block(ctx, bp["mix"], _norm(h, bp["ln"], cfg), cfg,
+                            kind, state is not None)
     fn = xlstm_lib.mlstm_apply if kind == "m" else xlstm_lib.slstm_apply
     y, new_state = fn(bp["mix"], z, cfg, state=state)
     return ctx.constrain(h + y), new_state
@@ -415,9 +421,12 @@ def forward(
         hv = vis.to(cfg.cdtype) @ params["vis_proj"]["w"].to(cfg.cdtype)
         h = torch.cat([hv, h], dim=1)
         n_vis = vis.shape[1]
+        h = implied.vlm_prefix(ctx, h, n_vis)
         positions = torch.arange(s + n_vis, dtype=torch.int32,
                                  device=dev).expand(b, s + n_vis)
     h = ctx.constrain(h)
+    if cache is None:
+        implied.embed_rows(ctx, tokens, cfg.d_model)
 
     if cfg.family == "xlstm":
         h = _xlstm_forward(params, cfg, h, cache, ctx, remat)
@@ -440,7 +449,7 @@ def forward(
 
     h = _norm(h, params["final_norm"], cfg)
     if n_vis:
-        h = h[:, n_vis:]
+        h = implied.vlm_head(ctx, h, n_vis)[:, n_vis:]
     if cfg.tie_embeddings:
         logits = unembed_logits(params["embed"], h, cfg.vocab)
     else:
@@ -458,6 +467,9 @@ def loss_fn(params, cfg, batch: Dict[str, torch.Tensor], *,
     → ``(loss, dict(loss, ntokens))``."""
     tokens = batch["tokens"]
     logits, _ = forward(params, cfg, tokens, ctx=ctx, vis=batch.get("vis"))
+    logits = implied.loss(ctx, tokens, logits, "loss_mask" in batch,
+                          prefix=cfg.family == "vlm"
+                          and batch.get("vis") is not None)
     tgt = tokens[:, 1:]
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     ll = torch.gather(logp, -1, tgt[..., None].long())[..., 0]
@@ -474,6 +486,7 @@ def prefill(params, cfg, tokens, cache, *, ctx: DistCtx = DistCtx(),
     """Run the prompt; fills caches; returns (last-position logits, cache)."""
     logits, new_cache = forward(params, cfg, tokens, ctx=ctx, cache=cache,
                                 vis=vis, remat=False)
+    implied.last_logits(ctx, logits)
     return logits[:, -1], new_cache
 
 
@@ -482,4 +495,6 @@ def decode_step(params, cfg, token, pos, cache, *, ctx: DistCtx = DistCtx()):
     logits, new_cache = forward(params, cfg, token[:, None], ctx=ctx,
                                 positions=pos[:, None], cache=cache,
                                 remat=False, step=True)
+    if cfg.family != "hybrid":
+        implied.decode_head(ctx, params, token, cfg)
     return logits[:, 0], new_cache

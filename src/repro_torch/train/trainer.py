@@ -37,6 +37,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from ..dist import implied
 from ..models import encdec, transformer
 from ..obs import NULL_TRACER
 from . import checkpoint as ckpt_lib
@@ -100,6 +101,7 @@ def make_train_step(
     def step(params, opt_state, batch):
         if ef_on:
             opt_state, ef_err = opt_state
+        implied.train_params(ctx, params, cfg)
         if accum_steps == 1:
             loss, _, grads = _grads_of(loss_fn, params, batch)
         else:

@@ -8,8 +8,8 @@ scan), written as the loops the port runs, the two dot-flop counts are
 equal; so are they on three smoke-config cells on one shard (a dense train
 step, an xlstm decode step, a whisper prefill), the reference's jitted
 cell against the port's on a meta mesh.  ``launch/cells.py`` has the
-reference's cells, skips and input shapes; a train cell's implied
-collectives match a count from the reference's own spec trees; the GNN
+reference's cells, skips and input shapes; each rule of
+``dist/implied.py`` gives the bytes stated on a hand-built op; the GNN
 dry run's rotations equal ``collective_bytes``; the kernels' work
 functions (``kernels/cost.py``) equal the counts ``chip_smoke.py``
 computed inline, and printed on an H100, before they existed; and the
@@ -17,9 +17,7 @@ meta route is reached from nothing but a meta tensor.  No XLA subprocess: the
 reference compiles in process on one CPU device.
 """
 import dataclasses
-import functools
 import json
-import math
 import types
 
 import jax
@@ -31,19 +29,19 @@ from jax import lax
 
 from repro import configs as rconfigs
 from repro.dist import make_mesh as r_make_mesh
-from repro.dist import sharding as rshd
 from repro.launch import cells as rcells
 from repro.launch.hlo_cost import analyze as hlo_analyze
-from repro.models import transformer as RT
 
 import repro_torch.core as TC
 from repro_torch import configs as tconfigs
+from repro_torch.dist import implied
 from repro_torch.dist import VirtualRing, resolve_device
 from repro_torch.dist.mesh import VirtualMesh
 from repro_torch.kernels import cost, ops
 from repro_torch.launch import cells as tcells
 from repro_torch.launch import dryrun, dryrun_gnn
 from repro_torch.launch.op_cost import analyze
+from repro_torch.models import transformer as RT_port
 
 # six test workers share the host's cores: a few torch threads a worker
 torch.set_num_threads(2)
@@ -189,54 +187,169 @@ def test_smoke_cell_dot_flops_equal_the_reference(smoke_configs, arch,
     assert got["n_chips"] == 1 and got["collectives"]["while_trips"] == {}
 
 
-# -- implied collectives ------------------------------------------------------
+# -- implied collectives: the rules on hand-built ops -------------------------
+#
+# Each case runs one site of dist/implied.py on meta tensors under a
+# counter, on a (data 2, model 2) meta mesh unless stated; the bytes are a
+# device's, fp32 width (the reference's CPU HLO carries bf16 as fp32).
+# tests/test_torch_collectives.py and tests/test_torch_serve.py hold whole
+# cells against the reference's partitioned HLO.
 
-def test_implied_collectives_match_the_reference_specs(smoke_configs):
-    """A smoke dense train cell on a (2, 2) meta mesh: the all-gathers,
-    reduce-scatters and all-reduces its spec trees imply, against a count
-    over the reference's own ``param_specs`` of the reference's tree."""
-    arch = "codeqwen1.5-7b"
-    got = dryrun.run_cell(arch, "train_4k", False, mesh=VirtualMesh(
-        (2, 2), ("data", "model"), META))["collectives"]["per_op"]
-    cfg = rconfigs.get_smoke_config(arch)
-
-    @dataclasses.dataclass
-    class Shape:                 # the rules read only the mesh's .shape
-        shape: dict
-
-    rules = rshd.ShardingRules(Shape({"data": 2, "model": 2}), train=True)
-    params = jax.eval_shape(functools.partial(
-        RT.init_params, cfg=cfg, vocab_multiple=2), jax.random.key(0))
-    specs = rshd.param_specs(params, rules, cfg.expert_mode)
-    want = {k: [0, 0] for k in ("all-gather", "reduce-scatter",
-                                "all-reduce")}
-
-    def count(leaf, spec):
-        axes = [a for e in spec if e is not None
-                for a in ((e,) if isinstance(e, str) else e)]
-        block = math.prod(leaf.shape) * leaf.dtype.itemsize // math.prod(
-            2 for _ in axes)
-        if "data" in axes:
-            want["all-gather"][0] += 2 * block
-            want["all-gather"][1] += 2
-            want["reduce-scatter"][0] += 2 * block
-            want["reduce-scatter"][1] += 1
-        else:
-            want["all-reduce"][0] += block
-            want["all-reduce"][1] += 1
-
-    jax.tree.map(count, params, specs,
-                 is_leaf=lambda x: isinstance(x, jax.ShapeDtypeStruct))
-    assert want["all-gather"][1] > 0 and want["all-reduce"][1] > 0
-    for k, (nbytes, n) in want.items():
-        assert got[k] == dict(bytes=nbytes, count=n, source="implied"), k
+def _ctx(shape=(2, 2), **kw):
+    return RT_port.DistCtx(mesh=VirtualMesh(shape, ("data", "model"), META),
+                           **kw)
 
 
-def test_serve_cell_implies_no_collectives(smoke_configs):
-    r = dryrun.run_cell("codeqwen1.5-7b", "decode_32k", False,
-                        mesh=VirtualMesh((2, 2), ("data", "model"), META))
-    assert r["collectives"]["per_op"] == {}
-    assert r["memory"]["argument_size"] == sum(r["memory"]["argument_sizes"])
+def _implied(fn, *args, **kw):
+    with cost.counting() as c:
+        out = fn(*args, **kw)
+    return c.implied, out
+
+
+def _meta(*shape, grad=False):
+    return torch.empty(shape, device=META, requires_grad=grad)
+
+
+def test_implied_kv_gathered_over_the_sequence():
+    """Keys and values (B 8, T 4096, KV 4, hd 16) cut on batch over data
+    and on the sequence over model, scanned in 1024-row chunks: each is
+    gathered whole, 4 batch rows · 2048 · 4 · 16 · 4 B = 2 MiB a device."""
+    q, k, v = _meta(8, 4096, 4, 16), _meta(8, 4096, 4, 16), \
+        _meta(8, 4096, 4, 16)
+    got, _ = _implied(implied.attention, _ctx(), q, k, v, 1024)
+    assert got == {"all-gather": dict(bytes=2 * 2 ** 21, count=2)}
+
+
+def test_implied_halo_before_padding_to_whole_chunks():
+    """T 1500 on model 2 (750 rows a device) padded to 2048 (1024 a
+    device): each of K and V first takes a 274-row halo from its
+    neighbour (4 · 274 · 4 · 16 · 4 B), then is gathered (4 · 1024 rows);
+    on model 4 (375 rows, 512 padded) the 411-row halo takes two hops,
+    375 and 36 rows, and the 2 chunks split the 4 shards 2 × 2, so every
+    chunk is gathered again at both products (4 · 512 · 4 · 16 · 4 B)."""
+    q, k = _meta(8, 1500, 4, 16), _meta(8, 1500, 4, 16)
+    got, _ = _implied(implied.attention, _ctx(), q, k, k, 1024)
+    row = 4 * 16 * 4
+    assert got == {"collective-permute": dict(bytes=2 * 4 * 274 * row,
+                                              count=2),
+                   "all-gather": dict(bytes=2 * 4 * 1024 * row, count=2)}
+    got, _ = _implied(implied.attention, _ctx((1, 4)), q, k, k, 1024)
+    assert got == {
+        "collective-permute": dict(bytes=2 * 8 * (375 + 36) * row, count=4),
+        "all-gather": dict(bytes=2 * 8 * 512 * row * 3, count=6)}
+
+
+def test_implied_partial_sums_over_the_cut_queries():
+    """The backward of the products over a key chunk contracts the
+    queries' sequence, cut on model: each chunk's key and value gradients
+    (4 batch rows, H 2, 1024 keys, hd 8) are partial sums, reduced once a
+    chunk, 2 · 4 · 2 · 1024 · 8 · 4 B; the forward gathered K and V."""
+    q, k, v = _meta(8, 2048, 2, 8, grad=True), \
+        _meta(8, 2048, 1, 8, grad=True), _meta(8, 2048, 1, 8, grad=True)
+    with cost.counting() as c:
+        k2, v2 = implied.attention(_ctx(), q, k, v, 1024)
+        assert c.implied == {"all-gather": dict(bytes=2 * 4 * 1024 * 32,
+                                                count=2)}
+        k2.sum().backward()
+    assert c.implied["all-reduce"] == dict(bytes=2 * 2 * 4 * 2 * 1024 * 8
+                                           * 4, count=2)
+
+
+def test_implied_labels_shift_across_the_sequence_cut():
+    """The next-token loss on a sequence-cut stream: the labels and the
+    mask shift one position across the cut, 4 batch rows · 4 B each; in
+    the backward the gathered log-probabilities' int32 indices come back
+    over data (4 · 64 · 4 B) and over model (4 · 32 · 4 B)."""
+    tokens = torch.empty((8, 64), dtype=torch.int32, device=META)
+    logits = _meta(8, 64, 128, grad=True)
+    with cost.counting() as c:
+        out = implied.loss(_ctx(), tokens, logits, True)
+        assert c.implied == {"collective-permute": dict(bytes=2 * 4 * 4,
+                                                        count=2)}
+        out.sum().backward()
+    assert c.implied["all-gather"] == dict(bytes=4 * 64 * 4 + 4 * 32 * 4,
+                                           count=2)
+
+
+def test_implied_cache_reshard_from_sequence_to_heads():
+    """Prefill writes K and V (B 8, S 4096, KV 4, hd 16), cut on the
+    sequence, into a cache cut on batch and KV heads: the new rows are
+    gathered over data (4 · 2048 · 4 · 16 · 4 B each), re-cut from the
+    sequence to the heads with all-to-all over the whole batch
+    (8 · 2048 · 4 · 16 · 4 B each), and the scatter's (row, slot) int32
+    pairs are gathered (8 · 2048 · 8 B; 4 · 2048 · 8 B) and permuted
+    (4 · 2048 · 8 B)."""
+    got, _ = _implied(implied.prefill_cache, _ctx(), _meta(8, 4096, 4, 16))
+    row = 4 * 16 * 4
+    assert got == {
+        "all-gather": dict(bytes=2 * 4 * 2048 * row + 8 * 2048 * 8
+                           + 4 * 2048 * 8, count=4),
+        "all-to-all": dict(bytes=2 * 8 * 2048 * row, count=2),
+        "collective-permute": dict(bytes=4 * 2048 * 8, count=1)}
+
+
+@pytest.mark.parametrize("d", [64, 1024])
+def test_implied_decode_moves_the_smaller_operand(d):
+    """A decode layer (B 128: 64 rows a device; H = KV = 4): at d 64 a
+    model shard of wq (64 · 32 · 4 B) is smaller than the 64 rows it
+    would reduce (64 · 64 · 4 B), so the weights are gathered (wq, wk,
+    wv: 8 KiB each; gate, up, down: 12 KiB each), q, k and v re-cut to
+    the cache's heads (16 KiB each), wo's output and the two norms
+    reduced; at d 1024 the shard (2 MiB) is the larger, so the weights
+    stay cut and wo's and the MLP's outputs are reduced (256 KiB each).
+    Both gather the new keys and values over data for the cache."""
+    cfg = dataclasses.replace(tconfigs.get_smoke_config("codeqwen1.5-7b"),
+                              d_model=d, head_dim=d // 4, d_ff=3 * d // 2)
+    bp = RT_port._dense_block_init(torch.Generator(), cfg, None, META)
+    got, _ = _implied(implied.decode_block, _ctx(), bp, _meta(128, 1, d),
+                      cfg)
+    cache = 2 * 64 * d // 2 * 4             # K and V, 2 of 4 heads a shard
+    if d == 64:
+        assert got == {
+            "all-gather": dict(bytes=3 * 8192 + 3 * 12288 + cache + 512,
+                               count=9),
+            "all-to-all": dict(bytes=3 * 16384, count=3),
+            "all-reduce": dict(bytes=16384 + 2 * 256, count=3)}
+    else:
+        assert got == {"all-gather": dict(bytes=cache, count=2),
+                       "all-reduce": dict(bytes=2 * 64 * d * 4, count=2)}
+
+
+def test_implied_fsdp_gathers_and_gradient_reductions():
+    """A train step's parameters on (data 2, model 2): a stacked column-
+    parallel weight (2 layers of 64 × 64, fp32, 32 KiB, cut (data, model))
+    is gathered over the model axis (8 KiB) and then over data (16 KiB),
+    in the forward and the backward's recompute; the embedding (128 × 64,
+    cut (model, data)) once; each gradient (32 KiB) is all-reduced over
+    the model axis and over data."""
+    cfg = tconfigs.get_smoke_config("codeqwen1.5-7b")
+    params = {"blocks": {"attn": {"wq": {"w": _meta(2, 64, 64)}}},
+              "embed": {"w": _meta(128, 64)}}
+    got, _ = _implied(implied.train_params, _ctx(), params, cfg)
+    assert got == {"all-gather": dict(bytes=2 * (8192 + 16384) + 8192
+                                      + 16384, count=6),
+                   "all-reduce": dict(bytes=4 * 32768, count=4)}
+
+
+def test_implied_nothing_off_a_count_or_a_mesh():
+    """Outside a counter, or on one shard, a site records nothing and
+    hands its tensors back unchanged."""
+    q = _meta(8, 4096, 4, 16)
+    k, v = implied.attention(_ctx(), q, q, q, 1024)
+    assert k is q and v is q
+    got, (k, v) = _implied(implied.attention, _ctx((1, 1)), q, q, q, 1024)
+    assert got == {} and k is q
+
+
+def test_mesh_transfer_counts_at_the_references_width():
+    """An issued transfer of bf16 blocks: its bytes as moved, and as the
+    reference's CPU HLO moves them (fp32) for the dry run's per_op."""
+    mesh = VirtualMesh((1, 2), ("data", "model"), "cpu")
+    x = torch.zeros((1, 2, 4, 6), dtype=torch.bfloat16)
+    with cost.counting() as c:
+        mesh.all_to_all(x, "model", 0, 1)
+    assert c.transfers["all-to-all"] == dict(bytes=96, count=1, n_async=0,
+                                             hlo_bytes=192)
 
 
 def test_dryrun_cli_writes_the_reference_keys(tmp_path, capsys):

@@ -173,7 +173,8 @@ def test_port_imports_no_jax():
         "        'repro_torch.launch.mesh', 'repro_torch.kernels.cost',\n"
         "        'repro_torch.kernels.meta', 'repro_torch.launch.op_cost',\n"
         "        'repro_torch.launch.cells', 'repro_torch.launch.dryrun',\n"
-        "        'repro_torch.launch.dryrun_gnn'}\n"
+        "        'repro_torch.launch.dryrun_gnn',\n"
+        "        'repro_torch.dist.implied'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"

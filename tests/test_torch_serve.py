@@ -17,7 +17,11 @@ updates, each held to the same tolerances; the bulk and fetch baselines
 (1e-5; ``tests/test_torch_obs.py`` runs them on one shard); and a serving
 cluster of two replicas on disjoint halves of the four devices behind the
 locality router, whose routing the port's cluster of two 2-shard rings
-repeats request by request (logits rtol 2e-4).
+repeats request by request (logits rtol 2e-4).  It also holds the
+collectives of the reference's smoke serve cells compiled on (2, 2) and
+(1, 4) meshes (``hlo_cost``), which the dry run's ``per_op`` must match
+kind for kind within 1 % (``tests/test_torch_collectives.py`` holds the
+train cells).
 Inside the port, served == offline holds bitwise.  The top-k compressed
 ring runs on random normal features (no ties at the ``k`` boundary, where
 ``lax.top_k`` and ``torch.topk`` may pick other columns).
@@ -40,6 +44,11 @@ SPARSE_RING_CASES = [(4, 1, True, False, 6), (8, 2, False, True, 23),
 # at each capacity, and its top-k variant at dist 2 for each k
 STREAM_CASES = [(8, 1, False), (4, 2, True)]
 STREAM_KS = (D, 6)
+# the smoke serve cells whose collectives the dump holds
+SERVE_CELLS = [("codeqwen1.5-7b", "prefill_32k"),
+               ("codeqwen1.5-7b", "decode_32k"),
+               ("granite-moe-1b-a400m", "decode_32k"),
+               ("whisper-base", "prefill_32k"), ("xlstm-125m", "decode_32k")]
 SERVE_PHASES = [dict(requests=24, alpha=1.2, seeds_max=3, update_frac=0.1),
                 dict(requests=24, alpha=1.2, seeds_max=3, rotate=True,
                      update_frac=0.1)]
@@ -109,6 +118,8 @@ def _reference_outputs(n_dev):
         from test_torch_obs import reference_baselines
         out.update({f"baseline_{k}": v for k, v in
                     reference_baselines(n_dev, mesh).items()})
+        from test_torch_collectives import MESHES, reference_collectives
+        out.update(reference_collectives(SERVE_CELLS, MESHES))
     return out
 
 
@@ -199,6 +210,8 @@ from repro.serve import run_trace as r_run_trace  # noqa: E402
 
 import repro_torch.core as TC  # noqa: E402
 from repro_torch.dist import VirtualRing  # noqa: E402
+from test_torch_collectives import (MESHES, assert_matches,  # noqa: E402
+                                    port_per_op)
 from repro_torch.serve import GNNServeEngine as TServe  # noqa: E402
 from repro_torch.serve import TrafficPhase as TPhase  # noqa: E402
 from repro_torch.serve import ZipfTraffic as TTraffic  # noqa: E402
@@ -510,3 +523,14 @@ def test_baselines_match_reference_four_shards(dump4):
         np.testing.assert_allclose(
             TC.unpad_table(bounds, rows, val.reshape(-1, D)), dense,
             rtol=1e-5, atol=1e-5, err_msg=key)
+
+
+@pytest.mark.parametrize("ms", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("arch,shape", SERVE_CELLS)
+def test_serve_cell_collectives_match_reference_hlo(dump4, monkeypatch,
+                                                    arch, shape, ms):
+    """A serve cell over a model axis: the dry run's per-op collectives
+    are the reference's partitioned HLO's, kind for kind within 1 %."""
+    got = port_per_op(arch, shape, ms, monkeypatch)
+    assert_matches(got, dump4, arch, shape, ms)
+    assert all(v["bytes"] > 0 for v in got.values())
